@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failure ends the run non-zero:
 
 1. device: the card's name and power limit, TF32 switched off for the f32
    reference products;
-2. build: nvcc compiles every kernel from pww_tpu_torch/csrc;
+2. build: nvcc compiles every kernel from pww_tpu_torch/csrc (K1-K5);
 3. kernels: K1 pww_reduce, K2 pww_cross_attention and K3
    flash_self_attention against their plain PyTorch versions at every shape
    of SD-1.5's 512² main path, bf16 inputs from a seeded generator, with
@@ -17,10 +17,23 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    card in bf16 against the same pipeline on the CPU in f32;
 5. main path: SD-1.5 at full width (synthetic N(0, 0.02) weights) through
    ``paint_with_words``, 512², cat/dog color map, CFG 7.5, LMS; the kernel
-   launch counters are zeroed before the run and must read K1 = K2 = 15·N
-   and K3 = 10·N after it;
+   launch counters are zeroed before the run and must read K1 = K2 = 15·N,
+   K3 = 10·N and K4 = K5 = 0 (the norm knobs are off) after it;
 6. profile: device time by kernel group over a 5-step call (torch.profiler),
-   the device's idle share, and each kernel's device time per call.
+   the device's idle share, and each kernel's device time per call;
+7. img2img: one full-width ``paint_with_words`` call with an init image at
+   strength 0.5 on the same pipeline (N/2 steps, counts checked);
+8. norm kernels: K4 group_norm and K5 layer_norm against their plain
+   versions at every site shape of the inpaint path (recorded from a 1-step
+   warm-up of phase 10's pipeline), timed as in phase 3, ``F.group_norm``
+   and ``F.layer_norm`` as the library yardstick where no pre-add or SiLU;
+9. inpaint reference: a reduced-depth 9-channel inpaint with the norm
+   knobs on, card bf16 against CPU f32;
+10. inpaint path: SD-1.5-inpainting at full width (9-channel ``conv_in``,
+    synthetic weights, ``fused_group_norm`` and ``fused_layer_norm`` on in
+    the UNet and the VAE) through ``paint_with_words_inpaint``, 512², N
+    steps at strength 1.0; the counters must read K4 = 61·N + 2·22 + 30,
+    K5 = 48·N, K1 = K2 = 15·N, K3 = 10·N; then its own 5-step profile.
 
 Then a JSON line with every kernel, the card's name and power limit, and
 last {"ok": true, "device": {...}}.
@@ -28,6 +41,7 @@ Imports nothing of JAX. Needs one card.
 """
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -36,12 +50,13 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
+F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores (the norms)
 # SD-1.5 at 512²: the (Lq, head dim) of the attention sites, five of each per
 # UNet call (self-attention takes K3 at the first two, cross-attention K1+K2
 # at all three)
 SHAPES = ((4096, 40), (1024, 80), (256, 160))
 # name → (source, TPU kernel it replaces, launch counter, profile group,
-#         the case whose numbers head the kernel's JSON entry)
+#         the case whose numbers head the kernel's JSON entry; None: the largest)
 KERNELS = {
     "pww_reduce": ("pww_tpu_torch/csrc/pww_reduce.cu",
                    "pww_tpu/ops/cross_attention_kernel.py:133", "fused_pww_reduce",
@@ -53,6 +68,10 @@ KERNELS = {
     "flash_self_attention": ("pww_tpu_torch/csrc/flash_attention.cu",
                              "pww_tpu/ops/flash_attention.py:64", "flash_self_attention",
                              "K3 flash_self_attention", "L4096 dh40"),
+    "group_norm": ("pww_tpu_torch/csrc/group_norm.cu", "pww_tpu/ops/group_norm.py:288",
+                   "group_norm", "K4 group_norm", None),
+    "layer_norm": ("pww_tpu_torch/csrc/layer_norm.cu", "pww_tpu/ops/layer_norm.py:60",
+                   "layer_norm", "K5 layer_norm", None),
 }
 
 
@@ -85,10 +104,42 @@ def time_ms(fn, reps=20, trials=5, warmup=3):
     return statistics.median(times)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+class Cases:
+    """Kernel-versus-plain comparisons, by kernel; failures are collected."""
+
+    def __init__(self):
+        self.by_kernel = {}
+        self.failed = []
+
+    def record(self, kernel, label, got, want, tol, rel_tol, ms, plain_ms, bnd, library_ms):
+        import torch
+
+        diff = got.float() - want.float()
+        err = diff.abs().max().item()
+        rel = (diff.norm() / want.float().norm()).item()
+        ok = (bool(torch.isfinite(got.float()).all()) and err <= tol
+              and (rel_tol is None or rel <= rel_tol))
+        self.by_kernel.setdefault(kernel, []).append(dict(
+            case=label, numel=want.numel(), max_abs_err=err, tol=tol, rel_l2_err=rel,
+            rel_tol=rel_tol, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+            library_ms=library_ms))
+        lib = "null" if library_ms is None else f"{library_ms:.4f}"
+        log(f"[kernels] {kernel} {label}: max_abs_err {err:.3e} (tol {tol:.3e}), "
+            f"rel_l2 {rel:.3e} (tol {rel_tol}) {'ok' if ok else 'FAIL'} | kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib} ms, "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if not ok:
+            self.failed.append(f"{kernel} {label}")
+
+    def check(self):
+        if self.failed:
+            raise SystemExit(f"[kernels] outside tolerance: {self.failed}")
 
 
 def phase_device():
@@ -140,25 +191,8 @@ def phase_kernels():
         x = torch.randn(shape, generator=g, device="cuda", dtype=torch.float32)
         return (x + mean).to(bf16)
 
-    cases = {"pww_reduce": [], "pww_cross_attention": [], "flash_self_attention": []}
-    failed = []
-
-    def record(kernel, label, got, want, tol, rel_tol, ms, plain_ms, bnd, library_ms):
-        diff = got.float() - want.float()
-        err = diff.abs().max().item()
-        rel = (diff.norm() / want.float().norm()).item()
-        ok = (bool(torch.isfinite(got.float()).all()) and err <= tol
-              and (rel_tol is None or rel <= rel_tol))
-        cases[kernel].append(dict(case=label, max_abs_err=err, tol=tol, rel_l2_err=rel,
-                                  rel_tol=rel_tol, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
-                                  bound_by=bnd[1], library_ms=library_ms))
-        lib = "null" if library_ms is None else f"{library_ms:.4f}"
-        log(f"[kernels] {kernel} {label}: max_abs_err {err:.3e} (tol {tol:.3e}), "
-            f"rel_l2 {rel:.3e} (tol {rel_tol}) {'ok' if ok else 'FAIL'} | kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib} ms, "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
-        if not ok:
-            failed.append(f"{kernel} {label}")
+    cases = Cases()
+    record = cases.record
 
     for (lq, dh) in SHAPES:
         q, k, v = randn(B, H, lq, dh), randn(B, H, LK, dh), randn(B, H, LK, dh)
@@ -216,9 +250,8 @@ def phase_kernels():
                time_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
         del got, want
         torch.cuda.empty_cache()
-    if failed:
-        raise SystemExit(f"[kernels] outside tolerance: {failed}")
-    return cases
+    cases.check()
+    return cases.by_kernel
 
 
 def phase_reference():
@@ -263,8 +296,6 @@ def phase_main_path(steps):
     import torch
 
     from pww_tpu_torch.config import SDModelConfig
-    from pww_tpu_torch.ops import cross_attention_kernel as xk
-    from pww_tpu_torch.ops import flash_attention as fa
     from pww_tpu_torch.pipeline.facade import paint_with_words
     from pww_tpu_torch.pipeline.pipeline import PwwPipeline
     from pww_tpu_torch.tokenizer.clip_bpe import synthetic_tokenizer
@@ -289,7 +320,7 @@ def phase_main_path(steps):
               output_type="np")
     paint_with_words(num_inference_steps=2, **kw)  # warm-up: cuDNN plans, allocator
 
-    counters = (xk.fused_pww_reduce, xk.fused_pww_cross_attention, fa.flash_self_attention)
+    counters = launch_counters()
     for c in counters:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -316,7 +347,7 @@ def phase_main_path(steps):
     if img.std() == 0:
         problems.append("constant image")
     want = {"fused_pww_reduce": 15 * steps, "fused_pww_cross_attention": 15 * steps,
-            "flash_self_attention": 10 * steps}
+            "flash_self_attention": 10 * steps, "group_norm": 0, "layer_norm": 0}
     if launches != want:
         problems.append(f"launches {launches} != {want}")
     log(f"[main] image {img.shape} {img.dtype} mean {img.mean():.2f} std {img.std():.2f}; "
@@ -326,10 +357,23 @@ def phase_main_path(steps):
     return launches, pipe, kw
 
 
+def launch_counters():
+    """Every kernel wrapper, K1-K5; each counts its own launches."""
+    from pww_tpu_torch.ops import cross_attention_kernel as xk
+    from pww_tpu_torch.ops import flash_attention as fa
+    from pww_tpu_torch.ops import group_norm as gn
+    from pww_tpu_torch.ops import layer_norm as ln
+
+    return (xk.fused_pww_reduce, xk.fused_pww_cross_attention, fa.flash_self_attention,
+            gn.group_norm, ln.layer_norm)
+
+
 GROUPS = (  # device-kernel name fragments → group, first match wins
     ("K1 pww_reduce", ("reduce_partials", "reduce_combine")),
     ("K2 pww_cross_attention", ("pww_xattn_kernel",)),
     ("K3 flash_self_attention", ("flash_kernel",)),
+    ("K4 group_norm", ("gn_stats", "gn_apply")),
+    ("K5 layer_norm", ("ln_rows",)),
     ("conv", ("conv", "xmma", "implicit", "winograd", "fprop")),
     ("gemm", ("gemm", "nvjet", "cutlass", "cublas")),
     ("norm", ("norm",)),
@@ -337,24 +381,17 @@ GROUPS = (  # device-kernel name fragments → group, first match wins
 )
 
 
-def phase_profile(pipe, kw, steps=5):
-    """Device time by kernel group over one ``steps``-step call (torch.profiler)."""
+def phase_profile(run, tag, steps=5):
+    """Device time by kernel group over one ``run(steps)`` call (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from pww_tpu_torch.pipeline.facade import paint_with_words
-
-    from pww_tpu_torch.ops import cross_attention_kernel as xk
-    from pww_tpu_torch.ops import flash_attention as fa
-
-    counters = {"K1 pww_reduce": xk.fused_pww_reduce,
-                "K2 pww_cross_attention": xk.fused_pww_cross_attention,
-                "K3 flash_self_attention": fa.flash_self_attention}
+    counters = dict(zip((g for g, _ in GROUPS), launch_counters()))
     for c in counters.values():
         c.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        paint_with_words(num_inference_steps=steps, **kw)
+        run(steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     groups, kernels = {}, []
@@ -373,17 +410,283 @@ def phase_profile(pipe, kw, steps=5):
         kernels.append((us / 1e3, ev.count, name))
     busy = sum(groups.values())
     if busy == 0:
-        raise SystemExit("[profile] the trace holds no device time")
-    log(f"[profile] {steps}-step paint_with_words: {wall * 1e3:.1f} ms wall, device busy "
+        raise SystemExit(f"[profile {tag}] the trace holds no device time")
+    log(f"[profile {tag}] {steps}-step call: {wall * 1e3:.1f} ms wall, device busy "
         f"{busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}")
-    log("[profile] by group (ms): " + ", ".join(
+    log(f"[profile {tag}] by group (ms): " + ", ".join(
         f"{g} {t:.2f}" for g, t in sorted(groups.items(), key=lambda x: -x[1])))
     for ms, count, name in sorted(kernels, reverse=True)[:8]:
-        log(f"[profile]   {ms:8.2f} ms {count:6d}x {name[:90]}")
-    per_launch = {g: groups.get(g, 0.0) / c.launches for g, c in counters.items()}
-    log("[profile] device ms per wrapper call on the main path: " + ", ".join(
+        log(f"[profile {tag}]   {ms:8.2f} ms {count:6d}x {name[:90]}")
+    per_launch = {g: groups.get(g, 0.0) / c.launches
+                  for g, c in counters.items() if c.launches}
+    log(f"[profile {tag}] device ms per wrapper call: " + ", ".join(
         f"{g} {t:.4f}" for g, t in per_launch.items()))
     return per_launch
+
+
+def synthetic_init_image(size=512, seed=0):
+    """A smooth RGB image with texture, from a numpy seed (uint8, HWC)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    img = np.stack([xx, yy, 0.5 + 0.5 * np.sin(xx * 20.0)], -1) * 220.0
+    return np.clip(img + rng.normal(0, 15, img.shape), 0, 255).astype(np.uint8)
+
+
+def box_mask(size=512):
+    import numpy as np
+
+    m = np.zeros((size, size), np.float32)
+    m[size // 4: 3 * size // 4, size // 3: 5 * size // 6] = 1.0
+    return m
+
+
+def phase_img2img(pipe, kw, steps):
+    """One full-width img2img call (strength 0.5) on the main pipeline."""
+    import torch
+
+    from pww_tpu_torch.pipeline.facade import paint_with_words
+    from pww_tpu_torch.schedulers.schedules import t_start_from_strength
+
+    run = steps - t_start_from_strength(steps, 0.5)
+    init = synthetic_init_image()
+    paint_with_words(num_inference_steps=2, init_image=init, strength=0.5, **kw)  # warm-up
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    img = paint_with_words(num_inference_steps=steps, init_image=init, strength=0.5, **kw)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    tm = pipe.timings
+    log(f"[img2img] 512², strength 0.5, {run} of {steps} LMS steps: encode "
+        f"{tm['encode']:.3f} s (VAE encode included), denoise {tm['denoise']:.3f} s, decode "
+        f"{tm['decode']:.3f} s, {total:.3f} s/image; launches {launches}")
+    want = {"fused_pww_reduce": 15 * run, "fused_pww_cross_attention": 15 * run,
+            "flash_self_attention": 10 * run, "group_norm": 0, "layer_norm": 0}
+    if launches != want or img.shape != (1, 512, 512, 3) or img.std() == 0:
+        raise SystemExit(f"[img2img] launches {launches} != {want}, or image "
+                         f"{img.shape} std {img.std():.2f}")
+
+
+def inpaint_pipeline():
+    """SD-1.5-inpainting at full width, the norm kernels on, synthetic weights."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.config import SDModelConfig, UNetConfig, VAEConfig
+    from pww_tpu_torch.pipeline.pipeline import PwwPipeline
+    from pww_tpu_torch.tokenizer.clip_bpe import synthetic_tokenizer
+    from pww_tpu_torch.weights.bridge import synthetic_params
+
+    cfg = SDModelConfig(
+        unet=dataclasses.replace(UNetConfig.sd15_inpaint(), fused_group_norm=True,
+                                 fused_layer_norm=True),
+        vae=dataclasses.replace(VAEConfig.sd15(), fused_group_norm=True))
+    t0 = time.perf_counter()
+    params = synthetic_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    pipe = PwwPipeline(cfg, params=params, tokenizer=synthetic_tokenizer(49408),
+                       device="cuda", dtype=torch.bfloat16, profile=True)
+    del params
+    torch.cuda.synchronize()
+    log(f"[inpaint] SD-1.5-inpainting (conv_in {pipe.unet.conv_in.in_channels} channels), "
+        f"fused_group_norm and fused_layer_norm on, set up in {time.perf_counter() - t0:.1f} s")
+    cm = np.zeros((512, 512, 3), np.uint8)
+    cm[:, :256] = (255, 0, 0)
+    cm[:, 256:] = (0, 0, 255)
+    kw = dict(color_context={(255, 0, 0): "cat,0.5", (0, 0, 255): "dog,0.5"},
+              color_map_image=cm, init_image=synthetic_init_image(), mask_image=box_mask(),
+              input_prompt="a cat sitting next to a dog, realistic photo",
+              guidance_scale=7.5, seed=0, strength=1.0, preloaded_utils=pipe,
+              device="cuda", output_type="np")
+    return pipe, kw
+
+
+def record_norm_sites(kw):
+    """Run one inpaint step and record every K4 and K5 call's signature."""
+    from pww_tpu_torch.ops import group_norm as gn
+    from pww_tpu_torch.ops import layer_norm as ln
+    from pww_tpu_torch.pipeline.facade import paint_with_words_inpaint
+
+    gn_sites, ln_sites = {}, {}
+    k4, k5 = gn.group_norm, ln.layer_norm
+
+    def gn_rec(x, weight, bias, *, groups, eps, silu=False, add=None, out_dtype=None):
+        key = (tuple(x.shape), groups, eps, silu, add is not None)
+        gn_sites[key] = gn_sites.get(key, 0) + 1
+        return k4(x, weight, bias, groups=groups, eps=eps, silu=silu, add=add,
+                  out_dtype=out_dtype)
+
+    def ln_rec(x, weight, bias, *, eps, out_dtype=None):
+        key = (tuple(x.shape), eps)
+        ln_sites[key] = ln_sites.get(key, 0) + 1
+        return k5(x, weight, bias, eps=eps, out_dtype=out_dtype)
+
+    # the wrappers count into whatever their module's name points at
+    gn_rec.launches = ln_rec.launches = 0
+    gn.group_norm, ln.layer_norm = gn_rec, ln_rec
+    try:
+        paint_with_words_inpaint(num_inference_steps=1, **kw)  # also the warm-up
+    finally:
+        gn.group_norm, ln.layer_norm = k4, k5
+    log(f"[norms] one inpaint step: {sum(gn_sites.values())} K4 calls at {len(gn_sites)} "
+        f"signatures, {sum(ln_sites.values())} K5 calls at {len(ln_sites)}")
+    return gn_sites, ln_sites
+
+
+def phase_norm_kernels(gn_sites, ln_sites):
+    """K4 and K5 against their plain versions at every site signature."""
+    import torch
+    import torch.nn.functional as F
+
+    from pww_tpu_torch.ops import group_norm as gn
+    from pww_tpu_torch.ops import layer_norm as ln
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, mean=0.0, std=1.0):
+        x = torch.randn(shape, generator=g, device="cuda", dtype=torch.float32)
+        return (x * std + mean).to(bf16)
+
+    cases = Cases()
+    # Both sides take f32 statistics of the same bf16 values in another order
+    # and round y to bf16, so an element may round the other way: one bf16
+    # ulp, 2^-8 to 2^-7 of it. The limits are 2-4 ulps of the largest output
+    # and 1e-3 in relative L2, which one-ulp flips reach only on a few % of
+    # the elements; a wrong group, channel or pre-add moves it by about 1e-1.
+    gn_cases = [(k, 0.0) for k in sorted(gn_sites, key=lambda k: (k[0][0], -k[0][1]))]
+    big_unet = max((k for k in gn_sites if k[0][0] == 2), key=lambda k: (math.prod(k[0]), k[4]))
+    gn_cases.append((big_unet, 8.0))  # |mean| ≫ std: the fast variance cancels
+    for (shape, groups, eps, silu, has_add), mean in gn_cases:
+        n, c = shape[:2]
+        x = randn(*shape, mean=mean)
+        w, b = randn(c, mean=1.0, std=0.1), randn(c, std=0.1)
+        add = randn(n, c) if has_add else None
+        kw = dict(groups=groups, eps=eps, silu=silu, add=add)
+        got = gn.group_norm(x, w, b, **kw)
+        want = gn.group_norm_plain(x, w, b, **kw)
+        lib = None
+        if not silu and add is None:
+            lib = time_ms(lambda: F.group_norm(x, groups, w, b, eps))
+        label = (f"{'unet' if n == 2 else 'vae'} {shape}{' add' if has_add else ''}"
+                 f"{' silu' if silu else ''} eps{eps:g}{f' mean{mean:g}' if mean else ''}")
+        nbytes = 2 * x.numel() * 2 + (n * c * 2 if has_add else 0) + 2 * c * 2
+        cases.record("group_norm", label, got, want, 2**-6 * want.float().abs().max().item(),
+                     1e-3, time_ms(lambda: gn.group_norm(x, w, b, **kw)),
+                     time_ms(lambda: gn.group_norm_plain(x, w, b, **kw), reps=5),
+                     bound(nbytes, (12 if silu else 8) * x.numel(), F32_FLOPS_PER_S), lib)
+        del x, got, want
+    for (shape, eps), mean in [(k, 0.0) for k in sorted(ln_sites, reverse=True)] + [
+            (max(ln_sites), 8.0)]:
+        c = shape[-1]
+        x = randn(*shape, mean=mean)
+        w, b = randn(c, mean=1.0, std=0.1), randn(c, std=0.1)
+        got = ln.layer_norm(x, w, b, eps=eps)
+        want = ln.layer_norm_plain(x, w, b, eps=eps)
+        cases.record("layer_norm", f"{shape} eps{eps:g}{f' mean{mean:g}' if mean else ''}",
+                     got, want, 2**-6 * want.float().abs().max().item(), 1e-3,
+                     time_ms(lambda: ln.layer_norm(x, w, b, eps=eps)),
+                     time_ms(lambda: ln.layer_norm_plain(x, w, b, eps=eps)),
+                     bound(2 * x.numel() * 2 + 2 * c * 2, 8 * x.numel(), F32_FLOPS_PER_S),
+                     time_ms(lambda: F.layer_norm(x, (c,), w, b, eps)))
+    torch.cuda.empty_cache()
+    cases.check()
+    return cases.by_kernel
+
+
+def phase_inpaint_reference():
+    """Reduced-depth SD-1.5-width 9-channel inpaint with the norm kernels on:
+    card bf16 vs CPU f32 (where K4 and K5 take their plain versions)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.config import CLIPTextConfig, SDModelConfig, UNetConfig, VAEConfig
+    from pww_tpu_torch.ops import group_norm as gn
+    from pww_tpu_torch.ops import layer_norm as ln
+    from pww_tpu_torch.pipeline.pipeline import PwwPipeline
+    from pww_tpu_torch.weights.bridge import synthetic_params
+
+    clip = CLIPTextConfig.tiny()
+    cfg = SDModelConfig(
+        clip=clip,
+        unet=UNetConfig(in_channels=9, block_out_channels=(320, 640), layers_per_block=1,
+                        down_block_has_attn=(True, False),
+                        cross_attention_dim=clip.hidden_size, fused_group_norm=True,
+                        fused_layer_norm=True),
+        vae=dataclasses.replace(VAEConfig.tiny(), fused_group_norm=True),
+    )
+    params = synthetic_params(cfg, seed=2, device="cuda", dtype=torch.float32)
+    params = {p: {k: v * 5.0 for k, v in sd.items()} for p, sd in params.items()}
+    cpu = {p: {k: v.cpu() for k, v in sd.items()} for p, sd in params.items()}
+    cm = np.zeros((256, 256, 3), np.uint8)
+    cm[:, :128] = (255, 0, 0)
+    cm[:, 128:] = (0, 0, 255)
+    kw = dict(prompt="a cat sitting next to a dog", color_map_image=cm,
+              color_context={(255, 0, 0): "cat,0.5", (0, 0, 255): "dog,0.5"},
+              init_image=synthetic_init_image(256), mask_image=box_mask(256), strength=1.0,
+              num_inference_steps=3, seed=0, vae_sample_mode="mean", return_latents=True)
+    gn.group_norm.launches = ln.layer_norm.launches = 0
+    gpu = PwwPipeline(cfg, params=params, device="cuda", dtype=torch.bfloat16).generate(**kw)
+    launched = (gn.group_norm.launches, ln.layer_norm.launches)
+    ref = PwwPipeline(cfg, params=cpu, device="cpu", dtype=torch.float32).generate(**kw)
+    rel = float(np.linalg.norm(gpu - ref) / np.linalg.norm(ref))
+    ok = np.isfinite(gpu).all() and rel < 5e-2 and min(launched) > 0
+    log(f"[inpaint reference] 256 px, 3 steps, 9-channel (320, 640)-channel UNet, norm "
+        f"kernels on (K4 {launched[0]}, K5 {launched[1]} launches): card bf16 vs CPU f32 "
+        f"relative L2 error {rel:.3e} (tol 5e-2) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[inpaint reference] card run disagrees with the CPU reference")
+
+
+def phase_inpaint(pipe, kw, steps):
+    """The inpaint path at full width, launch counts checked."""
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.pipeline.facade import paint_with_words_inpaint
+
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img = paint_with_words_inpaint(num_inference_steps=steps, **kw)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tm = pipe.timings
+    log(f"[inpaint] paint_with_words_inpaint 512², {steps} LMS steps, strength 1.0, CFG 7.5: "
+        f"encode {tm['encode']:.3f} s (two VAE encodes included), denoise "
+        f"{tm['denoise']:.3f} s ({tm['denoise'] / steps * 1e3:.1f} ms/step), decode "
+        f"{tm['decode']:.3f} s, {total:.3f} s/image, peak {peak:.2f} GiB")
+    log(f"[inpaint] launches: {launches}")
+    lat = pipe.generate(prompt=kw["input_prompt"], color_map_image=kw["color_map_image"],
+                        color_context=kw["color_context"], init_image=kw["init_image"],
+                        mask_image=kw["mask_image"], strength=1.0,
+                        num_inference_steps=steps, seed=0, return_latents=True)
+    want = {"fused_pww_reduce": 15 * steps, "fused_pww_cross_attention": 15 * steps,
+            "flash_self_attention": 10 * steps,
+            "group_norm": 61 * steps + 2 * 22 + 30, "layer_norm": 48 * steps}
+    problems = []
+    if img.shape != (1, 512, 512, 3) or img.dtype != np.uint8 or img.std() == 0:
+        problems.append(f"image {img.shape} {img.dtype} std {img.std():.2f}")
+    if not np.isfinite(lat).all() or lat.shape != (1, 64, 64, 4):
+        problems.append(f"latents {lat.shape}, finite={np.isfinite(lat).all()}")
+    if launches != want:
+        problems.append(f"launches {launches} != {want}")
+    log(f"[inpaint] image {img.shape} {img.dtype} mean {img.mean():.2f} std {img.std():.2f}; "
+        f"latents finite, |max| {np.abs(lat).max():.3f}")
+    if problems:
+        raise SystemExit(f"[inpaint] {problems}")
+    return launches
 
 
 def main():
@@ -397,31 +700,45 @@ def main():
     cases = phase_kernels()
     phase_reference()
     launches, pipe, kw = phase_main_path(args.steps)
-    profiled = phase_profile(pipe, kw)
+    from pww_tpu_torch.pipeline.facade import paint_with_words, paint_with_words_inpaint
+
+    profiled = phase_profile(lambda n: paint_with_words(num_inference_steps=n, **kw), "main")
+    phase_img2img(pipe, kw, args.steps)
+    del pipe, kw
+    import torch
+
+    torch.cuda.empty_cache()
+    ipipe, ikw = inpaint_pipeline()
+    cases.update(phase_norm_kernels(*record_norm_sites(ikw)))
+    phase_inpaint_reference()
+    ilaunches = phase_inpaint(ipipe, ikw, args.steps)
+    iprofiled = phase_profile(
+        lambda n: paint_with_words_inpaint(num_inference_steps=n, **ikw), "inpaint")
 
     kernels = []
     for name, (source, replaces, counter, group, head) in KERNELS.items():
         cs = cases[name]
-        top = next(c for c in cs if c["case"] == head)  # the largest main-path shape
+        # the largest main-path shape
+        top = next(c for c in cs if c["case"] == head) if head else max(
+            cs, key=lambda c: c["numel"])
+        norm = name in ("group_norm", "layer_norm")  # their path is the inpaint path
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[counter],
+            launches=(ilaunches if norm else launches)[counter],
             max_abs_err=max(c["max_abs_err"] for c in cs),
             rel_l2_err=max(c["rel_l2_err"] for c in cs),
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
-            bound_by=top["bound_by"], library_ms=top["library_ms"], shape=head,
-            main_path_device_ms_per_call=profiled[group], cases=cs,
+            bound_by=top["bound_by"], library_ms=top["library_ms"], shape=top["case"],
+            main_path_device_ms_per_call=(iprofiled if norm else profiled).get(group),
+            inpaint_path_launches=ilaunches[counter], cases=cs,
         ))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
-    import torch
-
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,9 +1,10 @@
 """Frozen configuration dataclasses for the PyTorch port.
 
-Mirrors :mod:`pww_tpu.config` for the SD-1.x txt2img path. The knobs that
-only shaped TPU code (conv lowering, head-dim lane padding, cross-attention
-grid-order variants, Mosaic block sizes) are not carried over; the kernel
-dispatch thresholds are.
+Mirrors :mod:`pww_tpu.config` for the SD-1.x paths (txt2img, img2img,
+inpaint). The knobs that only shaped TPU code (conv lowering, head-dim lane
+padding, cross-attention grid-order variants, Mosaic block sizes) are not
+carried over; the kernel dispatch thresholds and the norm-kernel switches
+are.
 """
 from __future__ import annotations
 
@@ -59,6 +60,10 @@ class UNetConfig:
     fused_cross_attention: bool = True
     flash_min_seq: int = 1024
     fused_cross_min_seq: int = 256
+    # The GroupNorm (K4) and LayerNorm (K5) kernels at every UNet norm site;
+    # off by default, as in pww_tpu/config.py:201-202.
+    fused_group_norm: bool = False
+    fused_layer_norm: bool = False
 
     @property
     def up_block_has_attn(self) -> Tuple[bool, ...]:
@@ -71,12 +76,18 @@ class UNetConfig:
         return self.num_attention_heads, channels // self.num_attention_heads
 
     @staticmethod
-    def sd15() -> "UNetConfig":
-        return UNetConfig()
+    def sd15(in_channels: int = 4) -> "UNetConfig":
+        return UNetConfig(in_channels=in_channels)
 
     @staticmethod
-    def tiny(cross_attention_dim: int = 32) -> "UNetConfig":
+    def sd15_inpaint() -> "UNetConfig":
+        """9-channel inpainting UNet (runwayml/stable-diffusion-inpainting)."""
+        return UNetConfig(in_channels=9)
+
+    @staticmethod
+    def tiny(in_channels: int = 4, cross_attention_dim: int = 32) -> "UNetConfig":
         return UNetConfig(
+            in_channels=in_channels,
             block_out_channels=(32, 64),
             layers_per_block=1,
             num_attention_heads=4,
@@ -98,6 +109,9 @@ class VAEConfig:
     layers_per_block: int = 2
     norm_num_groups: int = 32
     scaling_factor: float = 0.18215
+    # The GroupNorm kernel (K4) at every encoder and decoder norm site; off
+    # by default, as in pww_tpu/config.py:305.
+    fused_group_norm: bool = False
 
     @property
     def scale_factor(self) -> int:
@@ -141,10 +155,14 @@ class SDModelConfig:
         return SDModelConfig()
 
     @staticmethod
-    def tiny() -> "SDModelConfig":
+    def sd15_inpaint() -> "SDModelConfig":
+        return SDModelConfig(unet=UNetConfig.sd15_inpaint())
+
+    @staticmethod
+    def tiny(in_channels: int = 4) -> "SDModelConfig":
         clip = CLIPTextConfig.tiny()
         return SDModelConfig(
             clip=clip,
-            unet=UNetConfig.tiny(cross_attention_dim=clip.hidden_size),
+            unet=UNetConfig.tiny(in_channels, cross_attention_dim=clip.hidden_size),
             vae=VAEConfig.tiny(),
         )

@@ -4,7 +4,10 @@ Port of :mod:`pww_tpu.models.unet` for SD-1.x, as a torch ``nn.Module``
 with diffusers' ``UNet2DConditionModel`` parameter names, NCHW inside the
 conv stacks. GroupNorm and LayerNorm compute in f32 and cast to the
 compute dtype; GroupNorm epsilon is 1e-5 in the ResNets and 1e-6 in
-Transformer2D; GEGLU uses the exact f32 GELU.
+Transformer2D; GEGLU uses the exact f32 GELU. With
+``UNetConfig.fused_group_norm`` every GroupNorm site runs kernel K4 (norm2
+takes the time-embedding projection as its pre-add), and with
+``fused_layer_norm`` every transformer LayerNorm runs K5.
 
 Attention dispatch (``pww_tpu/models/unet.py:177-211``), per site:
   * self-attention with L >= ``flash_min_seq`` → K3 flash kernel;
@@ -25,8 +28,8 @@ from ..config import UNetConfig
 from ..ops.attention import merge_heads, pww_attention, split_heads
 from ..ops.cross_attention_kernel import fused_pww_cross_attention, fused_pww_reduce
 from ..ops.flash_attention import flash_self_attention
-from ..ops.group_norm import group_norm_f32
-from ..ops.layer_norm import layer_norm_f32
+from ..ops.group_norm import group_norm_site
+from ..ops.layer_norm import layer_norm_site
 from ..ops.weight_functions import CustomWeightFunction
 from ..types import PwwState
 
@@ -54,8 +57,10 @@ class TimestepEmbedding(nn.Module):
 
 
 class ResnetBlock2D(nn.Module):
-    def __init__(self, c_in: int, c_out: int, temb_dim: int, groups: int):
+    def __init__(self, c_in: int, c_out: int, temb_dim: int, groups: int,
+                 fused_norm: bool = False):
         super().__init__()
+        self.fused_norm = fused_norm
         self.norm1 = nn.GroupNorm(groups, c_in, eps=1e-5)
         self.conv1 = nn.Conv2d(c_in, c_out, 3, padding=1)
         self.time_emb_proj = nn.Linear(temb_dim, c_out)
@@ -64,9 +69,10 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = nn.Conv2d(c_in, c_out, 1) if c_in != c_out else None
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(group_norm_f32(self.norm1, x, silu=True))
-        h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(group_norm_f32(self.norm2, h, silu=True))
+        fused = self.fused_norm
+        h = self.conv1(group_norm_site(self.norm1, x, fused=fused, silu=True))
+        t = self.time_emb_proj(F.silu(temb))
+        h = self.conv2(group_norm_site(self.norm2, h, fused=fused, silu=True, add=t))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -139,11 +145,13 @@ class BasicTransformerBlock(nn.Module):
         self.attn2 = Attention(dim, ctx_dim, heads, cfg)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
+        self.fused_norm = cfg.fused_layer_norm
 
     def forward(self, x, context, pww):
-        x = x + self.attn1(layer_norm_f32(self.norm1, x))
-        x = x + self.attn2(layer_norm_f32(self.norm2, x), context, pww)
-        return x + self.ff(layer_norm_f32(self.norm3, x))
+        fused = self.fused_norm
+        x = x + self.attn1(layer_norm_site(self.norm1, x, fused=fused))
+        x = x + self.attn2(layer_norm_site(self.norm2, x, fused=fused), context, pww)
+        return x + self.ff(layer_norm_site(self.norm3, x, fused=fused))
 
 
 class Transformer2DModel(nn.Module):
@@ -151,6 +159,7 @@ class Transformer2DModel(nn.Module):
 
     def __init__(self, channels: int, ctx_dim: int, heads: int, cfg: UNetConfig):
         super().__init__()
+        self.fused_norm = cfg.fused_group_norm
         self.norm = nn.GroupNorm(cfg.norm_num_groups, channels, eps=1e-6)
         self.proj_in = nn.Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList(
@@ -160,8 +169,8 @@ class Transformer2DModel(nn.Module):
 
     def forward(self, x, context, pww):
         b, c, h, w = x.shape
-        z = self.proj_in(group_norm_f32(self.norm, x))
-        z = z.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        z = self.proj_in(group_norm_site(self.norm, x, fused=self.fused_norm))
+        z = z.permute(0, 2, 3, 1).reshape(b, h * w, c).contiguous()
         for blk in self.transformer_blocks:
             z = blk(z, context, pww)
         z = z.reshape(b, h, w, c).permute(0, 3, 1, 2)
@@ -194,7 +203,7 @@ class DownBlock(nn.Module):
         nh = cfg.heads_for(c_out)[0]
         self.resnets = nn.ModuleList(
             ResnetBlock2D(c_in if i == 0 else c_out, c_out, temb_dim,
-                          cfg.norm_num_groups)
+                          cfg.norm_num_groups, cfg.fused_group_norm)
             for i in range(cfg.layers_per_block)
         )
         self.attentions = nn.ModuleList(
@@ -224,7 +233,7 @@ class UpBlock(nn.Module):
         nh = cfg.heads_for(c_out)[0]
         self.resnets = nn.ModuleList(
             ResnetBlock2D((c_prev if i == 0 else c_out) + skip_chs[i], c_out,
-                          temb_dim, cfg.norm_num_groups)
+                          temb_dim, cfg.norm_num_groups, cfg.fused_group_norm)
             for i in range(cfg.layers_per_block + 1)
         )
         self.attentions = nn.ModuleList(
@@ -247,7 +256,8 @@ class UNetMidBlock2DCrossAttn(nn.Module):
     def __init__(self, ch, temb_dim, cfg: UNetConfig):
         super().__init__()
         self.resnets = nn.ModuleList(
-            [ResnetBlock2D(ch, ch, temb_dim, cfg.norm_num_groups) for _ in range(2)]
+            [ResnetBlock2D(ch, ch, temb_dim, cfg.norm_num_groups, cfg.fused_group_norm)
+             for _ in range(2)]
         )
         self.attentions = nn.ModuleList(
             [Transformer2DModel(ch, cfg.cross_attention_dim, cfg.heads_for(ch)[0], cfg)]
@@ -307,4 +317,5 @@ class UNet2DConditionModel(nn.Module):
         x = self.mid_block(x, temb, ctx, pww)
         for blk in self.up_blocks:
             x = blk(x, temb, ctx, pww, skips)
-        return self.conv_out(group_norm_f32(self.conv_norm_out, x, silu=True))
+        return self.conv_out(group_norm_site(self.conv_norm_out, x, silu=True,
+                                             fused=self.config.fused_group_norm))

@@ -20,7 +20,8 @@ from typing import Dict, Optional
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "pww_tpu_torch")
-SOURCES = ("pww_reduce", "pww_cross_attention", "flash_attention", "library")
+SOURCES = ("pww_reduce", "pww_cross_attention", "flash_attention", "group_norm",
+           "layer_norm", "library")
 HEADERS = ("common.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")

@@ -79,8 +79,10 @@ class CustomWeightFunction:
 
 AnyWeightFunction = Union[WeightFunction, CustomWeightFunction]
 
-# The reference's txt2img default: 0.1 · w · log(1+σ) · max(QKᵀ)
+# The reference's defaults: txt2img 0.1 · w · log(1+σ) · max(QKᵀ); its
+# inpaint example runners pass 0.15.
 DEFAULT_TXT2IMG = WeightFunction(scale=0.1, sigma_mode="log1p_sigma", reduce_mode="max")
+DEFAULT_INPAINT = WeightFunction(scale=0.15, sigma_mode="log1p_sigma", reduce_mode="max")
 
 
 def as_weight_function(

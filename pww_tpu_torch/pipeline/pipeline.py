@@ -1,13 +1,19 @@
-"""PwwPipeline — the paint-with-words pipeline, txt2img.
+"""PwwPipeline — the paint-with-words pipeline: txt2img, img2img, inpaint.
 
-Port of the txt2img subset of :class:`pww_tpu.pipeline.pipeline.PwwPipeline`:
+Port of :class:`pww_tpu.pipeline.pipeline.PwwPipeline` for these modes:
 
   * encode: tokenize, parse the color context, rasterize the bias pyramid
-    on the device, CLIP-encode ([uncond, cond]);
-  * denoise: a Python loop of LMS steps; cond and uncond go through ONE
-    batched UNet call per step, then classifier-free guidance. Latents and
-    scheduler state stay f32; the UNet runs in the compute dtype;
-  * decode: VAE decode to uint8 on the device, one copy to the host.
+    on the device, CLIP-encode ([uncond, cond]); for img2img and inpaint,
+    VAE-encode the init image and re-noise it at the strength's first step;
+  * denoise: a Python loop of LMS steps from that step; cond and uncond go
+    through ONE batched UNet call per step, then classifier-free guidance
+    (two calls, the uncond one without any bias, for a custom weight
+    function). A 9-channel UNet takes the mask and the masked image's
+    latents as extra input channels; a 4-channel one inpaints by the legacy
+    masked blend. Latents and scheduler state stay f32; the UNet runs in
+    the compute dtype;
+  * decode: VAE decode to uint8 on the device, one copy to the host, and
+    for ``inpaint_full_res`` the paste back into the full image.
 
 Everything else the JAX pipeline's ``generate`` takes raises
 ``NotImplementedError`` here.
@@ -16,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,10 +30,14 @@ import torch
 from ..conditioning.encode import EncodedInputs, encode_text_color_inputs
 from ..conditioning.seeding import make_noise, regional_seed_latents
 from ..config import SDModelConfig
-from ..ops.weight_functions import (AnyWeightFunction, CustomWeightFunction,
-                                    as_weight_function)
-from ..schedulers.schedules import make_scheduler
+from ..models.vae import sample_from_moments
+from ..ops.resize import resize_linear_antialias, resize_nearest
+from ..ops.weight_functions import AnyWeightFunction, CustomWeightFunction
+from ..schedulers.schedules import make_scheduler, t_start_from_strength
+from ..types import PwwState
 from ..weights.bridge import StateDicts, build_models, synthetic_params
+from .inpaint import (blur_mask, expand_crop_region, fill_masked_region, paste_region,
+                      prepare_mask_and_masked_image)
 
 
 def resolve_device(device) -> torch.device:
@@ -45,6 +55,35 @@ def _to_numpy_image(img) -> Optional[np.ndarray]:
     if img is None or isinstance(img, np.ndarray):
         return img
     return np.array(img)
+
+
+def _image_hw(img, default: Tuple[int, int]) -> Tuple[int, int]:
+    if img is None:
+        return default
+    arr = _to_numpy_image(img)
+    return arr.shape[0], arr.shape[1]
+
+
+def preprocess_image(img) -> np.ndarray:
+    """PIL/array → (1, H, W, 3) f32 in [-1, 1], H and W floored to a multiple
+    of 32 by a LANCZOS resize (reference ``preprocess``, `paint_with_words.py:28-35`)."""
+    from PIL import Image
+
+    if isinstance(img, np.ndarray):
+        img = Image.fromarray(img)
+    w, h = img.size
+    w, h = w - w % 32, h - h % 32
+    img = img.resize((w, h), resample=Image.LANCZOS)
+    x = np.asarray(img, np.float32)[None] / 255.0
+    return 2.0 * x - 1.0
+
+
+def side_generator(seed: int, stream: int) -> torch.Generator:
+    """A CPU generator for the draws beside the latent noise (1: the VAE
+    posterior sample, 2: masked-content "latent_noise"), seeded from
+    (seed, stream) so that it shares no numbers with ``make_noise(seed)``."""
+    state = np.random.SeedSequence((int(seed), stream)).generate_state(1)[0]
+    return torch.Generator(device="cpu").manual_seed(int(state))
 
 
 class PwwPipeline:
@@ -113,19 +152,54 @@ class PwwPipeline:
             prompt, negative_prompt, weight_function, device=self.device,
         )
 
-    def denoise(self, latents, text_states, pww, schedule, guidance_scale):
-        """The LMS loop; latents (N, C, h, w) f32 in and out. Cond and uncond
-        go through one batched UNet call per step."""
+    def encode_image(self, image: np.ndarray) -> torch.Tensor:
+        """(B, H, W, 3) f32 in [-1, 1] → (B, 2·latent, h, w) f32 moments."""
+        x = torch.from_numpy(np.ascontiguousarray(image)).permute(0, 3, 1, 2)
+        x = x.to(device=self.device, dtype=self.dtype).contiguous()
+        return self.vae.encode_moments(x).float()
+
+    def denoise(self, latents, text_states, pww: PwwState, schedule, guidance_scale,
+                t_start: int = 0, extra: Optional[torch.Tensor] = None, blend=None):
+        """The LMS loop from step ``t_start``; latents (N, C, h, w) f32 in and
+        out.
+
+        Cond and uncond go through one batched UNet call per step; a custom
+        weight function takes two, the uncond one without any bias (the
+        reference's semantics, ``pww_tpu/pipeline/pipeline.py:114-151``).
+        ``extra`` (N, E, h, w) joins the UNet input channels (9-channel
+        inpaint). ``blend`` = (mask, init, noise) is the legacy masked blend:
+        before each UNet call the unmasked latents are reset to the init's
+        trajectory at that step, and restored exactly at the end.
+        """
         n = latents.shape[0]
         lat = latents.float()
+        split = isinstance(pww.weight_fn, CustomWeightFunction)
+        if split:
+            cond_pww = dataclasses.replace(
+                pww, weights={k: v[n:] for k, v in pww.weights.items()},
+                weight_orig=None if pww.weight_orig is None else pww.weight_orig[n:])
         history = []
-        for i in range(schedule.num_steps):
+        for i in range(t_start, schedule.num_steps):
+            if blend is not None:
+                mask, init, noise = blend
+                lat = schedule.add_noise(init, noise, i) * (1.0 - mask) + lat * mask
             lat_in = schedule.scale_model_input(lat, i).to(self.dtype)
-            eps2 = self.unet(torch.cat([lat_in, lat_in]), schedule.timesteps[i],
-                             text_states, pww.with_sigma(schedule.sigma(i)))
-            out_u, out_c = eps2[:n].float(), eps2[n:].float()
+            if extra is not None:
+                lat_in = torch.cat([lat_in, extra], dim=1)
+            t, sigma = schedule.timesteps[i], schedule.sigma(i)
+            if split:
+                out_u = self.unet(lat_in, t, text_states[:n]).float()
+                out_c = self.unet(lat_in, t, text_states[n:],
+                                  cond_pww.with_sigma(sigma)).float()
+            else:
+                eps2 = self.unet(torch.cat([lat_in, lat_in]), t, text_states,
+                                 pww.with_sigma(sigma))
+                out_u, out_c = eps2[:n].float(), eps2[n:].float()
             eps = out_u + guidance_scale * (out_c - out_u)
             lat, history = schedule.step(eps, i, lat, history)
+        if blend is not None:
+            mask, init, _ = blend
+            lat = init * (1.0 - mask) + lat * mask
         return lat
 
     def decode_uint8(self, latents: torch.Tensor) -> np.ndarray:
@@ -142,6 +216,7 @@ class PwwPipeline:
             self.timings[name] = time.perf_counter() - t0
         return time.perf_counter()
 
+
     # -- generation --------------------------------------------------------------
     @torch.inference_mode()
     def generate(
@@ -154,45 +229,115 @@ class PwwPipeline:
         seed: int = 0,
         weight_function: Optional[AnyWeightFunction] = None,
         negative_prompt: str = "",
+        init_image=None,  # img2img when set
+        strength: float = 0.5,
+        mask_image=None,  # inpaint when set (with init_image)
+        mask_blur: float = 0.0,  # gaussian sigma (px) feathering the mask
+        masked_content: str = "original",  # original | fill | latent_noise |
+        #   latent_nothing (latent_* need a 4-channel UNet)
+        inpaint_full_res: bool = False,  # A1111 "inpaint area: only masked"
+        inpaint_full_res_padding: int = 32,  # context px around the mask
         num_samples: int = 1,
         noise_mode: str = "torch",
+        vae_sample_mode: str = "sample",  # "mean" = the posterior mean
         output_type: str = "pil",
         return_latents: bool = False,
         **unported,
     ):
-        """txt2img with paint-with-words. Returns PIL image(s), a
-        (N, H, W, 3) uint8 array (``output_type="np"``), or with
+        """txt2img, img2img and inpaint with paint-with-words. Returns PIL
+        image(s), a (N, H, W, 3) uint8 array (``output_type="np"``), or with
         ``return_latents`` the final (N, h, w, 4) f32 latents (NHWC)."""
         if unported:
             raise NotImplementedError(
                 f"generate({', '.join(sorted(unported))}=...) is not ported to "
-                "pww_tpu_torch yet (txt2img only)"
-            )
-        if isinstance(as_weight_function(weight_function), CustomWeightFunction):
-            # the reference's two-forward CFG (uncond without any bias) that
-            # custom callables need is not ported yet
-            raise NotImplementedError(
-                "custom weight functions are not ported to pww_tpu_torch's "
-                "pipeline yet; use a WeightFunction"
+                "pww_tpu_torch yet"
             )
         if output_type not in ("pil", "np"):
             raise ValueError(f"output_type must be 'pil' or 'np', got {output_type!r}")
         cfg = self.config
         t0 = time.perf_counter()
         color_map = _to_numpy_image(color_map_image)
+        ifr_state = None
+        if inpaint_full_res:
+            if mask_image is None or init_image is None:
+                raise ValueError("inpaint_full_res requires init_image and mask_image")
+            if return_latents:
+                raise ValueError("inpaint_full_res pastes decoded pixels back into the "
+                                 "init image; return_latents is unsupported")
+            init_image, mask_image, color_map, ifr_state = self._crop_for_full_res(
+                init_image, mask_image, color_map, float(mask_blur),
+                int(inpaint_full_res_padding))
+            mask_blur = 0.0  # the crop's mask is feathered already
         enc = self.encode_inputs(prompt, color_map, color_context or {},
                                  negative_prompt, weight_function)
-        if color_map is not None:
-            height, width = enc.height, enc.width
-        else:
-            height = width = 512
         sf = cfg.vae.scale_factor
         n = num_samples
-        shape = (n, cfg.vae.latent_channels, height // sf, width // sf)
         schedule = self.scheduler.set_timesteps(num_inference_steps, self.device)
-        lat = make_noise(seed, shape, noise_mode, self.device)
-        lat = regional_seed_latents(lat, enc.regions, noise_mode)
-        lat = lat * schedule.init_noise_sigma
+
+        inpaint = mask_image is not None
+        if inpaint and init_image is None:
+            raise ValueError("inpainting requires init_image alongside mask_image")
+        if masked_content not in ("original", "fill", "latent_noise", "latent_nothing"):
+            raise ValueError("masked_content must be one of original/fill/latent_noise/"
+                             f"latent_nothing, got {masked_content!r}")
+        if (masked_content != "original" or mask_blur) and not inpaint:
+            raise ValueError("mask_blur/masked_content require mask_image (inpainting)")
+        # a 4-channel UNet inpaints by the legacy masked blend, a 9-channel
+        # one by its mask and masked-image input channels
+        legacy_inpaint = inpaint and cfg.unet.in_channels == cfg.vae.latent_channels
+        if masked_content in ("latent_noise", "latent_nothing") and not legacy_inpaint:
+            raise ValueError(f"masked_content={masked_content!r} applies to the legacy "
+                             "masked-blend path (4-channel checkpoints); use 'original' "
+                             "or 'fill' with a 9-channel inpainting UNet")
+        t_start, extra, blend = 0, None, None
+        if init_image is None:
+            height, width = (enc.height, enc.width) if color_map is not None else (512, 512)
+            shape = (n, cfg.vae.latent_channels, height // sf, width // sf)
+            lat = make_noise(seed, shape, noise_mode, self.device)
+            lat = regional_seed_latents(lat, enc.regions, noise_mode)
+            lat = lat * schedule.init_noise_sigma
+        else:
+            init = preprocess_image(init_image)  # (1, H', W', 3) in [-1, 1]
+            proc_mask = None
+            if inpaint:
+                proc_mask = self._prepare_pixel_mask(mask_image, init, mask_blur)
+                if masked_content == "fill":
+                    init = fill_masked_region(init[0], proc_mask >= 0.5)[None]
+            t_start = t_start_from_strength(num_inference_steps, strength,
+                                            cfg.scheduler.steps_offset)
+            moments = self.encode_image(init)
+            if vae_sample_mode == "mean":
+                init_lat = moments[:, :cfg.vae.latent_channels]
+            elif vae_sample_mode == "sample":
+                init_lat = sample_from_moments(moments, side_generator(seed, 1))
+            else:
+                raise ValueError(f"vae_sample_mode must be 'sample' or 'mean', got "
+                                 f"{vae_sample_mode!r}")
+            init_lat = (init_lat * cfg.vae.scaling_factor).repeat(n, 1, 1, 1)
+            if legacy_inpaint:
+                m_lat = resize_linear_antialias(torch.from_numpy(proc_mask).to(self.device),
+                                                init.shape[1] // sf, init.shape[2] // sf)
+                m_lat = torch.clamp(m_lat, 0.0, 1.0)[None, None].expand(n, 1, -1, -1)
+                hole = (m_lat >= 0.5).float()
+                if masked_content == "latent_noise":
+                    fresh = torch.randn(init_lat.shape, generator=side_generator(seed, 2))
+                    init_lat = init_lat * (1.0 - hole) + fresh.to(self.device) * hole
+                elif masked_content == "latent_nothing":
+                    init_lat = init_lat * (1.0 - hole)
+            noise = make_noise(seed, tuple(init_lat.shape), noise_mode, self.device)
+            # the 9-channel path noises at the strength's step even at strength
+            # 1.0, as the reference's inpaint does (inpaint.py:180-198)
+            lat = schedule.add_noise(init_lat, noise, t_start)
+            if legacy_inpaint:
+                blend = (m_lat, init_lat, noise)
+            elif inpaint:
+                extra = self._prepare_inpaint_channels(init, proc_mask, n)
+                if cfg.unet.in_channels != cfg.vae.latent_channels + extra.shape[1]:
+                    raise ValueError(
+                        f"UNet expects {cfg.unet.in_channels} input channels but "
+                        f"latents+mask+masked_image = "
+                        f"{cfg.vae.latent_channels + extra.shape[1]}; pass an "
+                        "inpainting checkpoint (9-channel UNet)")
 
         text_states, pww = enc.text_states, enc.pww
         if n > 1:  # rows [uncond*N, cond*N]
@@ -206,11 +351,15 @@ class PwwPipeline:
                 weight_orig=tile(pww.weight_orig),
             )
         t0 = self._phase("encode", t0)
-        lat = self.denoise(lat, text_states, pww, schedule, float(guidance_scale))
+        lat = self.denoise(lat, text_states, pww, schedule, float(guidance_scale),
+                           t_start=t_start, extra=extra, blend=blend)
         t0 = self._phase("denoise", t0)
         if return_latents:
             return lat.permute(0, 2, 3, 1).cpu().numpy()
         images = self.decode_uint8(lat)
+        if ifr_state is not None:
+            full, m_full, region = ifr_state
+            images = np.stack([paste_region(full, im, region, m_full) for im in images])
         self._phase("decode", t0)
         if output_type == "np":
             return images
@@ -220,3 +369,80 @@ class PwwPipeline:
         return pil[0] if n == 1 else pil
 
     __call__ = generate
+
+    # -- inpaint helpers -----------------------------------------------------------
+    def _crop_for_full_res(self, init_image, mask_image, color_map, mask_blur: float,
+                           padding: int):
+        """A1111 "inpaint area: only masked": crop the blurred mask's padded,
+        aspect-matched bounding box and scale the crop of the init image, the
+        mask and the color map up to the full processing size. Returns them
+        and (init, feathered mask, region) for :func:`paste_region`."""
+        from PIL import Image
+
+        init_np = _to_numpy_image(init_image)  # (H, W, 3) uint8
+        fh, fw = init_np.shape[:2]
+        mask_np = self._prepare_pixel_mask(mask_image, init_np[None], 0.0)
+        # blur once at full resolution; the crop grows from the blurred
+        # mask's support, so the feather lands inside it
+        mask_full = blur_mask(mask_np, mask_blur)
+        x0, y0, x1, y1 = expand_crop_region((mask_full > 1e-3).astype(np.float32),
+                                            padding, fw, fh)
+
+        def up(arr, resample):
+            return np.asarray(Image.fromarray(arr).resize((fw, fh), resample))
+
+        crop_init = up(init_np[y0:y1, x0:x1], Image.LANCZOS)
+        crop_mask = np.clip(np.asarray(Image.fromarray(mask_full[y0:y1, x0:x1], mode="F")
+                                       .resize((fw, fh), Image.BILINEAR)), 0.0, 1.0)
+        if color_map is not None:
+            if color_map.shape[:2] != (fh, fw):
+                color_map = np.asarray(Image.fromarray(color_map).resize((fw, fh),
+                                                                         Image.NEAREST))
+            color_map = up(color_map[y0:y1, x0:x1], Image.NEAREST)
+        return crop_init, crop_mask, color_map, (init_np, mask_full, (x0, y0, x1, y1))
+
+    def _prepare_pixel_mask(self, mask_image, init, mask_blur: float) -> np.ndarray:
+        """(H, W) f32 mask in [0, 1] at the preprocessed init's size,
+        optionally gaussian-feathered; array masks must lie in [0, 1]."""
+        from PIL import Image
+
+        ih, iw = int(init.shape[1]), int(init.shape[2])
+        m = mask_image
+        if isinstance(m, Image.Image):
+            m = m.convert("L")
+            if m.size != (iw, ih):
+                m = m.resize((iw, ih), Image.NEAREST)
+            m = np.asarray(m, np.float32) / 255.0
+        else:
+            m = np.asarray(m, np.float32)
+            if m.ndim == 3:
+                m = m[..., 0]
+            if m.min() < 0.0 or m.max() > 1.0:
+                raise ValueError("mask should be in [0, 1] range")
+            if m.shape != (ih, iw):
+                pil = Image.fromarray((m * 255).astype(np.uint8))
+                m = np.asarray(pil.resize((iw, ih), Image.NEAREST), np.float32) / 255.0
+        return blur_mask(np.clip(m, 0.0, 1.0), float(mask_blur))
+
+    def _prepare_inpaint_channels(self, init: np.ndarray, mask_image, n: int) -> torch.Tensor:
+        """(n, 1 + latent, h, w) compute-dtype channels: the binarized mask on
+        the latent grid and the posterior mean of the masked image, scaled
+        (reference `paint_with_words_inpaint.py:20-134`)."""
+        ih, iw = int(init.shape[1]), int(init.shape[2])
+        if _image_hw(mask_image, default=(ih, iw)) != (ih, iw):
+            from PIL import Image
+
+            m = mask_image
+            if not isinstance(m, Image.Image):
+                m = np.asarray(m)
+                if m.dtype != np.uint8:
+                    m = (np.clip(m, 0, 1) * 255).astype(np.uint8)
+                m = Image.fromarray(m)
+            mask_image = m.convert("L").resize((iw, ih), Image.NEAREST)
+        mask, masked = prepare_mask_and_masked_image(init, mask_image)
+        sf = self.config.vae.scale_factor
+        mask_lat = resize_nearest(torch.from_numpy(mask[..., 0]), ih // sf, iw // sf)
+        moments = self.encode_image(masked)
+        masked_lat = moments[:, :self.config.vae.latent_channels] * self.config.vae.scaling_factor
+        extra = torch.cat([mask_lat[:, None].to(self.device), masked_lat], dim=1)
+        return extra.repeat(n, 1, 1, 1).to(self.dtype)

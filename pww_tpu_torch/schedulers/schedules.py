@@ -5,7 +5,9 @@ Port of the LMS part of :mod:`pww_tpu.schedulers.schedules`: diffusers'
 evenly spaced train timesteps, and the order-4 LMS coefficients (integrated
 Lagrange polynomials, ``scipy.integrate.quad``) computed once per
 ``set_timesteps``. The step keeps the most recent derivatives only, as many
-as the coefficients use (diffusers' ``zip`` truncation of the history).
+as the coefficients use (diffusers' ``zip`` truncation of the history). An
+img2img loop starts at :func:`t_start_from_strength` with an empty history,
+as the JAX scan starts from a zero one.
 """
 from __future__ import annotations
 
@@ -76,6 +78,10 @@ class Schedule:
         s = self.sigmas[i]
         return sample / torch.sqrt(s * s + 1.0)
 
+    def add_noise(self, original: torch.Tensor, noise: torch.Tensor, i: int) -> torch.Tensor:
+        """The sample at step i's noise level: ``original + σ_i · noise``."""
+        return original + noise * self.sigmas[i].to(original.dtype)
+
     def step(self, model_output: torch.Tensor, i: int, sample: torch.Tensor,
              history: List[torch.Tensor]) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """x_t → x_{t-1} for an epsilon prediction; ``history`` holds the
@@ -108,6 +114,12 @@ class Scheduler:
             lms_coeffs=_lms_coefficients(sigmas, num_steps).astype(np.float32),
             num_steps=num_steps,
         )
+
+
+def t_start_from_strength(num_steps: int, strength: float, offset: int = 0) -> int:
+    """The first step of an img2img run (reference ``paint_with_words.py:435-440``)."""
+    init_timestep = min(int(num_steps * strength) + offset, num_steps)
+    return max(num_steps - init_timestep + offset, 0)
 
 
 def make_scheduler(kind: str = "lms",

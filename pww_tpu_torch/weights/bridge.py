@@ -6,7 +6,8 @@
   ``pww_tpu/weights/loader.py``'s ``unet_key``, ``clip_key`` and
   ``vae_keys``: flax ``(kh, kw, I, O)`` conv kernels become torch
   ``(O, I, kh, kw)`` and flax ``(in, out)`` dense kernels become
-  ``(out, in)``. The VAE encoder is skipped: the port decodes only.
+  ``(out, in)``. The VAE encoder and ``quant_conv`` come across with the
+  decoder, and a 9-channel inpainting ``conv_in`` as any other conv.
 * :func:`synthetic_params` fills every float tensor of the port's modules
   with N(0, 0.02), drawn on the device from a seeded ``torch.Generator``.
 """
@@ -77,6 +78,8 @@ def clip_key(path: Tuple[str, ...]) -> str:
 
 
 _VAE_PATTERNS = (
+    (r"down_(\d+)_resnet_(\d+)", "down_blocks.{}.resnets.{}"),
+    (r"down_(\d+)_downsample", "down_blocks.{}.downsamplers.0.conv"),
     (r"up_(\d+)_resnet_(\d+)", "up_blocks.{}.resnets.{}"),
     (r"up_(\d+)_upsample", "up_blocks.{}.upsamplers.0.conv"),
     (r"mid_resnet_(\d+)", "mid_block.resnets.{}"),
@@ -86,10 +89,12 @@ _VAE_ATTN = {"norm": "group_norm", "q": "to_q", "k": "to_k", "v": "to_v",
 
 
 def vae_key(path: Tuple[str, ...]) -> str:
-    """Decoder paths only; ``post_quant_conv`` sits at the top level."""
-    if path[1] == "post_quant_conv":
-        return "post_quant_conv"
-    parts, in_attn = ["decoder"], False
+    """('encoder' | 'decoder', ...) flax paths; ``quant_conv`` (inside the
+    flax encoder) and ``post_quant_conv`` (inside the flax decoder) sit at
+    the top level of diffusers' AutoencoderKL."""
+    if path[1] in ("quant_conv", "post_quant_conv"):
+        return path[1]
+    parts, in_attn = [path[0]], False
     for m in path[1:]:
         for pat, fmt in _VAE_PATTERNS:
             mm = re.fullmatch(pat, m)
@@ -126,8 +131,6 @@ def params_from_jax(tree) -> StateDicts:
             if part == "clip" and leaf == "position_embedding":
                 key, t = "text_model.embeddings.position_embedding.weight", arr
             else:
-                if part == "vae" and mods[0] == "encoder":
-                    continue
                 prefix = {"unet": unet_key, "clip": clip_key, "vae": vae_key}[part](mods)
                 name, t = _leaf(leaf, arr)
                 key = f"{prefix}.{name}"

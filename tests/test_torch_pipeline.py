@@ -106,15 +106,21 @@ def test_txt2img_bias_and_seed_change_the_result(pair):
 
 
 def test_unported_options_raise(pair):
+    """What the port does not have yet: latent-space img2img, per-step
+    callbacks, ControlNet, jax.random noise and schedulers other than LMS
+    (img2img, inpaint and custom weight functions came with the second
+    slice, tests/test_torch_img2img_inpaint.py)."""
     _, tp = pair
     with pytest.raises(NotImplementedError):
-        tp.generate(init_image=np.zeros((128, 128, 3), np.uint8), **KWARGS)
-    with pytest.raises(NotImplementedError):  # needs the two-forward CFG
-        tp.generate(weight_function=lambda w, s, qk: w * qk.max(), **KWARGS)
+        tp.generate(init_latents=np.zeros((1, 16, 16, 4), np.float32), **KWARGS)
     with pytest.raises(NotImplementedError):
-        paint_with_words(preloaded_utils=tp, device="cpu", init_image=np.zeros((8, 8, 3)))
+        tp.generate(callback=lambda i, t, lat: None, **KWARGS)
     with pytest.raises(NotImplementedError):
-        paint_with_words(preloaded_utils=tp, device="cpu", strength=0.8)
+        paint_with_words(preloaded_utils=tp, device="cpu", control_image=np.zeros((8, 8, 3)))
+    with pytest.raises(NotImplementedError):
+        tp.generate(**{**KWARGS, "noise_mode": "jax"})
+    with pytest.raises(NotImplementedError):
+        paint_with_words(preloaded_utils=tp, device="cpu", scheduler_type="euler")
     with pytest.raises(NotImplementedError):
         paint_with_words(preloaded_utils=tp, device="cpu", model_token="token")
     with pytest.raises(NotImplementedError):
