@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (pww_tpu_torch) on one CUDA card, end to end.
 
-    python3 chip_smoke.py [--steps N]
+    python3 chip_smoke.py [--steps N] [--kernels-only | --e2e-reps R]
 
 Phases, each printing its own lines; any failure ends the run non-zero:
 
@@ -12,7 +12,11 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    flash_self_attention against their plain PyTorch versions at every shape
    of SD-1.5's 512² main path, bf16 inputs from a seeded generator, with
    CUDA-event timings of the kernel, the plain version, a one-call library
-   yardstick where one exists, and the least time the card could take;
+   yardstick where one exists, and the least time the card could take; then
+   K3 at dh 64 and 160 and ragged L, K2 at ragged Lq and at two and four
+   prompt chunks (Lk 154, 308); ``--kernels-only`` stops after this phase,
+   and ``--e2e-reps R`` runs phase 5's call R times in its place, with the
+   host time of each K2 and K3 wrapper call;
 4. reference: a reduced-depth SD-1.5-width txt2img (256 px, 3 steps) on the
    card in bf16 against the same pipeline on the CPU in f32;
 5. main path: SD-1.5 at full width (synthetic N(0, 0.02) weights) through
@@ -43,6 +47,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -117,7 +122,8 @@ class Cases:
         self.by_kernel = {}
         self.failed = []
 
-    def record(self, kernel, label, got, want, tol, rel_tol, ms, plain_ms, bnd, library_ms):
+    def record(self, kernel, label, got, want, tol, rel_tol, ms, plain_ms, bnd, library_ms,
+               flops=None):
         import torch
 
         diff = got.float() - want.float()
@@ -128,12 +134,13 @@ class Cases:
         self.by_kernel.setdefault(kernel, []).append(dict(
             case=label, numel=want.numel(), max_abs_err=err, tol=tol, rel_l2_err=rel,
             rel_tol=rel_tol, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
-            library_ms=library_ms))
+            library_ms=library_ms, tflops=flops / ms * 1e-9 if flops else None))
         lib = "null" if library_ms is None else f"{library_ms:.4f}"
+        rate = f", {flops / ms * 1e-9:.1f} TFLOP/s" if flops else ""
         log(f"[kernels] {kernel} {label}: max_abs_err {err:.3e} (tol {tol:.3e}), "
             f"rel_l2 {rel:.3e} (tol {rel_tol}) {'ok' if ok else 'FAIL'} | kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib} ms, "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+            f"bound {bnd[0]:.4f} ms ({bnd[1]}){rate}")
         if not ok:
             self.failed.append(f"{kernel} {label}")
 
@@ -170,9 +177,23 @@ def phase_build():
     log(f"[build] {len(reports)} of {len(cuda_build.SOURCES)} sources compiled and "
         f"linked in {time.perf_counter() - t0:.1f} s into {cuda_build.library_path()}")
     for name, rep in reports.items():
+        entry = None
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line and " 0 bytes spill" not in line:
-                log(f"[build] {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = demangle(m.group(1))
+            elif "registers" in line or "spill" in line and " 0 bytes spill" not in line:
+                log(f"[build] {name} {entry}: {line.split(':', 1)[-1].strip()}")
+
+
+def demangle(symbol):
+    """A kernel's C++ name where c++filt is there, else the symbol."""
+    import shutil
+
+    if not shutil.which("c++filt"):
+        return symbol
+    out = subprocess.run(["c++filt", symbol], capture_output=True, text=True).stdout.strip()
+    return re.sub(r"^void |\(.*", "", out.replace("(anonymous namespace)::", "")) or symbol
 
 
 def phase_kernels():
@@ -194,6 +215,51 @@ def phase_kernels():
     cases = Cases()
     record = cases.record
 
+    def xattn_case(q, k, v, label):
+        """K2 on w with a zero uncond row, coef from the default weight function."""
+        lq, lk, dh = q.shape[2], k.shape[2], q.shape[3]
+        w = torch.rand((B, lq, lk), generator=g, device="cuda")
+        w[0] = 0.0
+        wf = WeightFunction(0.1, "log1p_sigma", "max")
+        coef = (wf.sigma_coef(torch.tensor(14.6, device="cuda"))
+                * xk.pww_cross_attention_reduce(q, k, wf)).contiguous()
+        got = xk.fused_pww_cross_attention(q, k, v, w, coef)
+        want = xk.pww_cross_attention_plain(q, k, v, w, coef)
+        mask = (coef[:, None, None, None] * w[:, None] * dh ** -0.5).to(bf16)
+        # The kernel rounds P to bf16 for the P·V product, as the TPU kernel
+        # does (cross_attention_kernel.py:92), and the plain version keeps P
+        # in f32: about 2^-9 of each term, a few 1e-3 of the output in
+        # relative L2, so 1e-2 there, K3's limit for K3's reason; the max-abs
+        # limit is 2-4 bf16 ulps of the largest output. A dropped key chunk
+        # or a bias added after the scale moves the relative error by about
+        # 1e-1 (estimated, not run).
+        record("pww_cross_attention", label, got, want,
+               2**-6 * want.float().abs().max().item(), 1e-2,
+               time_ms(lambda: xk.fused_pww_cross_attention(q, k, v, w, coef)),
+               time_ms(lambda: xk.pww_cross_attention_plain(q, k, v, w, coef)),
+               bound((q.numel() * 2 + k.numel() + v.numel()) * 2 + w.numel() * 4 + B * 4,
+                     4 * B * H * lq * lk * dh),
+               time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)),
+               flops=4 * B * H * lq * lk * dh)
+
+    def flash_case(l, dh, label):
+        q, k, v = randn(B, H, l, dh), randn(B, H, l, dh), randn(B, H, l, dh)
+        got = fa.flash_self_attention(q, k, v)
+        want = fa.self_attention_plain(q, k, v)
+        # As K2: P rounded to bf16 for the P·V product, about 2^-9 of each
+        # term, 2-3e-3 of the output in relative L2, so 1e-2 there; a wrong
+        # scale (dh 48 for 40) or a dropped key tile would move it by about
+        # 1e-1 (estimated, not run).
+        record("flash_self_attention", label, got, want,
+               2**-6 * want.float().abs().max().item(), 1e-2,
+               time_ms(lambda: fa.flash_self_attention(q, k, v)),
+               time_ms(lambda: fa.self_attention_plain(q, k, v), reps=3),
+               bound(4 * q.numel() * 2, 4 * B * H * l * l * dh),
+               time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+               flops=4 * B * H * l * l * dh)
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+
     for (lq, dh) in SHAPES:
         q, k, v = randn(B, H, lq, dh), randn(B, H, LK, dh), randn(B, H, LK, dh)
         # K1: every reduce mode, plus |mean| >> std for std
@@ -210,46 +276,21 @@ def phase_kernels():
                    time_ms(lambda: xk.fused_pww_reduce(qq, kk, wf)),
                    time_ms(lambda: xk.pww_cross_attention_reduce(qq, kk, wf)),
                    bound((qq.numel() + kk.numel()) * 2 + B * 4, 2 * B * H * lq * LK * dh),
-                   None)
-        # K2: w with a zero uncond row, coef from the default weight function
-        w = torch.rand((B, lq, LK), generator=g, device="cuda")
-        w[0] = 0.0
-        wf = WeightFunction(0.1, "log1p_sigma", "max")
-        coef = (wf.sigma_coef(torch.tensor(14.6, device="cuda"))
-                * xk.pww_cross_attention_reduce(q, k, wf)).contiguous()
-        got = xk.fused_pww_cross_attention(q, k, v, w, coef)
-        want = xk.pww_cross_attention_plain(q, k, v, w, coef)
-        mask = (coef[:, None, None, None] * w[:, None] * dh ** -0.5).to(bf16)
-        # Both sides compute in f32 and round the output to bf16, so an
-        # element that rounds the other way is one bf16 ulp (2^-8 to 2^-7 of
-        # it) apart: the limits are 2-4 ulps of the largest output, and in
-        # relative L2 1e-3, which one-ulp flips reach only on a few % of the
-        # elements.
-        record("pww_cross_attention", f"Lq{lq} dh{dh}", got, want,
-               2**-6 * want.float().abs().max().item(), 1e-3,
-               time_ms(lambda: xk.fused_pww_cross_attention(q, k, v, w, coef)),
-               time_ms(lambda: xk.pww_cross_attention_plain(q, k, v, w, coef)),
-               bound((q.numel() * 2 + k.numel() + v.numel()) * 2 + w.numel() * 4 + B * 4,
-                     4 * B * H * lq * LK * dh),
-               time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)))
-        if lq < 1024:
-            continue
-        # K3: self-attention at the flash sites
-        q, k, v = randn(B, H, lq, dh), randn(B, H, lq, dh), randn(B, H, lq, dh)
-        got = fa.flash_self_attention(q, k, v)
-        want = fa.self_attention_plain(q, k, v)
-        # As K2, plus P rounded to bf16 for the P·V product: about 2^-9 of
-        # each term, 2-3e-3 of the output in relative L2, so 1e-2 there; a
-        # wrong scale (dh 48 for 40) or a dropped key tile would move it by
-        # about 1e-1 (estimated, not run).
-        record("flash_self_attention", f"L{lq} dh{dh}", got, want,
-               2**-6 * want.float().abs().max().item(), 1e-2,
-               time_ms(lambda: fa.flash_self_attention(q, k, v)),
-               time_ms(lambda: fa.self_attention_plain(q, k, v), reps=3),
-               bound(4 * q.numel() * 2, 4 * B * H * lq * lq * dh),
-               time_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
-        del got, want
-        torch.cuda.empty_cache()
+                   None, flops=2 * B * H * lq * LK * dh)
+        xattn_case(q, k, v, f"Lq{lq} dh{dh}")
+        if lq >= 1024:  # K3: self-attention at the flash sites
+            flash_case(lq, dh, f"L{lq} dh{dh}")
+    # shapes off the 512² path: K3's other head dims, ragged L and Lq, and
+    # K2 with two and four prompt chunks (the last past the w rows' room in
+    # shared memory at dh 160, where the kernel reads w from device memory)
+    flash_case(1024, 64, "L1024 dh64")
+    flash_case(1024, 160, "L1024 dh160")
+    flash_case(4000, 40, "L4000 dh40")
+    xattn_case(randn(B, H, 4000, 40), randn(B, H, LK, 40), randn(B, H, LK, 40), "Lq4000 dh40")
+    xattn_case(randn(B, H, 4096, 40), randn(B, H, 2 * LK, 40), randn(B, H, 2 * LK, 40),
+               "Lq4096 dh40 Lk154")
+    xattn_case(randn(B, H, 256, 160), randn(B, H, 4 * LK, 160), randn(B, H, 4 * LK, 160),
+               "Lq256 dh160 Lk308")
     cases.check()
     return cases.by_kernel
 
@@ -355,6 +396,85 @@ def phase_main_path(steps):
     if problems:
         raise SystemExit(f"[main] {problems}")
     return launches, pipe, kw
+
+
+def phase_e2e(reps, steps):
+    """The main path's s/image ``reps`` times on one pipeline, and the host
+    time each K2/K3 wrapper call takes to enqueue (the card held busy by a
+    spin kernel meanwhile), for A/B runs of two trees."""
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.config import SDModelConfig
+    from pww_tpu_torch.ops import cross_attention_kernel as xk
+    from pww_tpu_torch.ops import flash_attention as fa
+    from pww_tpu_torch.pipeline.facade import paint_with_words
+    from pww_tpu_torch.pipeline.pipeline import PwwPipeline
+    from pww_tpu_torch.tokenizer.clip_bpe import synthetic_tokenizer
+    from pww_tpu_torch.weights.bridge import synthetic_params
+
+    cfg = SDModelConfig.sd15()
+    pipe = PwwPipeline(cfg, params=synthetic_params(cfg, seed=0, device="cuda",
+                                                    dtype=torch.bfloat16),
+                       tokenizer=synthetic_tokenizer(49408), device="cuda",
+                       dtype=torch.bfloat16, profile=True)
+    cm = np.zeros((512, 512, 3), np.uint8)
+    cm[:, :256] = (255, 0, 0)
+    cm[:, 256:] = (0, 0, 255)
+    kw = dict(color_context={(255, 0, 0): "cat,0.5", (0, 0, 255): "dog,0.5"},
+              color_map_image=cm, input_prompt="a cat sitting next to a dog, realistic photo",
+              guidance_scale=7.5, seed=0, preloaded_utils=pipe, device="cuda",
+              output_type="np")
+    paint_with_words(num_inference_steps=2, **kw)
+    for rep in range(reps):
+        t0 = time.perf_counter()
+        paint_with_words(num_inference_steps=steps, **kw)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        log(f"[e2e] rep {rep}: {total:.3f} s/image, denoise "
+            f"{pipe.timings['denoise'] / steps * 1e3:.1f} ms/step")
+    import pww_tpu_torch.models.unet as unet_mod
+
+    names = ("fused_pww_reduce", "fused_pww_cross_attention", "flash_self_attention")
+    spent = dict.fromkeys(names, 0.0)
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    wrapped = {n: getattr(unet_mod, n) for n in names}
+    for n, fn in wrapped.items():
+        setattr(unet_mod, n, timed(n, fn))
+    try:
+        paint_with_words(num_inference_steps=steps, **kw)
+        torch.cuda.synchronize()
+    finally:
+        for n, fn in wrapped.items():
+            setattr(unet_mod, n, fn)
+    log(f"[e2e] host ms per step inside the UNet's kernel wrappers: " + ", ".join(
+        f"{n} {t / steps * 1e3:.2f}" for n, t in spent.items()) + f"; denoise "
+        f"{pipe.timings['denoise'] / steps * 1e3:.1f} ms/step in that call")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((2, 8, 4096, 40), generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    kx, vx = k[:, :, :77].contiguous(), v[:, :, :77].contiguous()
+    w = torch.rand((2, 4096, 77), generator=g, device="cuda")
+    coef = torch.ones(2, device="cuda")
+    for name, fn in (("K2", lambda: xk.fused_pww_cross_attention(q, kx, vx, w, coef)),
+                     ("K3", lambda: fa.flash_self_attention(q, k, v))):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000_000)  # about a second of device time
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        host_us = (time.perf_counter() - t0) * 1e4
+        torch.cuda.synchronize()
+        log(f"[e2e] {name} wrapper at the L 4096 shape: {host_us:.1f} us of host time per call")
 
 
 def launch_counters():
@@ -692,12 +812,25 @@ def phase_inpaint(pipe, kw, steps):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=30, help="LMS steps of the main path")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="phases 1-3 only, then their cases as one JSON line (A/B of two trees)")
+    ap.add_argument("--e2e-reps", type=int, default=0,
+                    help="phases 1-2, then the main path's s/image this many times and the "
+                         "K2/K3 wrappers' host time per call (A/B of two trees)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     smi = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     phase_build()
+    if args.e2e_reps:
+        phase_e2e(args.e2e_reps, args.steps)
+        print(f"card: {smi}")
+        return 0
     cases = phase_kernels()
+    if args.kernels_only:
+        print(json.dumps(cases))
+        print(f"card: {smi}")
+        return 0
     phase_reference()
     launches, pipe, kw = phase_main_path(args.steps)
     from pww_tpu_torch.pipeline.facade import paint_with_words, paint_with_words_inpaint

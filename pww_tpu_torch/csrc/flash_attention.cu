@@ -7,203 +7,196 @@
 //
 // Bound on the H100: operations. At 512², L 4096, dh 40, B·H 16 the two
 // products are 4·B·H·L²·dh ≈ 43 GFLOP, about 43 us at 989 TFLOP/s bf16,
-// against 2 MB of Q, K, V and O (under 1 us at 3.35 TB/s). The design puts
-// both products on the tensor cores through nvcuda::wmma (bf16 16×16×16
-// tiles, f32 accumulation): one CTA of four warps per (b·h, 64-query tile)
-// loops over 64-key tiles of K and V staged in shared memory. Each warp owns
-// 16 query rows: it computes its S = Q K^T rows into shared memory, runs the
-// online softmax on them in f32 (running max, normaliser and the per-row
-// rescale of the f32 accumulator, which lives in shared memory because the
-// wmma accumulator layout is opaque), writes P in bf16 and adds P · V into
-// the accumulator. dh 40 is padded to 48 with zeros in shared memory only;
-// ragged L is masked in the kernel (keys to -inf, rows not stored). This is
-// a first, simple kernel: no asynchronous copies, no wgmma, one tile in
-// flight per CTA.
+// against 2 MB of Q, K, V and O (under 1 us at 3.35 TB/s). Below dh 64 the
+// exponentials set a higher floor: L² of them per (b·h), 268 M at that
+// shape, at 16 per clock per SM take about 65-70 us.
+//
+// Design (Hopper's: wgmma, TMA, mbarriers). A CTA holds WGS consumer
+// warpgroups of 64 query rows each, of one (b·h), and one producer warp.
+// The producer's first thread copies the CTA's Q rows once, then the K and
+// V tiles of BN keys into a ring of STAGES buffers, each by TMA
+// (cp.async.bulk.tensor) on a full barrier, waiting on the stage's empty
+// barrier before it refills it; so tile j+1 lands while tile j computes.
+// Each consumer warpgroup runs S = Q K^T as wgmma with both operands in
+// shared memory and the accumulator in registers, takes the online softmax
+// on those registers (running max and sum per thread, a row reduced over
+// the four lanes of a quad), rounds P to bf16 in registers and feeds it as
+// the register A operand of O += P V, a second wgmma whose B operand is the
+// V tile read transposed (MN-major); O is rescaled in registers. Nothing
+// between the two products touches shared memory. Tiles are 16-column slabs
+// with the 32-byte swizzle (one TMA box per slab), so each k16 step of
+// Q K^T is one slab: dh 40 takes three, the last one's columns 40-47
+// zero-filled by the copy as lying outside the tensor. A 3-D tensor map over
+// (B·H, L, dh) zero-fills keys and queries past L too; those keys are masked
+// to -inf and those rows are not stored.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
 
+#include "attention_tile.cuh"
 #include "common.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using pww::bf16;
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 128;  // 4 warps × 16 query rows
-
-template <int DH>
-struct Tile {
-  static constexpr int DP = (DH + 15) / 16 * 16;  // head dim padded for wmma
-  static constexpr int LDH = DP + 8;              // bf16 stride of Q/K/V tiles
-  static constexpr int LDS = kBlockK + 4;         // f32 stride of S
-  static constexpr int LDP = kBlockK + 8;         // bf16 stride of P
-  static constexpr int LDO = DP + 4;              // f32 stride of O
-  // byte offsets; each a multiple of 32 as wmma pointers require
-  static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = Q_OFF + kBlockQ * LDH * 2;
-  static constexpr int V_OFF = K_OFF + kBlockK * LDH * 2;
-  static constexpr int S_OFF = V_OFF + kBlockK * LDH * 2;
-  static constexpr int P_OFF = S_OFF + kBlockQ * LDS * 4;
-  static constexpr int O_OFF = P_OFF + kBlockQ * LDP * 2;
-  static constexpr int M_OFF = O_OFF + kBlockQ * LDO * 4;
-  static constexpr int L_OFF = M_OFF + kBlockQ * 4;
-  static constexpr int A_OFF = L_OFF + kBlockQ * 4;
-  static constexpr int BYTES = A_OFF + kBlockQ * 4;
+template <int DH_, int BN_, int STAGES_, int WGS_>
+struct Cfg {
+  static constexpr int DH = DH_;
+  static constexpr int BN = BN_;          // keys per tile
+  static constexpr int STAGES = STAGES_;  // K/V ring depth
+  static constexpr int WGS = WGS_;        // consumer warpgroups
+  static constexpr int BM = 64 * WGS;     // query rows per CTA
+  static constexpr int CONSUMERS = 128 * WGS;
+  static constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+  static constexpr int KS = (DH + 15) / 16;       // 16-column slabs
+  static constexpr int NT = BN / 8, NO = DH / 8;
+  static constexpr int Q_SLAB = BM * 32, KV_SLAB = BN * 32;  // bytes
+  static constexpr int KV_BYTES = KS * KV_SLAB;
+  static constexpr int K_OFF = KS * Q_SLAB;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  // barriers: Q, then full and empty per stage; 1 KB to align the base
+  static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
 };
 
-// Copy rows [r0, r0 + 64) of a (L, DH) bf16 matrix into a (64, LDH) tile,
-// zero-filling rows past L and the padded columns DH..DP.
-template <int DH>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int r0, int L) {
-  using T = Tile<DH>;
-  constexpr int kPairs = T::DP / 2;
-  const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
-  for (int i = threadIdx.x; i < kBlockQ * kPairs; i += kThreads) {
-    const int r = i / kPairs, c = 2 * (i - r * kPairs);
-    __nv_bfloat162 x = zero;
-    if (c < DH && r0 + r < L)
-      x = *reinterpret_cast<const __nv_bfloat162*>(src + (size_t)(r0 + r) * DH + c);
-    *reinterpret_cast<__nv_bfloat162*>(dst + r * T::LDH + c) = x;
+template <class C>
+__global__ void __launch_bounds__(C::THREADS) flash_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int L, float scale_log2e) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  // slabs on 1 KB boundaries, so the swizzle pattern starts where wgmma expects
+  const uint32_t base = (pww::smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t qbar = base + C::BAR_OFF, full = qbar + 8, empty = full + 8 * C::STAGES;
+  const int tiles = (L + C::BN - 1) / C::BN;
+  const int bh = blockIdx.y, q0 = blockIdx.x * C::BM;
+
+  if (threadIdx.x == 0) {
+    pww::mbar_init(qbar, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      pww::mbar_init(full + 8 * s, 1);
+      pww::mbar_init(empty + 8 * s, C::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  if (threadIdx.x >= C::CONSUMERS) {  // the producer warp: one thread starts every copy
+    if (threadIdx.x == C::CONSUMERS) {
+      pww::mbar_expect_tx(qbar, C::KS * C::Q_SLAB);
+      for (int s = 0; s < C::KS; ++s)
+        pww::tma_load_3d(base + s * C::Q_SLAB, &tq, 16 * s, q0, bh, qbar);
+      for (int j = 0; j < tiles; ++j) {
+        const int st = j % C::STAGES;
+        if (j >= C::STAGES) pww::mbar_wait(empty + 8 * st, (j / C::STAGES - 1) & 1);
+        pww::mbar_expect_tx(full + 8 * st, 2 * C::KV_BYTES);
+        const uint32_t kt = base + C::K_OFF + st * C::KV_BYTES;
+        const uint32_t vt = base + C::V_OFF + st * C::KV_BYTES;
+        for (int s = 0; s < C::KS; ++s) {
+          pww::tma_load_3d(kt + s * C::KV_SLAB, &tk, 16 * s, j * C::BN, bh, full + 8 * st);
+          pww::tma_load_3d(vt + s * C::KV_SLAB, &tv, 16 * s, j * C::BN, bh, full + 8 * st);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  float s[C::NT][4], o[C::NO][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+  for (int nt = 0; nt < C::NO; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  auto& sf = reinterpret_cast<float(&)[C::NT * 4]>(s);
+  auto& of = reinterpret_cast<float(&)[C::NO * 4]>(o);
+  const uint32_t qw = base + wg * 64 * 32;  // this warpgroup's rows in each Q slab
+  pww::mbar_wait(qbar, 0);
+
+  for (int j = 0; j < tiles; ++j) {
+    const int st = j % C::STAGES;
+    const uint32_t kt = base + C::K_OFF + st * C::KV_BYTES;
+    const uint32_t vt = base + C::V_OFF + st * C::KV_BYTES;
+    pww::mbar_wait(full + 8 * st, (j / C::STAGES) & 1);
+    // S = Q K^T: K-major A and B, 8 rows of 32 bytes apart by 256 bytes
+    pww::fence_regs(sf);
+    pww::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::KS; ++kk)
+      pww::WgmmaSS<C::BN>::run(sf, pww::desc_sw32(qw + kk * C::Q_SLAB, 16, 256),
+                               pww::desc_sw32(kt + kk * C::KV_SLAB, 16, 256), kk > 0);
+    pww::wgmma_commit();
+    pww::wgmma_wait<0>();
+    pww::fence_regs(sf);
+
+    if ((j + 1) * C::BN > L) pww::mask_keys<C::NT>(s, j * C::BN, L, lane);
+    pww::softmax_step<C::NT>(s, m, l, alpha, scale_log2e);
+    pww::rescale<C::NO>(o, alpha);
+    uint32_t p[C::NT / 2][4];
+#pragma unroll
+    for (int kk = 0; kk < C::NT / 2; ++kk) pww::p_fragment<C::NT>(p[kk], s, kk);
+
+    // O += P V: V MN-major, 16-column slabs KV_SLAB apart, 8 keys 256 bytes
+    // apart, a k16 step of keys 512 bytes
+    pww::fence_regs(of);
+    pww::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::NT / 2; ++kk)
+      pww::WgmmaRS<C::DH>::run(of, p[kk], pww::desc_sw32(vt + kk * 512, C::KV_SLAB, 256), 1);
+    pww::wgmma_commit();
+    pww::wgmma_wait<0>();
+    pww::fence_regs(of);
+    pww::mbar_arrive(empty + 8 * st);
+  }
+  pww::store_rows<C::NO>(out + (size_t)bh * L * C::DH, o, l, q0 + wg * 64 + warp * 16, L, lane);
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads) flash_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int L,
-    float scale_log2e) {
-  using T = Tile<DH>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + T::Q_OFF);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + T::K_OFF);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + T::V_OFF);
-  float* ss = reinterpret_cast<float*>(smem + T::S_OFF);
-  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(smem + T::P_OFF);
-  float* os = reinterpret_cast<float*>(smem + T::O_OFF);
-  float* m_run = reinterpret_cast<float*>(smem + T::M_OFF);
-  float* l_run = reinterpret_cast<float*>(smem + T::L_OFF);
-  float* alpha = reinterpret_cast<float*>(smem + T::A_OFF);
+// cuTensorMapEncodeTiled looked up through the runtime, so that the
+// library needs no link against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = warp * 16;  // this warp's first query row in the tile
-  const int q0 = blockIdx.x * kBlockQ;
-  const size_t base = (size_t)blockIdx.y * L * DH;
-
-  load_tile<DH>(qs, q + base, q0, L);
-  for (int i = threadIdx.x; i < kBlockQ * T::LDO; i += kThreads) os[i] = 0.f;
-  for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < L; k0 += kBlockK) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<DH>(ks, k + base, k0, L);
-    load_tile<DH>(vs, v + base, k0, L);
-    __syncthreads();
-
-    // S rows of this warp = Q[row0:row0+16] · K_tile^T
-    for (int n = 0; n < kBlockK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < T::DP / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, qs + row0 * T::LDH + kk * 16, T::LDH);
-        wmma::load_matrix_sync(b, ks + n * 16 * T::LDH + kk * 16, T::LDH);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(ss + row0 * T::LDS + n * 16, acc, T::LDS,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax over this tile's keys, f32, base 2. Lanes 2r and 2r+1
-    // take row r of the warp's 16, 32 keys each, so a row needs one shuffle
-    // per reduction; the columns are visited in an order rotated by the
-    // lane, which puts the 32 lanes on 32 distinct shared-memory banks.
-    {
-      const int half = lane & 1;
-      const int r = row0 + (lane >> 1);
-      const float* srow = ss + r * T::LDS + half * 32;
-      __nv_bfloat16* prow = ps + r * T::LDP + half * 32;
-      const int kbase = k0 + half * 32;
-      float sv[32];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const int c = (j + lane) & 31;
-        sv[j] = kbase + c < L ? srow[c] * scale_log2e : -INFINITY;
-        mx = fmaxf(mx, sv[j]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_old = m_run[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const float p = exp2f(sv[j] - m_new);
-        sum += p;
-        prow[(j + lane) & 31] = __float2bfloat16(p);
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      __syncwarp();  // both lanes of the pair have read m_run[r]
-      if (half == 0) {
-        const float a = exp2f(m_old - m_new);
-        alpha[r] = a;
-        l_run[r] = l_run[r] * a + sum;
-        m_run[r] = m_new;
-      }
-    }
-    __syncwarp();
-    for (int i = lane; i < 16 * T::DP; i += 32) {
-      const int r = row0 + i / T::DP, c = i % T::DP;
-      os[r * T::LDO + c] *= alpha[r];
-    }
-    __syncwarp();
-
-    // O rows of this warp += P[row0:row0+16] · V_tile
-    for (int n = 0; n < T::DP / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, os + row0 * T::LDO + n * 16, T::LDO,
-                             wmma::mem_row_major);
-      for (int kk = 0; kk < kBlockK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, ps + row0 * T::LDP + kk * 16, T::LDP);
-        wmma::load_matrix_sync(b, vs + kk * 16 * T::LDH + n * 16, T::LDH);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(os + row0 * T::LDO + n * 16, acc, T::LDO,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-
-  for (int i = lane; i < 16 * DH; i += 32) {
-    const int rr = i / DH, c = i % DH;
-    const int r = row0 + rr;
-    if (q0 + r < L)
-      out[base + (size_t)(q0 + r) * DH + c] = __float2bfloat16(os[r * T::LDO + c] / l_run[r]);
-  }
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
 }
 
-template <int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int BH, int L, float scale, cudaStream_t stream) {
+// A (B·H, L, dh) bf16 tensor as boxes of 16 columns × `rows` rows, 32-byte
+// swizzle; what lies outside the tensor arrives as zeros.
+bool slab_map(CUtensorMap* map, const void* ptr, int BH, int L, int dh, int rows) {
+  const EncodeTiled encode = encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)dh, (cuuint64_t)L, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)dh * 2, (cuuint64_t)L * dh * 2};
+  const cuuint32_t box[3] = {16, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <class C>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int BH, int L,
+                   float scale, cudaStream_t stream) {
   static std::atomic<unsigned long long> smem_set{0};
-  cudaError_t e = pww::allow_max_shared_memory(
-      reinterpret_cast<const void*>(flash_kernel<DH>), smem_set);
+  cudaError_t e = pww::allow_max_shared_memory(reinterpret_cast<const void*>(flash_kernel<C>),
+                                               smem_set);
   if (e != cudaSuccess) return e;
-  const dim3 grid((L + kBlockQ - 1) / kBlockQ, BH);
-  flash_kernel<DH><<<grid, kThreads, Tile<DH>::BYTES, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), L,
-      scale * 1.4426950408889634f);
+  CUtensorMap tq, tk, tv;
+  if (!slab_map(&tq, q, BH, L, C::DH, C::BM) || !slab_map(&tk, k, BH, L, C::DH, C::BN) ||
+      !slab_map(&tv, v, BH, L, C::DH, C::BN))
+    return cudaErrorInvalidValue;
+  const dim3 grid((L + C::BM - 1) / C::BM, BH);
+  flash_kernel<C><<<grid, C::THREADS, C::SMEM, stream>>>(tq, tk, tv, static_cast<bf16*>(out),
+                                                         L, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -211,15 +204,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 extern "C" {
 
-// q, k, v, out: contiguous (B·H, L, dh) bf16; dh one of 40, 64, 80, 160.
+// q, k, v, out: contiguous (B·H, L, dh) bf16, 16-byte aligned; dh one of
+// 40, 64, 80, 160.
 int flash_self_attention(const void* q, const void* k, const void* v, void* out,
                          int BH, int L, int dh, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 40: return launch<40>(q, k, v, out, BH, L, scale, st);
-    case 64: return launch<64>(q, k, v, out, BH, L, scale, st);
-    case 80: return launch<80>(q, k, v, out, BH, L, scale, st);
-    case 160: return launch<160>(q, k, v, out, BH, L, scale, st);
+    case 40: return launch<Cfg<40, 64, 3, 3>>(q, k, v, out, BH, L, scale, st);
+    case 64: return launch<Cfg<64, 128, 2, 2>>(q, k, v, out, BH, L, scale, st);
+    case 80: return launch<Cfg<80, 128, 2, 2>>(q, k, v, out, BH, L, scale, st);
+    case 160: return launch<Cfg<160, 64, 2, 2>>(q, k, v, out, BH, L, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

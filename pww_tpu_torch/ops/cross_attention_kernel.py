@@ -26,6 +26,7 @@ from . import cuda_build
 from .weight_functions import AnyWeightFunction
 
 _MODES = {"max": 0, "mean": 1, "std": 2}
+HEAD_DIMS = (40, 64, 80, 160)  # K2 and K3: instantiated in csrc/{pww_cross,flash}_attention.cu
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -118,6 +119,8 @@ def fused_pww_cross_attention(
     check_kernel_inputs("fused_pww_cross_attention", q, k, v)
     if k.shape != (b, h, lk, dh) or v.shape != k.shape:
         raise ValueError("fused_pww_cross_attention: k and v must be (B, H, Lk, dh)")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"fused_pww_cross_attention: head dim {dh} not in {HEAD_DIMS}")
     if (w.shape != (b, lq, lk) or w.dtype != torch.float32
             or not w.is_contiguous() or w.device != q.device):
         raise ValueError(f"fused_pww_cross_attention: w must be contiguous f32 "

@@ -4,7 +4,7 @@ Every ``csrc/*.cu`` has a plain C interface. :func:`build` compiles each
 source to an object with one nvcc process per source, all at once, and links
 the objects into one library, ``build/pww_tpu_torch/pww_kernels-<hash>.so``
 at the repository root (a directory git ignores). The hash covers every
-source, the shared header and the flags, so an edited source builds anew.
+source, the shared headers and the flags, so an edited source builds anew.
 A first use or ``chip_smoke.py`` calls it. Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -22,7 +22,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "pww_tpu_torch")
 SOURCES = ("pww_reduce", "pww_cross_attention", "flash_attention", "group_norm",
            "layer_norm", "library")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "hopper.cuh", "attention_tile.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
 

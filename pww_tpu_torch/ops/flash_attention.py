@@ -13,9 +13,7 @@ import ctypes
 import torch
 
 from . import cuda_build
-from .cross_attention_kernel import check_kernel_inputs
-
-HEAD_DIMS = (40, 64, 80, 160)  # instantiated in csrc/flash_attention.cu
+from .cross_attention_kernel import HEAD_DIMS, check_kernel_inputs
 
 
 def self_attention_plain(q: torch.Tensor, k: torch.Tensor,

@@ -98,6 +98,43 @@ def test_flash_plain_matches_jax_kernel(dh):
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
 
 
+def _within_card_limits(got: torch.Tensor, want) -> None:
+    """chip_smoke.py's limits for K2 and K3 against their plain versions:
+    2^-6·max|o| in max abs (2-4 bf16 ulps of the largest output) and 1e-2 in
+    relative L2 (P rounded to bf16 for the P·V product adds about 2^-9 per
+    term)."""
+    got = got.float().numpy()
+    want = np.asarray(want, np.float32)
+    assert np.abs(got - want).max() <= 2**-6 * np.abs(want).max()
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 1e-2
+
+
+@pytest.mark.parametrize("dh", [40, 80])
+@pytest.mark.parametrize("kernel", ["pww_cross_attention", "flash_self_attention"])
+def test_bf16_jax_kernels_sit_within_the_card_limits_of_the_plain_versions(kernel, dh):
+    """The JAX kernels round P to bf16 before P·V, as the CUDA kernels do;
+    the plain versions keep P in f32. On bf16 inputs the two must agree
+    within the limits the card holds the CUDA kernels to."""
+    q, k, v, w = _qkv(8, dh=dh)
+    if kernel == "flash_self_attention":
+        rng = np.random.default_rng(9)
+        k, v = (rng.standard_normal(q.shape).astype(np.float32) for _ in range(2))
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    tq, tk, tv = (torch.tensor(x).to(torch.bfloat16) for x in (q, k, v))
+    if kernel == "flash_self_attention":
+        want = jfa.flash_self_attention(jq, jk, jv, block=256, pad_heads=False)
+        got = tfa.self_attention_plain(tq, tk, tv)
+    else:
+        jwf = JWeightFunction(0.3, "log1p_sigma", "max")
+        coef = np.asarray(jwf.sigma_coef(jnp.float32(4.0)) * jxk.fused_pww_reduce(
+            jnp.asarray(q), jnp.asarray(k), jwf, block_q=256))
+        want = jxk.fused_pww_cross_attention(jq, jk, jv, jnp.asarray(w), jnp.asarray(coef),
+                                             block_q=256)
+        got = txk.pww_cross_attention_plain(tq, tk, tv, torch.tensor(w), torch.tensor(coef))
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    _within_card_limits(got, want)
+
+
 def test_wrappers_on_cpu_take_the_plain_path_and_count_nothing():
     q, k, v, w = _t(*_qkv(6, lq=64))
     coef = torch.tensor([0.0, 0.5])
