@@ -14,9 +14,15 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    CUDA-event timings of the kernel, the plain version, a one-call library
    yardstick where one exists, and the least time the card could take; then
    K3 at dh 64 and 160 and ragged L, K2 at ragged Lq and at two and four
-   prompt chunks (Lk 154, 308); ``--kernels-only`` stops after this phase,
-   and ``--e2e-reps R`` runs phase 5's call R times in its place, with the
-   host time of each K2 and K3 wrapper call;
+   prompt chunks (Lk 154, 308); then K4 group_norm and K5 layer_norm at
+   every site signature of the inpaint path (the tables K4_SITES and
+   K5_SITES), with ``F.group_norm`` and ``F.layer_norm`` as the library
+   yardstick where no pre-add or SiLU, K4 off the path at a streamed span
+   (1, 128, 1024, 1024) and a scalar one (1, 64, 33, 33), K4's plan per
+   case, and each kernel's loss_ms_per_run (Σ calls per 30-step run ×
+   (ms − bound)); ``--kernels-only`` stops after this phase, and
+   ``--e2e-reps R`` runs phase 5's call R times in its place, with the host
+   time of each K2 and K3 wrapper call;
 4. reference: a reduced-depth SD-1.5-width txt2img (256 px, 3 steps) on the
    card in bf16 against the same pipeline on the CPU in f32;
 5. main path: SD-1.5 at full width (synthetic N(0, 0.02) weights) through
@@ -24,20 +30,20 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    launch counters are zeroed before the run and must read K1 = K2 = 15·N,
    K3 = 10·N and K4 = K5 = 0 (the norm knobs are off) after it;
 6. profile: device time by kernel group over a 5-step call (torch.profiler),
-   the device's idle share, and each kernel's device time per call;
+   the device's idle share, and each kernel's device time and device
+   kernels per wrapper call;
 7. img2img: one full-width ``paint_with_words`` call with an init image at
    strength 0.5 on the same pipeline (N/2 steps, counts checked);
-8. norm kernels: K4 group_norm and K5 layer_norm against their plain
-   versions at every site shape of the inpaint path (recorded from a 1-step
-   warm-up of phase 10's pipeline), timed as in phase 3, ``F.group_norm``
-   and ``F.layer_norm`` as the library yardstick where no pre-add or SiLU;
+8. norm sites: a 1-step warm-up of phase 10's pipeline records every K4
+   and K5 call's signature, which must be the tables of phase 3;
 9. inpaint reference: a reduced-depth 9-channel inpaint with the norm
    knobs on, card bf16 against CPU f32;
 10. inpaint path: SD-1.5-inpainting at full width (9-channel ``conv_in``,
     synthetic weights, ``fused_group_norm`` and ``fused_layer_norm`` on in
     the UNet and the VAE) through ``paint_with_words_inpaint``, 512², N
     steps at strength 1.0; the counters must read K4 = 61·N + 2·22 + 30,
-    K5 = 48·N, K1 = K2 = 15·N, K3 = 10·N; then its own 5-step profile.
+    K5 = 48·N, K1 = K2 = 15·N, K3 = 10·N; then its own 5-step profile, in
+    which K4 must be one device kernel per call.
 
 Then a JSON line with every kernel, the card's name and power limit, and
 last {"ok": true, "device": {...}}.
@@ -60,8 +66,72 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores (the norms)
 # UNet call (self-attention takes K3 at the first two, cross-attention K1+K2
 # at all three)
 SHAPES = ((4096, 40), (1024, 80), (256, 160))
+STEPS_PER_RUN = 30  # the operating point's LMS steps, for calls per run
+# The inpaint path's GroupNorm sites at 512² (SD-1.5-inpainting, CFG batch 2
+# in the UNet): (shape, groups, eps, SiLU, pre-add) → calls per UNet step,
+# per VAE encode, per VAE decode. An inpaint call at strength 1.0 runs N
+# UNet steps, two encodes (image, masked image) and a decode: K4 = 61·N +
+# 2·22 + 30.
+K4_SITES = {
+    ((2, 320, 64, 64), 32, 1e-06, False, False): (5, 0, 0),
+    ((2, 320, 64, 64), 32, 1e-05, True, False): (3, 0, 0),
+    ((2, 320, 64, 64), 32, 1e-05, True, True): (5, 0, 0),
+    ((2, 320, 32, 32), 32, 1e-05, True, False): (1, 0, 0),
+    ((2, 640, 64, 64), 32, 1e-05, True, False): (2, 0, 0),
+    ((2, 640, 32, 32), 32, 1e-06, False, False): (5, 0, 0),
+    ((2, 640, 32, 32), 32, 1e-05, True, False): (1, 0, 0),
+    ((2, 640, 32, 32), 32, 1e-05, True, True): (5, 0, 0),
+    ((2, 640, 16, 16), 32, 1e-05, True, False): (1, 0, 0),
+    ((2, 960, 64, 64), 32, 1e-05, True, False): (1, 0, 0),
+    ((2, 960, 32, 32), 32, 1e-05, True, False): (1, 0, 0),
+    ((2, 1280, 32, 32), 32, 1e-05, True, False): (1, 0, 0),
+    ((2, 1280, 16, 16), 32, 1e-06, False, False): (5, 0, 0),
+    ((2, 1280, 16, 16), 32, 1e-05, True, False): (1, 0, 0),
+    ((2, 1280, 16, 16), 32, 1e-05, True, True): (5, 0, 0),
+    ((2, 1280, 8, 8), 32, 1e-06, False, False): (1, 0, 0),
+    ((2, 1280, 8, 8), 32, 1e-05, True, False): (4, 0, 0),
+    ((2, 1280, 8, 8), 32, 1e-05, True, True): (7, 0, 0),
+    ((2, 1920, 32, 32), 32, 1e-05, True, False): (1, 0, 0),
+    ((2, 1920, 16, 16), 32, 1e-05, True, False): (1, 0, 0),
+    ((2, 2560, 16, 16), 32, 1e-05, True, False): (2, 0, 0),
+    ((2, 2560, 8, 8), 32, 1e-05, True, False): (3, 0, 0),
+    ((1, 256, 512, 512), 32, 1e-06, True, False): (0, 0, 1),
+    ((1, 128, 512, 512), 32, 1e-06, True, False): (0, 4, 6),
+    ((1, 512, 256, 256), 32, 1e-06, True, False): (0, 0, 1),
+    ((1, 256, 256, 256), 32, 1e-06, True, False): (0, 3, 5),
+    ((1, 128, 256, 256), 32, 1e-06, True, False): (0, 1, 0),
+    ((1, 512, 128, 128), 32, 1e-06, True, False): (0, 3, 6),
+    ((1, 256, 128, 128), 32, 1e-06, True, False): (0, 1, 0),
+    ((1, 512, 64, 64), 32, 1e-06, True, False): (0, 9, 10),
+    ((1, 512, 64, 64), 32, 1e-06, False, False): (0, 1, 1),
+}
+# The transformer LayerNorms: (shape, eps) → calls per UNet step (48·N).
+K5_SITES = {((2, 4096, 320), 1e-05): 15, ((2, 1024, 640), 1e-05): 15,
+            ((2, 256, 1280), 1e-05): 15, ((2, 64, 1280), 1e-05): 3}
+# K4 off the path: a span larger than 16 CTAs' shared memory, and channels
+# that are not a multiple of 8 elements (the scalar path)
+K4_OFF_PATH = (((1, 128, 1024, 1024), 32, 1e-06, True, False),
+               ((1, 64, 33, 33), 32, 1e-06, False, False))
+
+
+def k4_calls(site, unet_steps, encodes=2, decodes=1):
+    u, e, d = K4_SITES[site]
+    return u * unet_steps + e * encodes + d * decodes
+
+
+def k4_label(site, mean=0.0):
+    (shape, groups, eps, silu, has_add) = site
+    where = "off" if site not in K4_SITES else "unet" if shape[0] == 2 else "vae"
+    return (f"{where} {shape}{' add' if has_add else ''}{' silu' if silu else ''} "
+            f"eps{eps:g}{f' mean{mean:g}' if mean else ''}")
+
+
+def k5_label(site, mean=0.0):
+    shape, eps = site
+    return f"{shape} eps{eps:g}{f' mean{mean:g}' if mean else ''}"
+
 # name → (source, TPU kernel it replaces, launch counter, profile group,
-#         the case whose numbers head the kernel's JSON entry; None: the largest)
+#         the case whose numbers head the kernel's JSON entry)
 KERNELS = {
     "pww_reduce": ("pww_tpu_torch/csrc/pww_reduce.cu",
                    "pww_tpu/ops/cross_attention_kernel.py:133", "fused_pww_reduce",
@@ -74,9 +144,10 @@ KERNELS = {
                              "pww_tpu/ops/flash_attention.py:64", "flash_self_attention",
                              "K3 flash_self_attention", "L4096 dh40"),
     "group_norm": ("pww_tpu_torch/csrc/group_norm.cu", "pww_tpu/ops/group_norm.py:288",
-                   "group_norm", "K4 group_norm", None),
+                   "group_norm", "K4 group_norm",
+                   k4_label(((1, 256, 512, 512), 32, 1e-06, True, False))),
     "layer_norm": ("pww_tpu_torch/csrc/layer_norm.cu", "pww_tpu/ops/layer_norm.py:60",
-                   "layer_norm", "K5 layer_norm", None),
+                   "layer_norm", "K5 layer_norm", k5_label(((2, 4096, 320), 1e-05))),
 }
 
 
@@ -123,7 +194,9 @@ class Cases:
         self.failed = []
 
     def record(self, kernel, label, got, want, tol, rel_tol, ms, plain_ms, bnd, library_ms,
-               flops=None):
+               flops=None, calls=None):
+        """``calls``: the case's calls per 30-step run of its path (None: off
+        the path), for the kernel's loss_ms_per_run."""
         import torch
 
         diff = got.float() - want.float()
@@ -134,7 +207,8 @@ class Cases:
         self.by_kernel.setdefault(kernel, []).append(dict(
             case=label, numel=want.numel(), max_abs_err=err, tol=tol, rel_l2_err=rel,
             rel_tol=rel_tol, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
-            library_ms=library_ms, tflops=flops / ms * 1e-9 if flops else None))
+            library_ms=library_ms, tflops=flops / ms * 1e-9 if flops else None,
+            calls_per_run=calls))
         lib = "null" if library_ms is None else f"{library_ms:.4f}"
         rate = f", {flops / ms * 1e-9:.1f} TFLOP/s" if flops else ""
         log(f"[kernels] {kernel} {label}: max_abs_err {err:.3e} (tol {tol:.3e}), "
@@ -147,6 +221,13 @@ class Cases:
     def check(self):
         if self.failed:
             raise SystemExit(f"[kernels] outside tolerance: {self.failed}")
+
+
+def loss_ms_per_run(cases):
+    """Σ over a kernel's path cases of calls per 30-step run × (ms − bound):
+    the ranking quantity of the kernel redesigns."""
+    return sum(c["calls_per_run"] * (c["ms"] - c["bound_ms"]) for c in cases
+               if c.get("calls_per_run"))
 
 
 def phase_device():
@@ -215,7 +296,7 @@ def phase_kernels():
     cases = Cases()
     record = cases.record
 
-    def xattn_case(q, k, v, label):
+    def xattn_case(q, k, v, label, calls=None):
         """K2 on w with a zero uncond row, coef from the default weight function."""
         lq, lk, dh = q.shape[2], k.shape[2], q.shape[3]
         w = torch.rand((B, lq, lk), generator=g, device="cuda")
@@ -240,9 +321,9 @@ def phase_kernels():
                bound((q.numel() * 2 + k.numel() + v.numel()) * 2 + w.numel() * 4 + B * 4,
                      4 * B * H * lq * lk * dh),
                time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)),
-               flops=4 * B * H * lq * lk * dh)
+               flops=4 * B * H * lq * lk * dh, calls=calls)
 
-    def flash_case(l, dh, label):
+    def flash_case(l, dh, label, calls=None):
         q, k, v = randn(B, H, l, dh), randn(B, H, l, dh), randn(B, H, l, dh)
         got = fa.flash_self_attention(q, k, v)
         want = fa.self_attention_plain(q, k, v)
@@ -256,7 +337,7 @@ def phase_kernels():
                time_ms(lambda: fa.self_attention_plain(q, k, v), reps=3),
                bound(4 * q.numel() * 2, 4 * B * H * l * l * dh),
                time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
-               flops=4 * B * H * l * l * dh)
+               flops=4 * B * H * l * l * dh, calls=calls)
         del q, k, v, got, want
         torch.cuda.empty_cache()
 
@@ -276,10 +357,11 @@ def phase_kernels():
                    time_ms(lambda: xk.fused_pww_reduce(qq, kk, wf)),
                    time_ms(lambda: xk.pww_cross_attention_reduce(qq, kk, wf)),
                    bound((qq.numel() + kk.numel()) * 2 + B * 4, 2 * B * H * lq * LK * dh),
-                   None, flops=2 * B * H * lq * LK * dh)
-        xattn_case(q, k, v, f"Lq{lq} dh{dh}")
+                   None, flops=2 * B * H * lq * LK * dh,
+                   calls=5 * STEPS_PER_RUN if mode == "max" and not tag else None)
+        xattn_case(q, k, v, f"Lq{lq} dh{dh}", calls=5 * STEPS_PER_RUN)
         if lq >= 1024:  # K3: self-attention at the flash sites
-            flash_case(lq, dh, f"L{lq} dh{dh}")
+            flash_case(lq, dh, f"L{lq} dh{dh}", calls=5 * STEPS_PER_RUN)
     # shapes off the 512² path: K3's other head dims, ragged L and Lq, and
     # K2 with two and four prompt chunks (the last past the w rows' room in
     # shared memory at dh 160, where the kernel reads w from device memory)
@@ -492,7 +574,7 @@ GROUPS = (  # device-kernel name fragments → group, first match wins
     ("K1 pww_reduce", ("reduce_partials", "reduce_combine")),
     ("K2 pww_cross_attention", ("pww_xattn_kernel",)),
     ("K3 flash_self_attention", ("flash_kernel",)),
-    ("K4 group_norm", ("gn_stats", "gn_apply")),
+    ("K4 group_norm", ("gn_cluster",)),
     ("K5 layer_norm", ("ln_rows",)),
     ("conv", ("conv", "xmma", "implicit", "winograd", "fprop")),
     ("gemm", ("gemm", "nvjet", "cutlass", "cublas")),
@@ -502,7 +584,8 @@ GROUPS = (  # device-kernel name fragments → group, first match wins
 
 
 def phase_profile(run, tag, steps=5):
-    """Device time by kernel group over one ``run(steps)`` call (torch.profiler)."""
+    """Device time by kernel group over one ``run(steps)`` call (torch.profiler);
+    returns {group: (device ms, device kernels) per wrapper call}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -514,7 +597,7 @@ def phase_profile(run, tag, steps=5):
         run(steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    groups, kernels = {}, []
+    groups, counts, kernels = {}, {}, []
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
@@ -527,6 +610,7 @@ def phase_profile(run, tag, steps=5):
         group = next((g for g, frags in GROUPS
                       if any(f in name.lower() for f in frags)), "other")
         groups[group] = groups.get(group, 0.0) + us / 1e3
+        counts[group] = counts.get(group, 0) + ev.count
         kernels.append((us / 1e3, ev.count, name))
     busy = sum(groups.values())
     if busy == 0:
@@ -537,10 +621,12 @@ def phase_profile(run, tag, steps=5):
         f"{g} {t:.2f}" for g, t in sorted(groups.items(), key=lambda x: -x[1])))
     for ms, count, name in sorted(kernels, reverse=True)[:8]:
         log(f"[profile {tag}]   {ms:8.2f} ms {count:6d}x {name[:90]}")
-    per_launch = {g: groups.get(g, 0.0) / c.launches
+    per_launch = {g: (groups.get(g, 0.0) / c.launches, counts.get(g, 0) / c.launches)
                   for g, c in counters.items() if c.launches}
     log(f"[profile {tag}] device ms per wrapper call: " + ", ".join(
-        f"{g} {t:.4f}" for g, t in per_launch.items()))
+        f"{g} {t:.4f}" for g, (t, _) in per_launch.items()))
+    log(f"[profile {tag}] device kernels per wrapper call: " + ", ".join(
+        f"{g} {k:g}" for g, (_, k) in per_launch.items()))
     return per_launch
 
 
@@ -627,7 +713,8 @@ def inpaint_pipeline():
 
 
 def record_norm_sites(kw):
-    """Run one inpaint step and record every K4 and K5 call's signature."""
+    """Run one inpaint step, record every K4 and K5 call's signature, and
+    check them against K4_SITES and K5_SITES."""
     from pww_tpu_torch.ops import group_norm as gn
     from pww_tpu_torch.ops import layer_norm as ln
     from pww_tpu_torch.pipeline.facade import paint_with_words_inpaint
@@ -655,11 +742,15 @@ def record_norm_sites(kw):
         gn.group_norm, ln.layer_norm = k4, k5
     log(f"[norms] one inpaint step: {sum(gn_sites.values())} K4 calls at {len(gn_sites)} "
         f"signatures, {sum(ln_sites.values())} K5 calls at {len(ln_sites)}")
-    return gn_sites, ln_sites
+    want_gn = {site: k4_calls(site, 1) for site in K4_SITES}
+    if gn_sites != want_gn or ln_sites != K5_SITES:
+        raise SystemExit(f"[norms] recorded sites differ from the table: K4 {gn_sites} != "
+                         f"{want_gn} or K5 {ln_sites} != {K5_SITES}")
 
 
-def phase_norm_kernels(gn_sites, ln_sites):
-    """K4 and K5 against their plain versions at every site signature."""
+def phase_norm_kernels():
+    """K4 and K5 against their plain versions at every site signature of the
+    inpaint path (K4_SITES, K5_SITES) and K4's two cases off it."""
     import torch
     import torch.nn.functional as F
 
@@ -679,10 +770,13 @@ def phase_norm_kernels(gn_sites, ln_sites):
     # ulp, 2^-8 to 2^-7 of it. The limits are 2-4 ulps of the largest output
     # and 1e-3 in relative L2, which one-ulp flips reach only on a few % of
     # the elements; a wrong group, channel or pre-add moves it by about 1e-1.
-    gn_cases = [(k, 0.0) for k in sorted(gn_sites, key=lambda k: (k[0][0], -k[0][1]))]
-    big_unet = max((k for k in gn_sites if k[0][0] == 2), key=lambda k: (math.prod(k[0]), k[4]))
+    gn_cases = [(k, 0.0) for k in K4_SITES]
+    big_unet = max((k for k in K4_SITES if k[0][0] == 2), key=lambda k: (math.prod(k[0]), k[4]))
     gn_cases.append((big_unet, 8.0))  # |mean| ≫ std: the fast variance cancels
-    for (shape, groups, eps, silu, has_add), mean in gn_cases:
+    gn_cases += [(k, 0.0) for k in K4_OFF_PATH]
+    plan_of = getattr(gn, "group_norm_plan", None)  # absent in a parent tree
+    for site, mean in gn_cases:
+        shape, groups, eps, silu, has_add = site
         n, c = shape[:2]
         x = randn(*shape, mean=mean)
         w, b = randn(c, mean=1.0, std=0.1), randn(c, std=0.1)
@@ -693,28 +787,55 @@ def phase_norm_kernels(gn_sites, ln_sites):
         lib = None
         if not silu and add is None:
             lib = time_ms(lambda: F.group_norm(x, groups, w, b, eps))
-        label = (f"{'unet' if n == 2 else 'vae'} {shape}{' add' if has_add else ''}"
-                 f"{' silu' if silu else ''} eps{eps:g}{f' mean{mean:g}' if mean else ''}")
         nbytes = 2 * x.numel() * 2 + (n * c * 2 if has_add else 0) + 2 * c * 2
+        bnd = bound(nbytes, (12 if silu else 8) * x.numel(), F32_FLOPS_PER_S)
+        label = k4_label(site, mean)
         cases.record("group_norm", label, got, want, 2**-6 * want.float().abs().max().item(),
                      1e-3, time_ms(lambda: gn.group_norm(x, w, b, **kw)),
-                     time_ms(lambda: gn.group_norm_plain(x, w, b, **kw), reps=5),
-                     bound(nbytes, (12 if silu else 8) * x.numel(), F32_FLOPS_PER_S), lib)
+                     time_ms(lambda: gn.group_norm_plain(x, w, b, **kw), reps=5), bnd, lib,
+                     calls=k4_calls(site, STEPS_PER_RUN) if site in K4_SITES and not mean
+                     else None)
+        if plan_of is not None:
+            cpg = c // groups
+            plan = plan_of(cpg * math.prod(shape[2:]), cpg, n * groups,
+                           gn._max_cluster(torch.cuda.current_device()))
+            log(f"[norms]   plan: cluster {plan.cluster}, piece {plan.piece}, resident "
+                f"{plan.resident}{' (streamed)' if plan.streamed else ''}, "
+                f"{plan.smem_bytes} B shared memory and {plan.threads} threads per CTA")
+            if plan.streamed and site in K4_SITES:
+                # the alternative: as much of each piece resident as fits
+                # (one CTA per SM), the rest read twice
+                res = (gn.SMEM_PER_CTA - gn._smem_bytes(0, cpg)) // 16 * 8
+                held = plan._replace(resident=res, smem_bytes=gn._smem_bytes(res, cpg),
+                                     threads=512)
+                run = lambda: gn._launch(x, w, b, add, groups=groups, eps=eps, silu=silu,
+                                         out_dtype=bf16, plan=held)
+                cases.record("group_norm", label + " most-resident", run(), want,
+                             2**-6 * want.float().abs().max().item(), 1e-3, time_ms(run),
+                             cases.by_kernel["group_norm"][-1]["plain_ms"], bnd, lib)
+                # what one read and one write of x take on this card
+                copy = torch.empty_like(x)
+                log(f"[norms]   a copy of x (one read, one write): "
+                    f"{time_ms(lambda: copy.copy_(x)):.4f} ms")
         del x, got, want
-    for (shape, eps), mean in [(k, 0.0) for k in sorted(ln_sites, reverse=True)] + [
-            (max(ln_sites), 8.0)]:
+        torch.cuda.empty_cache()
+    for site, mean in [(k, 0.0) for k in K5_SITES] + [(max(K5_SITES), 8.0)]:
+        shape, eps = site
         c = shape[-1]
         x = randn(*shape, mean=mean)
         w, b = randn(c, mean=1.0, std=0.1), randn(c, std=0.1)
         got = ln.layer_norm(x, w, b, eps=eps)
         want = ln.layer_norm_plain(x, w, b, eps=eps)
-        cases.record("layer_norm", f"{shape} eps{eps:g}{f' mean{mean:g}' if mean else ''}",
+        cases.record("layer_norm", k5_label(site, mean),
                      got, want, 2**-6 * want.float().abs().max().item(), 1e-3,
                      time_ms(lambda: ln.layer_norm(x, w, b, eps=eps)),
                      time_ms(lambda: ln.layer_norm_plain(x, w, b, eps=eps)),
                      bound(2 * x.numel() * 2 + 2 * c * 2, 8 * x.numel(), F32_FLOPS_PER_S),
-                     time_ms(lambda: F.layer_norm(x, (c,), w, b, eps)))
+                     time_ms(lambda: F.layer_norm(x, (c,), w, b, eps)),
+                     calls=K5_SITES[site] * STEPS_PER_RUN if not mean else None)
     torch.cuda.empty_cache()
+    for name, cs in cases.by_kernel.items():
+        log(f"[norms] {name}: loss_ms_per_run {loss_ms_per_run(cs):.3f}")
     cases.check()
     return cases.by_kernel
 
@@ -813,7 +934,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=30, help="LMS steps of the main path")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1-3 only, then their cases as one JSON line (A/B of two trees)")
+                    help="phases 1-3 only (K1-K5), then their cases as one JSON line and "
+                         "each kernel's loss_ms_per_run (A/B of two trees)")
     ap.add_argument("--e2e-reps", type=int, default=0,
                     help="phases 1-2, then the main path's s/image this many times and the "
                          "K2/K3 wrappers' host time per call (A/B of two trees)")
@@ -827,8 +949,10 @@ def main():
         print(f"card: {smi}")
         return 0
     cases = phase_kernels()
+    cases.update(phase_norm_kernels())
     if args.kernels_only:
         print(json.dumps(cases))
+        print(json.dumps({name: loss_ms_per_run(cs) for name, cs in cases.items()}))
         print(f"card: {smi}")
         return 0
     phase_reference()
@@ -842,18 +966,18 @@ def main():
 
     torch.cuda.empty_cache()
     ipipe, ikw = inpaint_pipeline()
-    cases.update(phase_norm_kernels(*record_norm_sites(ikw)))
+    record_norm_sites(ikw)
     phase_inpaint_reference()
     ilaunches = phase_inpaint(ipipe, ikw, args.steps)
     iprofiled = phase_profile(
         lambda n: paint_with_words_inpaint(num_inference_steps=n, **ikw), "inpaint")
+    if iprofiled["K4 group_norm"][1] != 1:
+        raise SystemExit("[profile inpaint] K4 is not one device kernel per call")
 
     kernels = []
     for name, (source, replaces, counter, group, head) in KERNELS.items():
         cs = cases[name]
-        # the largest main-path shape
-        top = next(c for c in cs if c["case"] == head) if head else max(
-            cs, key=lambda c: c["numel"])
+        top = next(c for c in cs if c["case"] == head)
         norm = name in ("group_norm", "layer_norm")  # their path is the inpaint path
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -862,7 +986,8 @@ def main():
             rel_l2_err=max(c["rel_l2_err"] for c in cs),
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=top["library_ms"], shape=top["case"],
-            main_path_device_ms_per_call=(iprofiled if norm else profiled).get(group),
+            loss_ms_per_run=loss_ms_per_run(cs),
+            main_path_device_ms_per_call=(iprofiled if norm else profiled).get(group, (None,))[0],
             inpaint_path_launches=ilaunches[counter], cases=cs,
         ))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -1,8 +1,9 @@
-// PTX wrappers shared by the attention kernels (K2, K3): asynchronous
-// global→shared copies (cp.async), shared→register matrix loads (ldmatrix)
-// and the bf16 tensor-core product mma.sync.m16n8k16 with f32 accumulation;
-// then Hopper's own (sm_90a): the warpgroup product wgmma, tensor-map
-// copies (TMA) and the mbarriers that report their completion.
+// PTX wrappers shared by the attention kernels (K2, K3) and GroupNorm (K4):
+// asynchronous global→shared copies (cp.async), shared→register matrix
+// loads (ldmatrix) and the bf16 tensor-core product mma.sync.m16n8k16 with
+// f32 accumulation; then Hopper's own (sm_90a): the warpgroup product wgmma,
+// tensor-map and 1-D bulk copies (TMA) and the mbarriers that report their
+// completion, cluster barriers and distributed shared memory.
 //
 // Fragment layouts of mma.sync.m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
@@ -158,6 +159,50 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   } while (!done);
+}
+
+// Makes mbarrier.init visible to the asynchronous proxy (bulk copies) and
+// to the rest of the cluster.
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from device memory into this CTA's shared memory at dst,
+// completing `bar`'s transaction bytes.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// ---- thread-block clusters and distributed shared memory -----------------
+
+// Every thread of every CTA in the cluster arrives (release: its earlier
+// writes to shared memory are visible to whoever waits) ...
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+// ... and waits for all of them (acquire).
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address in the shared memory of the cluster's CTA `rank` that
+// corresponds to this CTA's shared address `addr`.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float2 cluster_load_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
 }
 
 // TMA: the box at coordinates (c0, c1, c2) of a 3-D tensor map into shared

@@ -1,5 +1,6 @@
 """K4 and K5, the port's GroupNorm and LayerNorm, against the JAX package's
-Pallas kernels in interpret mode (CPU).
+Pallas kernels in interpret mode (CPU); then the CUDA kernels' launch plans
+at every site of the inpaint path (``chip_smoke.py``'s tables).
 
 The JAX kernels run as ``tests/test_group_norm.py`` runs them
 (``force_fused=True``), both GroupNorm schemes included: the whole-row
@@ -8,6 +9,9 @@ the slab. The port's wrappers take their plain versions on CPU tensors.
 Inputs come from a numpy seed; the JAX side is channel-last (N, H, W, C),
 the port NCHW, so the inputs and outputs are transposed between them.
 """
+import math
+
+import chip_smoke
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,8 +20,9 @@ import torch
 from pww_tpu.ops.group_norm import _reference_group_norm
 from pww_tpu.ops.group_norm import group_norm as jax_group_norm
 from pww_tpu.ops.layer_norm import layer_norm as jax_layer_norm
-from pww_tpu_torch.ops.group_norm import group_norm, group_norm_plain
-from pww_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
+from pww_tpu_torch.ops.group_norm import (CLUSTER_SIZES, SMEM_PER_CTA, _smem_bytes, group_norm,
+                                          group_norm_plain, group_norm_plan)
+from pww_tpu_torch.ops.layer_norm import MAX_VPT, layer_norm, layer_norm_plain, layer_norm_plan
 from torch_port_cases import few_torch_threads  # noqa: F401 (autouse)
 
 
@@ -151,3 +156,104 @@ def test_wrappers_raise_off_the_cpu_and_the_card():
     y = torch.ones((3, 8))
     torch.testing.assert_close(layer_norm(y, torch.ones(8), torch.zeros(8), eps=1e-5),
                                layer_norm_plain(y, torch.ones(8), torch.zeros(8), eps=1e-5))
+
+
+# ---- the kernels' launch plans (pure Python; the kernels run on the card) ----
+
+K4_SIGNATURES = list(chip_smoke.K4_SITES)
+# the VAE's spans at 768² and 1024²: its 512² signatures with H and W scaled
+K4_LARGER = sorted({(1, s[0][1], s[0][2] * k // 2, s[0][3] * k // 2)
+                    for s in K4_SIGNATURES if s[0][0] == 1 for k in (3, 4)})
+
+
+def _ceil8(n):
+    return (n + 7) // 8 * 8
+
+
+@pytest.mark.parametrize("shape", [s[0] for s in K4_SIGNATURES] + K4_LARGER,
+                         ids=[chip_smoke.k4_label(s) for s in K4_SIGNATURES]
+                         + [str(s) for s in K4_LARGER])
+def test_group_norm_plan(shape):
+    """A cluster of 1-16 CTAs per group span within the card's shared memory;
+    resident exactly when some cluster holds the span, so that at 512² only
+    (1, 256, 512, 512) streams."""
+    n, c = shape[:2]
+    cpg = c // 32
+    span = cpg * math.prod(shape[2:])
+    plan = group_norm_plan(span, cpg, n * 32)
+    assert plan.cluster in CLUSTER_SIZES == (1, 2, 4, 8, 16)
+    assert plan.piece == _ceil8(-(-span // plan.cluster))
+    assert plan.smem_bytes == _smem_bytes(plan.resident, cpg) <= SMEM_PER_CTA == 232_448
+    fits = any(_smem_bytes(_ceil8(-(-span // k)), cpg) <= SMEM_PER_CTA for k in CLUSTER_SIZES)
+    assert plan.streamed is not fits
+    assert plan.resident == (plan.piece if fits else 0)
+    assert plan.threads == (512 if 2 * plan.smem_bytes > SMEM_PER_CTA else 256)
+    if shape not in K4_LARGER:
+        assert plan.streamed is (shape == (1, 256, 512, 512))
+
+
+def test_group_norm_plan_falls_back_to_smaller_clusters():
+    """A card that places clusters of 8 at most streams the 2 MB spans."""
+    plan = group_norm_plan(4 * 512 * 512, 4, 32, max_cluster=8)
+    assert (plan.cluster, plan.streamed) == (8, True)
+    assert group_norm_plan(2560, 40, 64, max_cluster=8).cluster == 1
+
+
+@pytest.mark.parametrize("c", [320, 640, 768, 1024, 1280, 2048])
+@pytest.mark.parametrize("rows", [2 * 4096, 2 * 1024, 2 * 256, 2 * 64])
+def test_layer_norm_plan(rows, c):
+    """Every lane owns whole 16-byte vectors and none idles; the grid has at
+    least a CTA per SM wherever there are as many rows."""
+    plan = layer_norm_plan(rows, c)
+    assert plan.lanes in (1, 2, 4, 8, 16, 32) and 1 <= plan.vpt <= MAX_VPT
+    assert plan.lanes * plan.vpt * 8 == c
+    assert plan.threads % plan.lanes == 0 and plan.threads <= 128
+    assert plan.threads < 32 or plan.threads % 32 == 0
+    if rows >= 132:
+        assert plan.grid >= 132
+    assert plan.grid * plan.threads // plan.lanes <= rows  # no group without a row
+
+
+def test_norm_site_tables_match_the_models(monkeypatch):
+    """``chip_smoke.py``'s tables are the K4 and K5 calls of SD-1.5-inpainting
+    at 512²: one UNet step (CFG batch 2), a VAE encode and a decode, traced
+    on the meta device (shapes only, nothing computed)."""
+    import dataclasses
+
+    import pww_tpu_torch.models.unet as unet_mod
+    from pww_tpu_torch.config import SDModelConfig, UNetConfig, VAEConfig
+    from pww_tpu_torch.ops import group_norm as gn
+    from pww_tpu_torch.ops import layer_norm as ln
+    from pww_tpu_torch.weights.bridge import build_models
+
+    calls = {}
+
+    def gn_rec(x, weight, bias, *, groups, eps, silu=False, add=None, out_dtype=None):
+        key = (tuple(x.shape), groups, eps, silu, add is not None)
+        calls.setdefault(key, [0, 0, 0])[part] += 1
+        return torch.empty_like(x)
+
+    def ln_rec(x, weight, bias, *, eps, out_dtype=None):
+        key = (tuple(x.shape), eps)
+        calls[key] = calls.get(key, 0) + 1
+        return torch.empty_like(x)
+
+    monkeypatch.setattr(gn, "group_norm", gn_rec)
+    monkeypatch.setattr(ln, "layer_norm", ln_rec)
+    monkeypatch.setattr(unet_mod, "flash_self_attention", lambda q, k, v: torch.empty_like(q))
+    cfg = SDModelConfig(
+        unet=dataclasses.replace(UNetConfig.sd15_inpaint(), fused_group_norm=True,
+                                 fused_layer_norm=True),
+        vae=dataclasses.replace(VAEConfig.sd15(), fused_group_norm=True))
+    models = build_models(cfg)
+    with torch.device("meta"):
+        part = 0
+        models["unet"](torch.empty(2, 9, 64, 64), torch.tensor(1.0), torch.empty(2, 77, 768))
+        part = 1
+        models["vae"].encode_moments(torch.empty(1, 3, 512, 512))
+        part = 2
+        models["vae"].decode(torch.empty(1, 4, 64, 64))
+    assert {k: tuple(v) for k, v in calls.items() if len(k) == 5} == chip_smoke.K4_SITES
+    assert {k: v for k, v in calls.items() if len(k) == 2} == chip_smoke.K5_SITES
+    assert [sum(v[i] for v in chip_smoke.K4_SITES.values()) for i in range(3)] == [61, 22, 30]
+    assert sum(chip_smoke.K5_SITES.values()) == 48
