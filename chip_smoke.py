@@ -12,9 +12,11 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    flash_self_attention against their plain PyTorch versions at every shape
    of SD-1.5's 512² main path, bf16 inputs from a seeded generator, with
    CUDA-event timings of the kernel, the plain version, a one-call library
-   yardstick where one exists, and the least time the card could take; then
-   K3 at dh 64 and 160 and ragged L, K2 at ragged Lq and at two and four
-   prompt chunks (Lk 154, 308); then K4 group_norm and K5 layer_norm at
+   yardstick where one exists, and the least time the card could take (K1
+   in every mode, std also at |mean| ≫ std, each case called twice and
+   required bit-identical, with its launch plan printed); then K3 at dh 64
+   and 160 and ragged L, K1 in every mode and K2 at ragged Lq and at two and
+   four prompt chunks (Lk 154, 308); then K4 group_norm and K5 layer_norm at
    every site signature of the inpaint path (the tables K4_SITES and
    K5_SITES), with ``F.group_norm`` and ``F.layer_norm`` as the library
    yardstick where no pre-add or SiLU, K4 off the path at a streamed span
@@ -31,7 +33,7 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    K3 = 10·N and K4 = K5 = 0 (the norm knobs are off) after it;
 6. profile: device time by kernel group over a 5-step call (torch.profiler),
    the device's idle share, and each kernel's device time and device
-   kernels per wrapper call;
+   kernels per wrapper call, which must be 1 for K1;
 7. img2img: one full-width ``paint_with_words`` call with an init image at
    strength 0.5 on the same pipeline (N/2 steps, counts checked);
 8. norm sites: a 1-step warm-up of phase 10's pipeline records every K4
@@ -43,7 +45,7 @@ Phases, each printing its own lines; any failure ends the run non-zero:
     the UNet and the VAE) through ``paint_with_words_inpaint``, 512², N
     steps at strength 1.0; the counters must read K4 = 61·N + 2·22 + 30,
     K5 = 48·N, K1 = K2 = 15·N, K3 = 10·N; then its own 5-step profile, in
-    which K4 must be one device kernel per call.
+    which K1 and K4 must be one device kernel per call.
 
 Then a JSON line with every kernel, the card's name and power limit, and
 last {"ok": true, "device": {...}}.
@@ -341,24 +343,42 @@ def phase_kernels():
         del q, k, v, got, want
         torch.cuda.empty_cache()
 
+    plan_of = getattr(xk, "pww_reduce_plan", None)  # absent in a parent tree
+
+    def reduce_case(qq, kk, mode, label, calls=None):
+        """K1 in one mode against its plain version; two calls on the same
+        inputs must give bit-identical r."""
+        lq, lk, dh = qq.shape[2], kk.shape[2], qq.shape[3]
+        if plan_of is not None and mode == "max":
+            p = plan_of(B, H, lq, lk, dh)
+            log(f"[kernels]   K1 plan at Lq{lq} Lk{lk} dh{dh}: {p.warps} warps x {p.tiles} "
+                f"Q tiles, {p.key_chunks} key chunks, {p.ctas} CTAs ({p.row_splits} x "
+                f"{p.key_splits} per head), {p.smem_bytes} B shared memory per CTA")
+        wf = WeightFunction(0.1, "log1p_sigma", mode)
+        got = xk.fused_pww_reduce(qq, kk, wf)
+        again = xk.fused_pww_reduce(qq, kk, wf)
+        want = xk.pww_cross_attention_reduce(qq, kk, wf)
+        # f32 sums of exact bf16 products, in another order; a mean near
+        # 0 makes a relative measure meaningless, so no L2 limit
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        record("pww_reduce", label, got, want, tol, None,
+               time_ms(lambda: xk.fused_pww_reduce(qq, kk, wf)),
+               time_ms(lambda: xk.pww_cross_attention_reduce(qq, kk, wf)),
+               bound((qq.numel() + kk.numel()) * 2 + B * 4, 2 * B * H * lq * lk * dh),
+               None, flops=2 * B * H * lq * lk * dh, calls=calls)
+        if not torch.equal(got, again):  # the last-CTA fold must not depend on timing
+            log(f"[kernels] pww_reduce {label}: two calls differ, {got.tolist()} vs "
+                f"{again.tolist()} FAIL")
+            cases.failed.append(f"pww_reduce {label} not bit-identical across calls")
+
     for (lq, dh) in SHAPES:
         q, k, v = randn(B, H, lq, dh), randn(B, H, LK, dh), randn(B, H, LK, dh)
         # K1: every reduce mode, plus |mean| >> std for std
-        for mode, qq, kk, tag in [("max", q, k, ""), ("mean", q, k, ""), ("std", q, k, ""),
-                                  ("std", randn(B, H, lq, dh, mean=4.0),
-                                   randn(B, H, LK, dh, mean=4.0), " large-mean")]:
-            wf = WeightFunction(0.1, "log1p_sigma", mode)
-            got = xk.fused_pww_reduce(qq, kk, wf)
-            want = xk.pww_cross_attention_reduce(qq, kk, wf)
-            # f32 sums of exact bf16 products, in another order; a mean near
-            # 0 makes a relative measure meaningless, so no L2 limit
-            tol = 1e-4 * max(1.0, want.abs().max().item())
-            record("pww_reduce", f"Lq{lq} dh{dh} {mode}{tag}", got, want, tol, None,
-                   time_ms(lambda: xk.fused_pww_reduce(qq, kk, wf)),
-                   time_ms(lambda: xk.pww_cross_attention_reduce(qq, kk, wf)),
-                   bound((qq.numel() + kk.numel()) * 2 + B * 4, 2 * B * H * lq * LK * dh),
-                   None, flops=2 * B * H * lq * LK * dh,
-                   calls=5 * STEPS_PER_RUN if mode == "max" and not tag else None)
+        for mode in ("max", "mean", "std"):
+            reduce_case(q, k, mode, f"Lq{lq} dh{dh} {mode}",
+                        calls=5 * STEPS_PER_RUN if mode == "max" else None)
+        reduce_case(randn(B, H, lq, dh, mean=4.0), randn(B, H, LK, dh, mean=4.0), "std",
+                    f"Lq{lq} dh{dh} std large-mean")
         xattn_case(q, k, v, f"Lq{lq} dh{dh}", calls=5 * STEPS_PER_RUN)
         if lq >= 1024:  # K3: self-attention at the flash sites
             flash_case(lq, dh, f"L{lq} dh{dh}", calls=5 * STEPS_PER_RUN)
@@ -373,6 +393,11 @@ def phase_kernels():
                "Lq4096 dh40 Lk154")
     xattn_case(randn(B, H, 256, 160), randn(B, H, 4 * LK, 160), randn(B, H, 4 * LK, 160),
                "Lq256 dh160 Lk308")
+    # K1 at ragged Lq and with two and four prompt chunks, every mode
+    for lq, lk, dh in ((4000, LK, 40), (4096, 2 * LK, 40), (256, 4 * LK, 160)):
+        q, k = randn(B, H, lq, dh), randn(B, H, lk, dh)
+        for mode in ("max", "mean", "std"):
+            reduce_case(q, k, mode, f"Lq{lq} dh{dh}{f' Lk{lk}' if lk != LK else ''} {mode}")
     cases.check()
     return cases.by_kernel
 
@@ -571,7 +596,7 @@ def launch_counters():
 
 
 GROUPS = (  # device-kernel name fragments → group, first match wins
-    ("K1 pww_reduce", ("reduce_partials", "reduce_combine")),
+    ("K1 pww_reduce", ("pww_reduce_kernel",)),
     ("K2 pww_cross_attention", ("pww_xattn_kernel",)),
     ("K3 flash_self_attention", ("flash_kernel",)),
     ("K4 group_norm", ("gn_cluster",)),
@@ -960,6 +985,8 @@ def main():
     from pww_tpu_torch.pipeline.facade import paint_with_words, paint_with_words_inpaint
 
     profiled = phase_profile(lambda n: paint_with_words(num_inference_steps=n, **kw), "main")
+    if profiled["K1 pww_reduce"][1] != 1:
+        raise SystemExit("[profile main] K1 is not one device kernel per call")
     phase_img2img(pipe, kw, args.steps)
     del pipe, kw
     import torch
@@ -971,8 +998,9 @@ def main():
     ilaunches = phase_inpaint(ipipe, ikw, args.steps)
     iprofiled = phase_profile(
         lambda n: paint_with_words_inpaint(num_inference_steps=n, **ikw), "inpaint")
-    if iprofiled["K4 group_norm"][1] != 1:
-        raise SystemExit("[profile inpaint] K4 is not one device kernel per call")
+    for group in ("K1 pww_reduce", "K4 group_norm"):
+        if iprofiled[group][1] != 1:
+            raise SystemExit(f"[profile inpaint] {group} is not one device kernel per call")
 
     kernels = []
     for name, (source, replaces, counter, group, head) in KERNELS.items():

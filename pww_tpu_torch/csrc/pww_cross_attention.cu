@@ -37,51 +37,6 @@
 
 namespace pww {
 
-// Tiles that mma.sync reads from shared memory are row-major bf16 with a
-// row stride of LD elements, LD·2 an odd multiple of 16 bytes, so that the
-// eight row addresses of an ldmatrix fall on eight distinct bank groups.
-
-// Rows [r0, r0 + R) of a (rows, DH) bf16 matrix into a tile of row stride
-// LD by 16-byte cp.async from all THREADS threads; rows past `rows` are
-// zero-filled. The caller commits the group.
-template <int R, int DH, int LD, int THREADS>
-__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src, int r0, int rows) {
-  constexpr int kChunks = DH / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < R * kChunks; i += THREADS) {
-    const int r = i / kChunks, c = (i - r * kChunks) * 8;
-    const bool ok = r0 + r < rows;
-    cp_async_16(dst + r * LD + c, src + (size_t)(ok ? r0 + r : 0) * DH + c, ok);
-  }
-}
-
-// A fragments of 16 rows × 16·KS columns of a tile, from its first row.
-template <int KS, int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[KS][4], const bf16* tile, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    ldmatrix_x4(a[kk], tile + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
-}
-
-// s = q · kᵀ over the NT·8 keys of a K tile (keys × LD): ldmatrix of K rows
-// is already the B fragment of kᵀ, two key blocks per load.
-template <int KS, int NT, int LD>
-__device__ __forceinline__ void qk_scores(float (&s)[NT][4], const uint32_t (&q)[KS][4],
-                                          const bf16* kt, int lane) {
-  static_assert(NT % 2 == 0, "keys per tile must be a multiple of 16");
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-  const bf16* krow = kt + ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t b[4];
-      ldmatrix_x4(b, krow + np * 16 * LD + kk * 16);
-      mma_bf16_16816(s[2 * np], q[kk], b[0], b[1]);
-      mma_bf16_16816(s[2 * np + 1], q[kk], b[2], b[3]);
-    }
-}
-
 // softmax_step and rescale, then o += P·V on mma.sync with P rounded to
 // bf16 in registers and V (keys × LD, NT·8 keys from its first row, NO·8
 // columns) loaded transposed.
@@ -164,13 +119,13 @@ __global__ void __launch_bounds__(C::THREADS) pww_xattn_kernel(
 
   auto fetch = [&](int i) {
     const int h = i / chunks, c = i - h * chunks;
-    pww::copy_rows<C::KC, C::DH, C::LD, C::THREADS>(ks + (i & 1) * C::KV_ELEMS, k + h * head_kv,
-                                                   c * C::KC, Lk);
-    pww::copy_rows<C::KC, C::DH, C::LD, C::THREADS>(vs + (i & 1) * C::KV_ELEMS, v + h * head_kv,
-                                                   c * C::KC, Lk);
+    pww::copy_rows<C::KC, C::DH, C::LD>(ks + (i & 1) * C::KV_ELEMS, k + h * head_kv, c * C::KC,
+                                        Lk, threadIdx.x, C::THREADS);
+    pww::copy_rows<C::KC, C::DH, C::LD>(vs + (i & 1) * C::KV_ELEMS, v + h * head_kv, c * C::KC,
+                                        Lk, threadIdx.x, C::THREADS);
     if (c == 0)
-      pww::copy_rows<C::BM, C::DH, C::LD, C::THREADS>(qs + (h & 1) * C::Q_ELEMS, q + h * head_q,
-                                                     q0, Lq);
+      pww::copy_rows<C::BM, C::DH, C::LD>(qs + (h & 1) * C::Q_ELEMS, q + h * head_q, q0, Lq,
+                                          threadIdx.x, C::THREADS);
   };
 
   if constexpr (C::DP > C::DH) {  // zero padding columns of both Q tiles and K chunks
