@@ -16,7 +16,8 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    in every mode, std also at |mean| ≫ std, each case called twice and
    required bit-identical, with its launch plan printed); then K3 at dh 64
    and 160 and ragged L, K1 in every mode and K2 at ragged Lq and at two and
-   four prompt chunks (Lk 154, 308); then K4 group_norm and K5 layer_norm at
+   four prompt chunks (Lk 154, 308), K1-K3 at SD-2.1 768-v's head-dim-64
+   shapes (SD21_SHAPES); then K4 group_norm and K5 layer_norm at
    every site signature of the inpaint path (the tables K4_SITES and
    K5_SITES), with ``F.group_norm`` and ``F.layer_norm`` as the library
    yardstick where no pre-add or SiLU, K4 off the path at a streamed span
@@ -45,7 +46,19 @@ Phases, each printing its own lines; any failure ends the run non-zero:
     the UNet and the VAE) through ``paint_with_words_inpaint``, 512², N
     steps at strength 1.0; the counters must read K4 = 61·N + 2·22 + 30,
     K5 = 48·N, K1 = K2 = 15·N, K3 = 10·N; then its own 5-step profile, in
-    which K1 and K4 must be one device kernel per call.
+    which K1 and K4 must be one device kernel per call;
+11. tiny: ``SDModelConfig.tiny()`` on the card (head dims 8 and 16, which
+    K1-K3 are not built for), 128 px, 2 steps: no kernel launches;
+12. sd2 reference: a reduced-depth SD-2.1-width txt2img (head dim 64,
+    v-prediction), 256 px, 3 steps, card bf16 against CPU f32, with the LMS
+    and the DDIM scheduler; K1-K3 must launch;
+13. sd21 path: a full-width synthetic SD-2.1 768-v diffusers directory
+    (fp16 safetensors, written to a temporary directory and deleted at the
+    end) loaded through ``paint_with_words(local_model_path=...)``, 768², N
+    LMS steps, counts K1 = K2 = 15·N, K3 = 10·N, K4 = K5 = 0, the loader's
+    cache checked; its 5-step profile (K1 one device kernel per call);
+14. schedulers: one 4-step call per scheduler kind and DPM++ 2M Karras on
+    that pipeline, K1 = K2 = 15 and K3 = 10 launches per visit.
 
 Then a JSON line with every kernel, the card's name and power limit, and
 last {"ok": true, "device": {...}}.
@@ -68,6 +81,10 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores (the norms)
 # UNet call (self-attention takes K3 at the first two, cross-attention K1+K2
 # at all three)
 SHAPES = ((4096, 40), (1024, 80), (256, 160))
+# SD-2.1 768-v at 768²: (Lq, heads) of the attention sites, head dim 64, five
+# of each per UNet call (K3 at the first two; the 144-token mid block and the
+# L 576 self-attention stay dense)
+SD21_SHAPES = ((9216, 5), (2304, 10), (576, 20))
 STEPS_PER_RUN = 30  # the operating point's LMS steps, for calls per run
 # The inpaint path's GroupNorm sites at 512² (SD-1.5-inpainting, CFG batch 2
 # in the UNet): (shape, groups, eps, SiLU, pre-add) → calls per UNet step,
@@ -300,7 +317,7 @@ def phase_kernels():
 
     def xattn_case(q, k, v, label, calls=None):
         """K2 on w with a zero uncond row, coef from the default weight function."""
-        lq, lk, dh = q.shape[2], k.shape[2], q.shape[3]
+        H, lq, lk, dh = q.shape[1], q.shape[2], k.shape[2], q.shape[3]
         w = torch.rand((B, lq, lk), generator=g, device="cuda")
         w[0] = 0.0
         wf = WeightFunction(0.1, "log1p_sigma", "max")
@@ -325,7 +342,7 @@ def phase_kernels():
                time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)),
                flops=4 * B * H * lq * lk * dh, calls=calls)
 
-    def flash_case(l, dh, label, calls=None):
+    def flash_case(l, dh, label, calls=None, H=H):
         q, k, v = randn(B, H, l, dh), randn(B, H, l, dh), randn(B, H, l, dh)
         got = fa.flash_self_attention(q, k, v)
         want = fa.self_attention_plain(q, k, v)
@@ -348,7 +365,7 @@ def phase_kernels():
     def reduce_case(qq, kk, mode, label, calls=None):
         """K1 in one mode against its plain version; two calls on the same
         inputs must give bit-identical r."""
-        lq, lk, dh = qq.shape[2], kk.shape[2], qq.shape[3]
+        H, lq, lk, dh = qq.shape[1], qq.shape[2], kk.shape[2], qq.shape[3]
         if plan_of is not None and mode == "max":
             p = plan_of(B, H, lq, lk, dh)
             log(f"[kernels]   K1 plan at Lq{lq} Lk{lk} dh{dh}: {p.warps} warps x {p.tiles} "
@@ -398,6 +415,24 @@ def phase_kernels():
         q, k = randn(B, H, lq, dh), randn(B, H, lk, dh)
         for mode in ("max", "mean", "std"):
             reduce_case(q, k, mode, f"Lq{lq} dh{dh}{f' Lk{lk}' if lk != LK else ''} {mode}")
+    # SD-2.1 768-v: head dim 64 at every site, five sites of each per UNet
+    # call (their calls per 30-step run join loss_ms_per_run)
+    for (lq, h) in SD21_SHAPES:
+        q, k, v = randn(B, h, lq, 64), randn(B, h, LK, 64), randn(B, h, LK, 64)
+        for mode in ("max", "mean", "std"):
+            reduce_case(q, k, mode, f"sd21 Lq{lq} H{h} dh64 {mode}",
+                        calls=5 * STEPS_PER_RUN if mode == "max" else None)
+        reduce_case(randn(B, h, lq, 64, mean=4.0), randn(B, h, LK, 64, mean=4.0), "std",
+                    f"sd21 Lq{lq} H{h} dh64 std large-mean")
+        xattn_case(q, k, v, f"sd21 Lq{lq} H{h} dh64", calls=5 * STEPS_PER_RUN)
+        del q, k, v
+        if lq >= 1024:
+            flash_case(lq, 64, f"sd21 L{lq} H{h} dh64", calls=5 * STEPS_PER_RUN, H=h)
+    for name, cs in cases.by_kernel.items():
+        sd21 = [c for c in cs if c["case"].startswith("sd21")]
+        log(f"[kernels] {name}: loss_ms_per_run SD-1.5 512² "
+            f"{loss_ms_per_run([c for c in cs if c not in sd21]):.3f}, SD-2.1 768² "
+            f"{loss_ms_per_run(sd21):.3f}")
     cases.check()
     return cases.by_kernel
 
@@ -955,6 +990,230 @@ def phase_inpaint(pipe, kw, steps):
     return launches
 
 
+def phase_tiny():
+    """The tiny config (head dims 8 and 16, which K1-K3 are not built for)
+    on the card: every attention site takes the dense path, no kernel
+    launches (ROADMAP C.1)."""
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.config import SDModelConfig
+    from pww_tpu_torch.pipeline.pipeline import PwwPipeline
+
+    pipe = PwwPipeline(SDModelConfig.tiny(), device="cuda")
+    cm = np.zeros((128, 128, 3), np.uint8)
+    cm[:, :64] = (255, 0, 0)
+    cm[:, 64:] = (0, 0, 255)
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    lat = pipe.generate(prompt="a cat and a dog", color_map_image=cm,
+                        color_context={(255, 0, 0): "cat,0.5", (0, 0, 255): "dog,0.5"},
+                        num_inference_steps=2, seed=0, return_latents=True)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    ok = (lat.shape == (1, 16, 16, 4) and bool(np.isfinite(lat).all())
+          and not any(launches.values()))
+    log(f"[tiny] SDModelConfig.tiny() on the card, 128 px, 2 steps: latents {lat.shape}, "
+        f"finite {bool(np.isfinite(lat).all())}, launches {launches} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[tiny] the tiny config failed on the card or launched a kernel")
+
+
+def phase_sd2_reference():
+    """Reduced-depth SD-2.1-width txt2img (layers_per_block 1, 2 CLIP layers,
+    head dim 64, v-prediction), 256 px, 3 steps: card bf16 vs CPU f32, with
+    the LMS (sigma-space) and DDIM (alpha-space) v-to-ε conversions."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.config import CLIPTextConfig, SDModelConfig, UNetConfig, VAEConfig
+    from pww_tpu_torch.pipeline.pipeline import PwwPipeline
+    from pww_tpu_torch.schedulers.schedules import make_scheduler
+    from pww_tpu_torch.weights.bridge import synthetic_params
+
+    cfg = SDModelConfig(clip=dataclasses.replace(CLIPTextConfig.sd21(), num_layers=2),
+                        unet=dataclasses.replace(UNetConfig.sd21(), layers_per_block=1),
+                        vae=VAEConfig.tiny())
+    params = synthetic_params(cfg, seed=3, device="cuda", dtype=torch.float32)
+    params = {p: {k: v * 5.0 for k, v in sd.items()} for p, sd in params.items()}
+    cpu = {p: {k: v.cpu() for k, v in sd.items()} for p, sd in params.items()}
+    gpu_pipe = PwwPipeline(cfg, params=params, device="cuda", dtype=torch.bfloat16)
+    del params
+    cpu_pipe = PwwPipeline(cfg, params=cpu, device="cpu", dtype=torch.float32)
+    cm = np.zeros((256, 256, 3), np.uint8)
+    cm[:, :128] = (255, 0, 0)
+    cm[:, 128:] = (0, 0, 255)
+    kw = dict(prompt="a cat sitting next to a dog", color_map_image=cm,
+              color_context={(255, 0, 0): "cat,0.5", (0, 0, 255): "dog,0.5"},
+              num_inference_steps=3, seed=0, return_latents=True)
+    counters = launch_counters()[:3]
+    failed = []
+    for kind in ("lms", "ddim"):
+        gpu_pipe.scheduler = cpu_pipe.scheduler = make_scheduler(kind)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        gpu = gpu_pipe.generate(**kw)
+        launched = tuple(c.launches for c in counters)
+        t1 = time.perf_counter()
+        ref = cpu_pipe.generate(**kw)
+        t2 = time.perf_counter()
+        rel = float(np.linalg.norm(gpu - ref) / np.linalg.norm(ref))
+        ok = bool(np.isfinite(gpu).all()) and rel < 5e-2 and min(launched) > 0
+        log(f"[sd2 reference] {kind}, 256 px, 3 steps, SD-2.1-width UNet (layers_per_block "
+            f"1, v-prediction; K1 {launched[0]}, K2 {launched[1]}, K3 {launched[2]} "
+            f"launches): card bf16 vs CPU f32 relative L2 error {rel:.3e} (tol 5e-2), "
+            f"latents std {ref.std():.3f}, card {t1 - t0:.1f} s, CPU {t2 - t1:.1f} s "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(kind)
+    del gpu_pipe, cpu_pipe, cpu
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"[sd2 reference] card run disagrees with the CPU reference: {failed}")
+
+
+def sd21_color_map(size=768):
+    import numpy as np
+
+    cm = np.zeros((size, size, 3), np.uint8)
+    cm[:, :size // 2] = (255, 0, 0)
+    cm[:, size // 2:] = (0, 0, 255)
+    return cm
+
+
+def phase_sd21(steps, card):
+    """SD-2.1 768-v at full width through a diffusers directory: write it,
+    load it through ``paint_with_words(local_model_path=...)``, run N LMS
+    steps at 768² with the launch counts checked, check the loader's cache,
+    profile a 5-step call, then one 4-step call per scheduler. The
+    directory is deleted at the end."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.config import SDModelConfig
+    from pww_tpu_torch.pipeline.facade import paint_with_words, pww_load_tools
+    from pww_tpu_torch.tokenizer.clip_bpe import synthetic_tokenizer
+    from pww_tpu_torch.weights.bridge import synthetic_params
+    from pww_tpu_torch.weights.loader import save_diffusers_checkpoint
+
+    cfg = SDModelConfig.sd21()
+    path = tempfile.mkdtemp(prefix="pww_sd21_")
+    try:
+        t0 = time.perf_counter()
+        params = synthetic_params(cfg, seed=0, device="cuda", dtype=torch.float16)
+        n_params = sum(v.numel() for sd in params.values() for v in sd.values())
+        save_diffusers_checkpoint(path, cfg, params, synthetic_tokenizer(49408))
+        del params
+        torch.cuda.empty_cache()
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(path) for f in fs)
+        t1 = time.perf_counter()
+        pipe = pww_load_tools("cuda", "lms", local_model_path=path)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        log(f"[sd21] SD-2.1 768-v, {n_params:.4e} synthetic parameters: diffusers directory "
+            f"of {nbytes / 1e9:.3f} GB (fp16 safetensors) written in {t1 - t0:.1f} s, loaded "
+            f"by pww_load_tools to the card in bf16 in {t2 - t1:.1f} s; head dims "
+            f"{sorted({cfg.unet.heads_for(c)[1] for c in cfg.unet.block_out_channels})}, "
+            f"prediction {pipe.config.unet.prediction_type}")
+        pipe.profile = True
+        kw = dict(local_model_path=path, device="cuda", scheduler_type="lms",
+                  color_context={(255, 0, 0): "cat,0.5", (0, 0, 255): "dog,0.5"},
+                  color_map_image=sd21_color_map(),
+                  input_prompt="a cat sitting next to a dog, realistic photo",
+                  guidance_scale=7.5, seed=0, output_type="np")
+        paint_with_words(num_inference_steps=2, **kw)  # warm-up
+        counters = launch_counters()
+        for c in counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        img = paint_with_words(num_inference_steps=steps, **kw)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        tm = pipe.timings
+        log(f"[sd21] paint_with_words 768², {steps} LMS steps, CFG 7.5: encode "
+            f"{tm['encode']:.3f} s, denoise {tm['denoise']:.3f} s "
+            f"({tm['denoise'] / steps * 1e3:.1f} ms/step), decode {tm['decode']:.3f} s, "
+            f"{total:.3f} s/image, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"({card})")
+        log(f"[sd21] launches: {launches}")
+        want = {"fused_pww_reduce": 15 * steps, "fused_pww_cross_attention": 15 * steps,
+                "flash_self_attention": 10 * steps, "group_norm": 0, "layer_norm": 0}
+        problems = []
+        if img.shape != (1, 768, 768, 3) or img.dtype != np.uint8 or img.std() == 0:
+            problems.append(f"image {img.shape} {img.dtype} std {img.std():.2f}")
+        if launches != want:
+            problems.append(f"launches {launches} != {want}")
+        cached = pww_load_tools("cuda", "lms", local_model_path=path) is pipe
+        if not cached:
+            problems.append("pww_load_tools did not return the cached pipeline")
+        log(f"[sd21] image {img.shape} {img.dtype} mean {img.mean():.2f} std "
+            f"{img.std():.2f}; pww_load_tools returned the cached pipeline: {cached}")
+        if problems:
+            raise SystemExit(f"[sd21] {problems}")
+        profiled = phase_profile(lambda n: paint_with_words(num_inference_steps=n, **kw),
+                                 "sd21")
+        if profiled["K1 pww_reduce"][1] != 1:
+            raise SystemExit("[profile sd21] K1 is not one device kernel per call")
+        phase_schedulers(pipe, kw)
+        return launches, profiled
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def phase_schedulers(pipe, kw, steps=4):
+    """One ``steps``-step call per scheduler kind (and DPM++ 2M with Karras
+    sigmas) on the SD-2.1 pipeline: finite latents, and K1 = K2 = 15 and
+    K3 = 10 launches per visit of the denoise loop."""
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.config import SchedulerConfig
+    from pww_tpu_torch.pipeline.facade import paint_with_words
+    from pww_tpu_torch.schedulers.schedules import KINDS, make_scheduler
+
+    run_kw = {k: v for k, v in kw.items() if k not in ("local_model_path", "scheduler_type",
+                                                       "output_type")}
+    cases = [(k, SchedulerConfig()) for k in KINDS]
+    cases.append(("dpmpp_2m", SchedulerConfig(use_karras_sigmas=True)))
+    counters = launch_counters()[:3]
+    failed = []
+    lms = pipe.scheduler
+    try:
+        for kind, scfg in cases:
+            pipe.scheduler = make_scheduler(kind, scfg)
+            visits = pipe.scheduler.set_timesteps(steps).num_steps
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            lat = paint_with_words(num_inference_steps=steps, preloaded_utils=pipe,
+                                   return_latents=True, **run_kw)
+            torch.cuda.synchronize()
+            launched = [c.launches for c in counters]
+            ok = (bool(np.isfinite(lat).all()) and lat.shape == (1, 96, 96, 4)
+                  and launched == [15 * visits, 15 * visits, 10 * visits])
+            name = kind + (" karras" if scfg.use_karras_sigmas else "")
+            log(f"[schedulers] {name}: {steps} steps, {visits} visits, launches K1/K2/K3 "
+                f"{launched}, latents |max| {np.abs(lat).max():.3f}, "
+                f"{time.perf_counter() - t0:.3f} s {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(name)
+    finally:
+        pipe.scheduler = lms
+    if failed:
+        raise SystemExit(f"[schedulers] {failed}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=30, help="LMS steps of the main path")
@@ -1001,6 +1260,11 @@ def main():
     for group in ("K1 pww_reduce", "K4 group_norm"):
         if iprofiled[group][1] != 1:
             raise SystemExit(f"[profile inpaint] {group} is not one device kernel per call")
+    del ipipe, ikw
+    torch.cuda.empty_cache()
+    phase_tiny()
+    phase_sd2_reference()
+    slaunches, sprofiled = phase_sd21(args.steps, smi)
 
     kernels = []
     for name, (source, replaces, counter, group, head) in KERNELS.items():
@@ -1016,7 +1280,8 @@ def main():
             bound_by=top["bound_by"], library_ms=top["library_ms"], shape=top["case"],
             loss_ms_per_run=loss_ms_per_run(cs),
             main_path_device_ms_per_call=(iprofiled if norm else profiled).get(group, (None,))[0],
-            inpaint_path_launches=ilaunches[counter], cases=cs,
+            inpaint_path_launches=ilaunches[counter], sd21_path_launches=slaunches[counter],
+            sd21_path_device_ms_per_call=sprofiled.get(group, (None,))[0], cases=cs,
         ))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 """Frozen configuration dataclasses for the PyTorch port.
 
-Mirrors :mod:`pww_tpu.config` for the SD-1.x paths (txt2img, img2img,
-inpaint). The knobs that only shaped TPU code (conv lowering, head-dim lane
+Mirrors :mod:`pww_tpu.config` for SD-1.x (txt2img, img2img, inpaint) and
+SD-2.x (head dim 64, OpenCLIP-H text tower, v-prediction). The knobs that only shaped TPU code (conv lowering, head-dim lane
 padding, cross-attention grid-order variants, Mosaic block sizes) are not
 carried over; the kernel dispatch thresholds and the norm-kernel switches
 are.
@@ -30,6 +30,12 @@ class CLIPTextConfig:
         return CLIPTextConfig()
 
     @staticmethod
+    def sd21() -> "CLIPTextConfig":
+        """SD-2.x: the OpenCLIP-H text tower as diffusers stores it (23 layers)."""
+        return CLIPTextConfig(hidden_size=1024, intermediate_size=4096, num_layers=23,
+                              num_heads=16, hidden_act="gelu")
+
+    @staticmethod
     def tiny() -> "CLIPTextConfig":
         return CLIPTextConfig(
             vocab_size=1000, hidden_size=32, intermediate_size=64,
@@ -50,6 +56,8 @@ class UNetConfig:
     num_attention_heads: int = 8
     attention_head_dim: Optional[int] = None
     cross_attention_dim: int = 768
+    # "epsilon" (SD-1.x) or "v_prediction" (SD-2.x 768-v)
+    prediction_type: str = "epsilon"
     norm_num_groups: int = 32
     time_embed_mult: int = 4
     down_block_has_attn: Tuple[bool, ...] = (True, True, True, False)
@@ -78,6 +86,16 @@ class UNetConfig:
     @staticmethod
     def sd15(in_channels: int = 4) -> "UNetConfig":
         return UNetConfig(in_channels=in_channels)
+
+    @staticmethod
+    def sd21(v_prediction: bool = True) -> "UNetConfig":
+        """SD-2.1 (768-v by default): head dim 64, 1024-dim OpenCLIP context."""
+        return UNetConfig(
+            attention_head_dim=64,
+            cross_attention_dim=1024,
+            sample_size=96 if v_prediction else 64,
+            prediction_type="v_prediction" if v_prediction else "epsilon",
+        )
 
     @staticmethod
     def sd15_inpaint() -> "UNetConfig":
@@ -132,18 +150,25 @@ class VAEConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SchedulerConfig:
-    """Noise schedule (the reference's hardcoded LMS construction)."""
+    """Noise schedule shared by every scheduler (the reference's hardcoded
+    LMS construction)."""
 
     num_train_timesteps: int = 1000
     beta_start: float = 0.00085
     beta_end: float = 0.012
     beta_schedule: str = "scaled_linear"
     steps_offset: int = 0
+    # DDIM's final-step ᾱ_prev: True → 1.0 (diffusers' bare-constructor
+    # default), False → ᾱ[0] (what SD checkpoints ship); PNDM always uses ᾱ[0].
+    set_alpha_to_one: bool = True
+    # Karras et al. (2022) ρ=7 sigma spacing (lms/euler/euler_ancestral/heun,
+    # and the trajectories of dpmpp_2m, dpmpp_2m_sde and unipc).
+    use_karras_sigmas: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
 class SDModelConfig:
-    """The SD-1.x model family bundle."""
+    """A model family bundle: SD-1.x, SD-1.x inpainting, SD-2.x."""
 
     clip: CLIPTextConfig = dataclasses.field(default_factory=CLIPTextConfig.sd15)
     unet: UNetConfig = dataclasses.field(default_factory=UNetConfig.sd15)
@@ -157,6 +182,10 @@ class SDModelConfig:
     @staticmethod
     def sd15_inpaint() -> "SDModelConfig":
         return SDModelConfig(unet=UNetConfig.sd15_inpaint())
+
+    @staticmethod
+    def sd21(v_prediction: bool = True) -> "SDModelConfig":
+        return SDModelConfig(clip=CLIPTextConfig.sd21(), unet=UNetConfig.sd21(v_prediction))
 
     @staticmethod
     def tiny(in_channels: int = 4) -> "SDModelConfig":

@@ -1,6 +1,6 @@
-"""SD-1.x UNet2DCondition with first-class paint-with-words bias threading.
+"""SD-1.x / SD-2.x UNet2DCondition with first-class paint-with-words bias threading.
 
-Port of :mod:`pww_tpu.models.unet` for SD-1.x, as a torch ``nn.Module``
+Port of :mod:`pww_tpu.models.unet` for SD-1.x and SD-2.x, as a torch ``nn.Module``
 with diffusers' ``UNet2DConditionModel`` parameter names, NCHW inside the
 conv stacks. GroupNorm and LayerNorm compute in f32 and cast to the
 compute dtype; GroupNorm epsilon is 1e-5 in the ResNets and 1e-6 in
@@ -13,7 +13,9 @@ Attention dispatch (``pww_tpu/models/unet.py:177-211``), per site:
   * self-attention with L >= ``flash_min_seq`` → K3 flash kernel;
   * cross-attention with a PwW bias, Lq >= ``fused_cross_min_seq`` and a
     structured weight function → K1 reduce, then K2 fused cross-attention;
-  * everything else → dense :func:`pww_attention`.
+  * everything else → dense :func:`pww_attention`, and so is any head dim
+    the kernels are not built for (``HEAD_DIMS``), the reference's own
+    route for shapes its kernels do not take.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ from torch import nn
 
 from ..config import UNetConfig
 from ..ops.attention import merge_heads, pww_attention, split_heads
-from ..ops.cross_attention_kernel import fused_pww_cross_attention, fused_pww_reduce
+from ..ops.cross_attention_kernel import (HEAD_DIMS, fused_pww_cross_attention,
+                                         fused_pww_reduce)
 from ..ops.flash_attention import flash_self_attention
 from ..ops.group_norm import group_norm_site
 from ..ops.layer_norm import layer_norm_site
@@ -118,15 +121,15 @@ class Attention(nn.Module):
         ctx = x if is_self else context
         q, k, v = (split_heads(t, self.heads)
                    for t in (self.to_q(x), self.to_k(ctx), self.to_v(ctx)))
-        lq = q.shape[2]
+        lq, dh = q.shape[2], q.shape[3]
         bias_w = weight_fn = sigma = None
         if pww is not None and not is_self:
             bias_w = pww.bias_for(lq)
             weight_fn, sigma = pww.weight_fn, pww.sigma
-        if is_self and cfg.flash_attention and lq >= cfg.flash_min_seq:
+        if is_self and cfg.flash_attention and lq >= cfg.flash_min_seq and dh in HEAD_DIMS:
             out = flash_self_attention(q, k, v)
         elif (bias_w is not None and cfg.fused_cross_attention
-              and lq >= cfg.fused_cross_min_seq
+              and lq >= cfg.fused_cross_min_seq and dh in HEAD_DIMS
               and not isinstance(weight_fn, CustomWeightFunction)):
             coef = weight_fn.sigma_coef(sigma) * fused_pww_reduce(q, k, weight_fn)
             out = fused_pww_cross_attention(q, k, v, bias_w, coef)

@@ -1,16 +1,55 @@
-"""``paint_with_words(...)`` and ``paint_with_words_inpaint(...)`` with the
-reference's keyword surface.
+"""``paint_with_words(...)``, ``paint_with_words_inpaint(...)`` and
+``pww_load_tools(...)`` with the reference's keyword surface.
 
-Port of :mod:`pww_tpu.pipeline.facade`. The checkpoint loaders are not
-ported yet, so the caller passes a ready pipeline as ``preloaded_utils``;
-``model_token`` raises ``NotImplementedError``.
+Port of :mod:`pww_tpu.pipeline.facade`. A pipeline comes from
+``preloaded_utils``, or from ``pww_load_tools``, which loads a local
+diffusers-layout directory once per (path, scheduler, device). There is no
+network: a path that does not exist (a hub id) raises
+``FileNotFoundError``, and ``model_token`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import os
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
 
 from ..ops.weight_functions import DEFAULT_TXT2IMG, as_weight_function
+from ..schedulers.schedules import make_scheduler
 from .pipeline import PwwPipeline
+
+_PIPELINE_CACHE: Dict[Tuple, PwwPipeline] = {}
+_NO_TOKENS = ("model_token authenticates hub downloads, and pww_tpu_torch loads local "
+              "directories only")
+
+
+def pww_load_tools(
+    device: str = "cuda",
+    scheduler_type: str = "lms",
+    local_model_path: Optional[str] = None,
+    hf_model_path: Optional[str] = None,
+    model_token: Optional[str] = None,
+) -> PwwPipeline:
+    """Reference-shaped loader (reference ``paint_with_words.py:128-204``):
+    a ready :class:`PwwPipeline` on ``device`` (bf16 on the card, f32 on
+    the CPU), cached per (path, scheduler, device), so that repeated calls
+    load nothing."""
+    if model_token is not None:
+        raise NotImplementedError(_NO_TOKENS)
+    path = local_model_path or hf_model_path
+    key = (path, scheduler_type, str(device))
+    if key not in _PIPELINE_CACHE:
+        if path is None:
+            raise ValueError("either local_model_path or hf_model_path must be provided")
+        if not os.path.exists(path):
+            hint = (" (looks like a Hugging Face hub id: there is no network here; "
+                    "download the checkpoint elsewhere and pass its local directory as "
+                    "local_model_path)" if local_model_path is None else "")
+            raise FileNotFoundError(f"model path {path!r} does not exist locally{hint}")
+        dtype = torch.float32 if torch.device(device).type == "cpu" else torch.bfloat16
+        _PIPELINE_CACHE[key] = PwwPipeline.from_pretrained(
+            path, scheduler=scheduler_type, device=device, dtype=dtype)
+    return _PIPELINE_CACHE[key]
 
 
 def paint_with_words(
@@ -40,10 +79,10 @@ def paint_with_words(
     Default weight function: the reference's ``0.1 · w · log(1+σ) · max(QKᵀ)``.
     ``**extra`` is forwarded to :meth:`PwwPipeline.generate`.
     """
-    _check_loading(preloaded_utils, device, scheduler_type, local_model_path,
-                   hf_model_path, model_token)
+    pipe = _pipeline(preloaded_utils, device, scheduler_type, local_model_path,
+                     hf_model_path, model_token)
     wf = DEFAULT_TXT2IMG if weight_function is None else as_weight_function(weight_function)
-    return preloaded_utils.generate(
+    return pipe.generate(
         prompt=input_prompt,
         color_map_image=color_map_image,
         color_context=color_context or {},
@@ -99,8 +138,8 @@ def paint_with_words_inpaint(
     import numpy as np
     from PIL import Image
 
-    _check_loading(preloaded_utils, device, scheduler_type, local_model_path,
-                   hf_model_path, model_token)
+    pipe = _pipeline(preloaded_utils, device, scheduler_type, local_model_path,
+                     hf_model_path, model_token)
     wf = DEFAULT_TXT2IMG if weight_function is None else as_weight_function(weight_function)
     if init_image is not None and color_map_image is not None:
         if isinstance(init_image, Image.Image):
@@ -118,7 +157,7 @@ def paint_with_words_inpaint(
                     m = (np.clip(m, 0, 1) * 255).astype(np.uint8)
                 mask_image = Image.fromarray(m)
             mask_image = mask_image.resize(size, Image.NEAREST)
-    return preloaded_utils.generate(
+    return pipe.generate(
         prompt=input_prompt,
         color_map_image=color_map_image,
         color_context=color_context or {},
@@ -140,16 +179,17 @@ def paint_with_words_inpaint(
     )
 
 
-def _check_loading(pipe, device, scheduler_type, local_model_path, hf_model_path,
-                   model_token) -> None:
-    if pipe is None or local_model_path or hf_model_path:
-        raise NotImplementedError(
-            "checkpoint loading is not ported to pww_tpu_torch yet: pass "
-            "preloaded_utils=PwwPipeline(...)"
-        )
+def _pipeline(pipe, device, scheduler_type, local_model_path, hf_model_path,
+              model_token) -> PwwPipeline:
+    """``preloaded_utils`` as given (the reference ignores ``scheduler_type``
+    for it), else :func:`pww_load_tools`. A scheduler the port lacks
+    raises either way."""
+    make_scheduler(scheduler_type)
+    if pipe is None:
+        return pww_load_tools(device, scheduler_type, local_model_path=local_model_path,
+                              hf_model_path=hf_model_path, model_token=model_token)
     if model_token is not None:
-        raise NotImplementedError("model_token goes with hf_model_path, which is not ported yet")
-    if scheduler_type != "lms":
-        raise NotImplementedError(f"scheduler {scheduler_type!r} is not ported yet")
+        raise NotImplementedError(_NO_TOKENS)
     if pipe.device.type != str(device).split(":")[0]:
         raise ValueError(f"device={device!r} but the pipeline runs on {pipe.device}")
+    return pipe

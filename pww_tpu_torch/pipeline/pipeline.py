@@ -5,8 +5,10 @@ Port of :class:`pww_tpu.pipeline.pipeline.PwwPipeline` for these modes:
   * encode: tokenize, parse the color context, rasterize the bias pyramid
     on the device, CLIP-encode ([uncond, cond]); for img2img and inpaint,
     VAE-encode the init image and re-noise it at the strength's first step;
-  * denoise: a Python loop of LMS steps from that step; cond and uncond go
-    through ONE batched UNet call per step, then classifier-free guidance
+  * denoise: a Python loop over the scheduler's visits from that step
+    (every kind of :mod:`~pww_tpu_torch.schedulers.schedules`); cond and
+    uncond go through ONE batched UNet call per visit, each half is
+    converted to ε (SD-2.x v-prediction), then classifier-free guidance
     (two calls, the uncond one without any bias, for a custom weight
     function). A 9-channel UNet takes the mask and the masked image's
     latents as extra input channels; a 4-channel one inpaints by the legacy
@@ -15,8 +17,9 @@ Port of :class:`pww_tpu.pipeline.pipeline.PwwPipeline` for these modes:
   * decode: VAE decode to uint8 on the device, one copy to the host, and
     for ``inpaint_full_res`` the paste back into the full image.
 
-Everything else the JAX pipeline's ``generate`` takes raises
-``NotImplementedError`` here.
+:meth:`PwwPipeline.from_pretrained` loads a diffusers-layout directory
+(:mod:`~pww_tpu_torch.weights.loader`). Everything else the JAX pipeline's
+``generate`` takes raises ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -38,6 +41,10 @@ from ..types import PwwState
 from ..weights.bridge import StateDicts, build_models, synthetic_params
 from .inpaint import (blur_mask, expand_crop_region, fill_masked_region, paste_region,
                       prepare_mask_and_masked_image)
+
+# kinds whose visits do not map 1:1 to steps (pndm, heun), or whose multistep
+# tables assume a history that a truncated img2img start does not have
+NO_STRENGTH_TRUNCATION = ("pndm", "heun", "unipc", "dpmpp_2m", "dpmpp_2m_sde")
 
 
 def resolve_device(device) -> torch.device:
@@ -80,17 +87,19 @@ def preprocess_image(img) -> np.ndarray:
 
 def side_generator(seed: int, stream: int) -> torch.Generator:
     """A CPU generator for the draws beside the latent noise (1: the VAE
-    posterior sample, 2: masked-content "latent_noise"), seeded from
-    (seed, stream) so that it shares no numbers with ``make_noise(seed)``."""
+    posterior sample, 2: masked-content "latent_noise", 3: the stochastic
+    schedulers' step noise), seeded from (seed, stream) so that it shares no
+    numbers with ``make_noise(seed)``."""
     state = np.random.SeedSequence((int(seed), stream)).generate_state(1)[0]
     return torch.Generator(device="cpu").manual_seed(int(state))
 
 
 class PwwPipeline:
-    """Stable-Diffusion paint-with-words pipeline (txt2img).
+    """Stable-Diffusion paint-with-words pipeline (txt2img, img2img, inpaint).
 
     ``params``: {"unet", "clip", "vae"} state dicts with diffusers' key names
-    (:func:`~pww_tpu_torch.weights.bridge.params_from_jax`, or None for
+    (:meth:`from_pretrained` reads them from a directory;
+    :func:`~pww_tpu_torch.weights.bridge.params_from_jax`; or None for
     :func:`~pww_tpu_torch.weights.bridge.synthetic_params` drawn from
     ``seed``). ``device`` defaults to the card; on it the compute dtype is
     bf16. Latents and scheduler state stay f32 either way.
@@ -139,6 +148,22 @@ class PwwPipeline:
         self.profile = profile
         self.timings: Dict[str, float] = {}
 
+    @classmethod
+    def from_pretrained(cls, model_path: str, scheduler: Optional[str] = None,
+                        **kwargs) -> "PwwPipeline":
+        """A pipeline on a diffusers-layout directory (SD-1.x, SD-1.x
+        inpainting, SD-2.x; ``.safetensors`` or ``.bin`` weights and the
+        tokenizer's files). ``scheduler=None`` takes the ``scheduler_type``
+        a top-level ``config.json`` records, else "lms". The weights go to
+        the pipeline's device and dtype (``**kwargs``: the constructor's)."""
+        from ..weights.loader import load_pipeline_checkpoint, recorded_scheduler
+
+        config, params, tokenizer = load_pipeline_checkpoint(model_path)
+        if scheduler is None:
+            scheduler = recorded_scheduler(model_path)
+        return cls(config=config, params=params, tokenizer=tokenizer, scheduler=scheduler,
+                   **kwargs)
+
     # -- stages ----------------------------------------------------------------
     def encode_text(self, ids: torch.Tensor) -> torch.Tensor:
         return self.clip(ids)
@@ -159,17 +184,20 @@ class PwwPipeline:
         return self.vae.encode_moments(x).float()
 
     def denoise(self, latents, text_states, pww: PwwState, schedule, guidance_scale,
-                t_start: int = 0, extra: Optional[torch.Tensor] = None, blend=None):
-        """The LMS loop from step ``t_start``; latents (N, C, h, w) f32 in and
-        out.
+                t_start: int = 0, extra: Optional[torch.Tensor] = None, blend=None,
+                seed: int = 0):
+        """The scheduler's loop from visit ``t_start``; latents (N, C, h, w)
+        f32 in and out.
 
-        Cond and uncond go through one batched UNet call per step; a custom
+        Cond and uncond go through one batched UNet call per visit; a custom
         weight function takes two, the uncond one without any bias (the
         reference's semantics, ``pww_tpu/pipeline/pipeline.py:114-151``).
         ``extra`` (N, E, h, w) joins the UNet input channels (9-channel
         inpaint). ``blend`` = (mask, init, noise) is the legacy masked blend:
         before each UNet call the unmasked latents are reset to the init's
-        trajectory at that step, and restored exactly at the end.
+        trajectory at that step, and restored exactly at the end. The UNet's
+        output is converted to ε per CFG half (v-prediction), and the
+        stochastic kinds draw their step noise from ``side_generator(seed, 3)``.
         """
         n = latents.shape[0]
         lat = latents.float()
@@ -178,7 +206,9 @@ class PwwPipeline:
             cond_pww = dataclasses.replace(
                 pww, weights={k: v[n:] for k, v in pww.weights.items()},
                 weight_orig=None if pww.weight_orig is None else pww.weight_orig[n:])
-        history = []
+        prediction_type = self.config.unet.prediction_type
+        state = schedule.init_state(lat.shape, self.device)
+        step_noise = side_generator(seed, 3) if schedule.needs_noise else None
         for i in range(t_start, schedule.num_steps):
             if blend is not None:
                 mask, init, noise = blend
@@ -195,8 +225,13 @@ class PwwPipeline:
                 eps2 = self.unet(torch.cat([lat_in, lat_in]), t, text_states,
                                  pww.with_sigma(sigma))
                 out_u, out_c = eps2[:n].float(), eps2[n:].float()
-            eps = out_u + guidance_scale * (out_c - out_u)
-            lat, history = schedule.step(eps, i, lat, history)
+            eps_u = schedule.to_epsilon(out_u, lat, i, prediction_type)
+            eps_c = schedule.to_epsilon(out_c, lat, i, prediction_type)
+            eps = eps_u + guidance_scale * (eps_c - eps_u)
+            noise = None
+            if step_noise is not None:
+                noise = torch.randn(lat.shape, generator=step_noise).to(self.device)
+            lat, state = schedule.step(eps, i, lat, state, noise)
         if blend is not None:
             mask, init, _ = blend
             lat = init * (1.0 - mask) + lat * mask
@@ -305,6 +340,9 @@ class PwwPipeline:
                     init = fill_masked_region(init[0], proc_mask >= 0.5)[None]
             t_start = t_start_from_strength(num_inference_steps, strength,
                                             cfg.scheduler.steps_offset)
+            if t_start > 0 and schedule.kind in NO_STRENGTH_TRUNCATION:
+                raise ValueError(f"img2img strength truncation is not supported with the "
+                                 f"{schedule.kind} scheduler; use lms/euler/ddim")
             moments = self.encode_image(init)
             if vae_sample_mode == "mean":
                 init_lat = moments[:, :cfg.vae.latent_channels]
@@ -352,7 +390,7 @@ class PwwPipeline:
             )
         t0 = self._phase("encode", t0)
         lat = self.denoise(lat, text_states, pww, schedule, float(guidance_scale),
-                           t_start=t_start, extra=extra, blend=blend)
+                           t_start=t_start, extra=extra, blend=blend, seed=seed)
         t0 = self._phase("denoise", t0)
         if return_latents:
             return lat.permute(0, 2, 3, 1).cpu().numpy()

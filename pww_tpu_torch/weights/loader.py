@@ -1,0 +1,276 @@
+"""Checkpoint loading: a diffusers-layout SD directory → the port's state dicts.
+
+Port of :mod:`pww_tpu.weights.loader` for the families the port has: SD-1.x
+(4-channel), SD-1.x inpainting (9-channel ``conv_in``) and SD-2.x (head dim
+64, OpenCLIP-H text tower, v-prediction). The port's modules carry
+diffusers' and transformers' parameter names, so most keys load unchanged;
+the exceptions, which the JAX package handles in ``fill_params`` and
+``vae_keys``:
+
+* SD-2.x's ``use_linear_projection`` stores a Transformer2D's ``proj_in``
+  and ``proj_out`` as ``(O, I)`` Linear weights; the port's are 1×1 convs,
+  so those weights gain two unit dims;
+* older VAEs name the mid attention ``query``/``key``/``value``/
+  ``proj_attn``, which become ``to_q``/``to_k``/``to_v``/``to_out.0``;
+* buffers that are not parameters (``text_model.embeddings.position_ids``)
+  are dropped.
+
+A parameter missing from the checkpoint raises ``KeyError`` naming the
+first few; any other key left over makes the pipeline's
+``load_state_dict(strict=True)`` raise. ``.safetensors`` files are read by
+:mod:`.safetensors_io` (no ``safetensors`` package), ``.bin`` files by
+``torch.load(weights_only=True)``. Tensors keep their stored type; the
+pipeline casts them to its own.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+from typing import Dict, Optional
+
+import torch
+
+from ..config import CLIPTextConfig, SDModelConfig, UNetConfig, VAEConfig
+from . import safetensors_io
+from .bridge import StateDicts, build_models
+
+WEIGHT_FILES = (
+    "diffusion_pytorch_model.safetensors",
+    "model.safetensors",
+    "diffusion_pytorch_model.bin",
+    "pytorch_model.bin",
+)
+_OLD_VAE_ATTN = re.compile(
+    r"^((?:encoder|decoder)\.mid_block\.attentions\.0)\.(query|key|value|proj_attn)\.")
+_NEW_VAE_ATTN = {"query": "to_q", "key": "to_k", "value": "to_v", "proj_attn": "to_out.0"}
+
+
+def read_state_dict(path: str, return_meta: bool = False):
+    """One checkpoint file → {key: CPU tensor}; with ``return_meta`` also the
+    header fields the tensor filter drops (``global_step`` of a ``.bin``)."""
+    if path.endswith(".safetensors"):
+        state = safetensors_io.load_file(path)
+        return (state, {}) if return_meta else state
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    meta = {}
+    if "global_step" in sd:
+        try:
+            meta["global_step"] = int(sd["global_step"])
+        except (TypeError, ValueError):
+            pass
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    state = {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+    return (state, meta) if return_meta else state
+
+
+def _find_weights_file(subdir: str) -> str:
+    for name in WEIGHT_FILES:
+        p = os.path.join(subdir, name)
+        if os.path.exists(p):
+            return p
+    raise FileNotFoundError(f"no weights file in {subdir}")
+
+
+def _read_json(path: str) -> Optional[dict]:
+    if os.path.exists(path):
+        with open(path) as f:
+            return json.load(f)
+    return None
+
+
+def config_from_checkpoint(model_path: str) -> SDModelConfig:
+    """The model config from the directory's ``unet/``, ``text_encoder/`` and
+    ``vae/`` ``config.json`` files, with the JAX package's defaults for what
+    they leave out. Families the port lacks (SDXL, LCM) raise."""
+    unet_cfg = _read_json(os.path.join(model_path, "unet", "config.json")) or {}
+    clip_cfg = _read_json(os.path.join(model_path, "text_encoder", "config.json")) or {}
+    vae_cfg = _read_json(os.path.join(model_path, "vae", "config.json")) or {}
+    if os.path.isdir(os.path.join(model_path, "text_encoder_2")) or \
+            unet_cfg.get("addition_embed_type") is not None:
+        raise NotImplementedError(f"{model_path}: SDXL checkpoints are not ported to "
+                                  "pww_tpu_torch yet (ROADMAP A.16)")
+    if unet_cfg.get("time_cond_proj_dim") is not None:
+        raise NotImplementedError(f"{model_path}: LCM-distilled UNets are not ported to "
+                                  "pww_tpu_torch yet (ROADMAP A.14)")
+    depth = unet_cfg.get("transformer_layers_per_block", 1)
+    if any(d != 1 for d in (depth if isinstance(depth, (list, tuple)) else [depth])):
+        raise NotImplementedError(f"{model_path}: transformer_layers_per_block {depth}; "
+                                  "the port's UNet has one transformer block per site")
+
+    # diffusers' "attention_head_dim" holds per-block HEAD COUNTS: an int (8
+    # for SD-1.x) or a list ([5, 10, 20, 20] for SD-2.x, where dh = 64)
+    blocks = tuple(unet_cfg.get("block_out_channels", (320, 640, 1280, 1280)))
+    ahd = unet_cfg.get("attention_head_dim", 8)
+    if isinstance(ahd, (list, tuple)):
+        num_heads, head_dim = 8, blocks[0] // ahd[0]
+    else:
+        num_heads, head_dim = ahd, None
+    unet = UNetConfig(
+        in_channels=unet_cfg.get("in_channels", 4),
+        out_channels=unet_cfg.get("out_channels", 4),
+        sample_size=unet_cfg.get("sample_size", 64),
+        block_out_channels=blocks,
+        layers_per_block=unet_cfg.get("layers_per_block", 2),
+        num_attention_heads=num_heads,
+        attention_head_dim=head_dim,
+        prediction_type=unet_cfg.get("prediction_type", "epsilon"),
+        cross_attention_dim=unet_cfg.get("cross_attention_dim", 768),
+        norm_num_groups=unet_cfg.get("norm_num_groups", 32),
+        down_block_has_attn=tuple(
+            t == "CrossAttnDownBlock2D"
+            for t in unet_cfg.get("down_block_types",
+                                  ("CrossAttnDownBlock2D",) * 3 + ("DownBlock2D",))
+        ),
+    )
+    clip = CLIPTextConfig(
+        vocab_size=clip_cfg.get("vocab_size", 49408),
+        hidden_size=clip_cfg.get("hidden_size", 768),
+        intermediate_size=clip_cfg.get("intermediate_size", 3072),
+        num_layers=clip_cfg.get("num_hidden_layers", 12),
+        num_heads=clip_cfg.get("num_attention_heads", 12),
+        max_position_embeddings=clip_cfg.get("max_position_embeddings", 77),
+        hidden_act=clip_cfg.get("hidden_act", "quick_gelu"),
+    )
+    vae = VAEConfig(
+        latent_channels=vae_cfg.get("latent_channels", 4),
+        block_out_channels=tuple(vae_cfg.get("block_out_channels", (128, 256, 512, 512))),
+        layers_per_block=vae_cfg.get("layers_per_block", 2),
+        norm_num_groups=vae_cfg.get("norm_num_groups", 32),
+        scaling_factor=vae_cfg.get("scaling_factor", 0.18215),
+    )
+    return SDModelConfig(clip=clip, unet=unet, vae=vae)
+
+
+def convert_state_dict(part: str, state: Dict[str, torch.Tensor],
+                       expected: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A checkpoint's state dict → the port's keys and layouts for module
+    ``part`` ("unet", "clip" or "vae"), whose state dict (on any device,
+    the meta device too) is ``expected``."""
+    out = {}
+    for key, t in state.items():
+        if key.endswith(".position_ids"):
+            continue  # a buffer, not a parameter
+        if part == "vae":
+            key = _OLD_VAE_ATTN.sub(lambda m: f"{m[1]}.{_NEW_VAE_ATTN[m[2]]}.", key)
+        ref = expected.get(key)
+        if ref is not None and t.dim() == 2 and ref.dim() == 4 and ref.shape[2:] == (1, 1):
+            t = t[:, :, None, None]  # Linear proj_in/proj_out → 1×1 conv
+        if ref is not None and tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"{part}: shape mismatch at {key}: checkpoint "
+                             f"{tuple(t.shape)} vs model {tuple(ref.shape)}")
+        out[key] = t
+    missing = [k for k in expected if k not in out]
+    if missing:
+        raise KeyError(f"{part}: {len(missing)} params missing from checkpoint: "
+                       + "; ".join(missing[:8]))
+    return out
+
+
+def load_pipeline_checkpoint(model_path: str):
+    """(config, {"unet", "clip", "vae"} state dicts, tokenizer) from a
+    diffusers-layout directory: ``unet/``, ``text_encoder/`` and ``vae/``
+    each with a ``config.json`` and one of :data:`WEIGHT_FILES`, and the
+    tokenizer's ``vocab.json`` / ``merges.txt`` in ``tokenizer/`` or at the
+    top."""
+    from ..tokenizer.clip_bpe import CLIPTokenizer
+
+    if os.path.isfile(model_path):
+        raise NotImplementedError(f"{model_path}: single-file LDM checkpoints are not "
+                                  "ported to pww_tpu_torch yet (ROADMAP A.17)")
+    if os.path.exists(os.path.join(model_path, "params.msgpack")):
+        raise NotImplementedError(f"{model_path}: the JAX package's native params.msgpack "
+                                  "format is not ported to pww_tpu_torch (ROADMAP A.17)")
+    config = config_from_checkpoint(model_path)
+    params: StateDicts = {}
+    for part, module in build_models(config).items():  # meta device: shapes only
+        subdir = {"unet": "unet", "clip": "text_encoder", "vae": "vae"}[part]
+        state = read_state_dict(_find_weights_file(os.path.join(model_path, subdir)))
+        params[part] = convert_state_dict(part, state, module.state_dict())
+    return config, params, CLIPTokenizer.from_dir(model_path)
+
+
+def recorded_scheduler(model_path: str) -> str:
+    """The ``scheduler_type`` a top-level ``config.json`` records (the JAX
+    package's ``save_pretrained`` and converter write it), else "lms"."""
+    cj = os.path.join(model_path, "config.json")
+    if os.path.isdir(model_path) and os.path.exists(cj):
+        try:
+            with open(cj) as f:
+                return json.load(f).get("scheduler_type", "lms")
+        except (OSError, ValueError):
+            pass
+    return "lms"
+
+
+def save_diffusers_checkpoint(path: str, config: SDModelConfig, params: StateDicts,
+                              tokenizer=None, weights_format: str = "safetensors") -> None:
+    """Write ``params`` as a diffusers-layout directory that
+    :func:`load_pipeline_checkpoint` (and the JAX package's loader) reads:
+    the three ``config.json`` files with diffusers' field names, the weights
+    in their own types as ``.safetensors`` or ``.bin``, and the tokenizer's
+    files for a real-BPE ``tokenizer``. An SD-2.x config (a set
+    ``attention_head_dim``) stores ``proj_in`` and ``proj_out`` as Linear
+    weights, as diffusers' ``use_linear_projection`` does."""
+    from ..tokenizer.clip_bpe import save_tokenizer_assets
+
+    if weights_format not in ("safetensors", "bin"):
+        raise ValueError(f"weights_format must be 'safetensors' or 'bin', got "
+                         f"{weights_format!r}")
+    u, c, v = config.unet, config.clip, config.vae
+    linear_projection = u.attention_head_dim is not None
+    heads = [u.heads_for(ch)[0] for ch in u.block_out_channels]
+    unet_json = {
+        "_class_name": "UNet2DConditionModel",
+        "in_channels": u.in_channels, "out_channels": u.out_channels,
+        "sample_size": u.sample_size, "block_out_channels": list(u.block_out_channels),
+        "layers_per_block": u.layers_per_block,
+        "attention_head_dim": heads if u.attention_head_dim is not None
+        else u.num_attention_heads,
+        "use_linear_projection": linear_projection, "prediction_type": u.prediction_type,
+        "cross_attention_dim": u.cross_attention_dim, "norm_num_groups": u.norm_num_groups,
+        "down_block_types": ["CrossAttnDownBlock2D" if a else "DownBlock2D"
+                             for a in u.down_block_has_attn],
+        "up_block_types": ["CrossAttnUpBlock2D" if a else "UpBlock2D"
+                           for a in u.up_block_has_attn],
+    }
+    clip_json = {
+        "architectures": ["CLIPTextModel"], "vocab_size": c.vocab_size,
+        "hidden_size": c.hidden_size, "intermediate_size": c.intermediate_size,
+        "num_hidden_layers": c.num_layers, "num_attention_heads": c.num_heads,
+        "max_position_embeddings": c.max_position_embeddings, "hidden_act": c.hidden_act,
+    }
+    vae_json = {
+        "_class_name": "AutoencoderKL", "latent_channels": v.latent_channels,
+        "block_out_channels": list(v.block_out_channels),
+        "layers_per_block": v.layers_per_block, "norm_num_groups": v.norm_num_groups,
+        "scaling_factor": v.scaling_factor,
+    }
+    parts = (("unet", "unet", unet_json, "diffusion_pytorch_model"),
+             ("clip", "text_encoder", clip_json, "model"),
+             ("vae", "vae", vae_json, "diffusion_pytorch_model"))
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "model_index.json"), "w") as f:
+        json.dump({"_class_name": "StableDiffusionPipeline",
+                   "unet": ["diffusers", "UNet2DConditionModel"],
+                   "text_encoder": ["transformers", "CLIPTextModel"],
+                   "vae": ["diffusers", "AutoencoderKL"]}, f, indent=1)
+    for part, subdir, cfg_json, stem in parts:
+        d = os.path.join(path, subdir)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(cfg_json, f, indent=1)
+        sd = {}
+        for key, t in params[part].items():
+            if (linear_projection and part == "unet" and t.dim() == 4
+                    and re.search(r"attentions\.\d+\.proj_(in|out)\.weight$", key)):
+                t = t[:, :, 0, 0]
+            sd[key] = t.detach().to("cpu").contiguous()
+        if weights_format == "safetensors":
+            safetensors_io.save_file(sd, os.path.join(d, stem + ".safetensors"))
+        else:
+            name = "pytorch_model.bin" if part == "clip" else stem + ".bin"
+            torch.save(sd, os.path.join(d, name))
+    if tokenizer is not None:
+        save_tokenizer_assets(tokenizer, os.path.join(path, "tokenizer"))

@@ -1,11 +1,14 @@
 """The port's CLIP, UNet and VAE decoder against the JAX package's, on
 bridged tiny weights (CPU, f32 on both sides).
 
-The UNet runs twice: with the default dispatch thresholds, and with
+The UNet runs with the default dispatch thresholds, and with
 ``flash_min_seq`` lowered to 256 so that at a 16×16 latent (a 128-px image)
-both kernel branches are taken — the flash self-attention and the fused
-PwW cross-attention pair. In JAX those are the Pallas kernels in interpret
-mode; in the port, the wrappers' plain versions (CPU tensors).
+every 16×16 site qualifies for a kernel branch — the flash self-attention
+and the fused PwW cross-attention pair. At the tiny config's head dim 8,
+which the CUDA kernels are not built for, every site stays dense (no
+kernel wrapper is called); at head dim 40 each wrapper is called at all
+three sites. In JAX those are the Pallas kernels in interpret mode; in the
+port, the wrappers' plain versions (CPU tensors).
 """
 import dataclasses
 
@@ -70,13 +73,13 @@ def _unet_inputs():
     return sample, ctx, weights, pair_(orig)
 
 
-@pytest.mark.parametrize("flash_min_seq", [1024, 256])
-def test_unet_matches_jax(pair, flash_min_seq, monkeypatch):
-    jp, tp = pair
+def _unet_against_jax(jp, tp, flash_min_seq, monkeypatch):
+    """The port's UNet and the JAX one on the same inputs at one dispatch
+    threshold; returns the kernel wrappers' call counts."""
     sample, ctx, weights, orig = _unet_inputs()
     t, sigma = 801.0, 4.5
 
-    jcfg = dataclasses.replace(JaxSDModelConfig.tiny().unet, flash_min_seq=flash_min_seq)
+    jcfg = dataclasses.replace(jp.config.unet, flash_min_seq=flash_min_seq)
     jpww = JPwwState(weights={k: jnp.asarray(v) for k, v in weights.items()},
                      weight_orig=jnp.asarray(orig), sigma=jnp.float32(sigma),
                      weight_fn=JWeightFunction(0.3, "log1p_sigma", "max"))
@@ -84,7 +87,7 @@ def test_unet_matches_jax(pair, flash_min_seq, monkeypatch):
     want = np.asarray(jax.jit(lambda p, x, c, w: unet.apply(p, x, jnp.float32(t), c, pww=w))(
         jp.params["unet"], jnp.asarray(sample), jnp.asarray(ctx), jpww))
 
-    tcfg = dataclasses.replace(SDModelConfig.tiny().unet, flash_min_seq=flash_min_seq)
+    tcfg = dataclasses.replace(tp.config.unet, flash_min_seq=flash_min_seq)
     calls = {"flash": 0, "reduce": 0, "xattn": 0}
 
     def spy(name, fn):
@@ -107,8 +110,36 @@ def test_unet_matches_jax(pair, flash_min_seq, monkeypatch):
         got = tp.unet(torch.from_numpy(sample).permute(0, 3, 1, 2), torch.tensor(t),
                       torch.from_numpy(ctx), tpww)
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, atol=ATOL, rtol=RTOL)
-    # three 16×16 sites (down block 0, up block 1 ×2) take the kernel branches;
-    # the 8×8 mid block stays dense
+    return calls
+
+
+@pytest.mark.parametrize("flash_min_seq", [1024, 256])
+def test_unet_matches_jax(pair, flash_min_seq, monkeypatch):
+    """Head dim 8 (and 16 in the 8×8 block): no kernel wrapper is called,
+    whatever the thresholds (ROADMAP C.1)."""
+    jp, tp = pair
+    assert tp.config.unet.heads_for(32) == (4, 8)
+    calls = _unet_against_jax(jp, tp, flash_min_seq, monkeypatch)
+    assert calls == {"flash": 0, "reduce": 0, "xattn": 0}
+
+
+@pytest.fixture(scope="module")
+def pair_dh40():
+    """The tiny pipelines with a UNet of 80 and 160 channels at head dim 40."""
+    def unet(cfg):
+        return dataclasses.replace(cfg, unet=dataclasses.replace(
+            cfg.unet, block_out_channels=(80, 160), attention_head_dim=40))
+    return pipeline_pair(unet(JaxSDModelConfig.tiny()), unet(SDModelConfig.tiny()), seed=4)
+
+
+@pytest.mark.parametrize("flash_min_seq", [1024, 256])
+def test_unet_kernel_branches_match_jax_at_head_dim_40(pair_dh40, flash_min_seq,
+                                                      monkeypatch):
+    """Head dim 40: the three 16×16 sites (down block 0, up block 1 ×2) take
+    the kernel branches; the 8×8 mid block stays dense."""
+    jp, tp = pair_dh40
+    assert tp.config.unet.heads_for(80) == (2, 40)
+    calls = _unet_against_jax(jp, tp, flash_min_seq, monkeypatch)
     assert calls == {"flash": 3 if flash_min_seq == 256 else 0, "reduce": 3, "xattn": 3}
 
 

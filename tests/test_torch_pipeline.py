@@ -28,14 +28,15 @@ def test_lms_schedule_matches_jax(steps):
 
 
 def test_lms_steps_match_jax_including_the_history_truncation():
-    """Four steps from an empty history: steps 0-2 use 1-3 derivatives
-    (diffusers' zip truncation), step 3 the full order-4 history."""
+    """Four steps from an empty (zero) history: steps 0-2 use 1-3
+    derivatives (diffusers' zip truncation), step 3 the full order-4
+    history; the history rows not yet filled stay zero."""
     js = jax_make_scheduler("lms", JSchedulerConfig()).set_timesteps(10)
     ts = make_scheduler("lms").set_timesteps(10)
     rng = np.random.default_rng(0)
     x = rng.standard_normal((1, 4, 8, 8)).astype(np.float32)
     jx, jstate = jnp.asarray(x), js.init_state(x.shape, jnp.float32)
-    tx, hist = torch.from_numpy(x), []
+    tx, hist = torch.from_numpy(x), ts.init_state(x.shape)
     for i in range(4):
         eps = rng.standard_normal(x.shape).astype(np.float32)
         np.testing.assert_allclose(
@@ -43,8 +44,9 @@ def test_lms_steps_match_jax_including_the_history_truncation():
             np.asarray(js.scale_model_input(jx, i)), rtol=1e-6)
         jx, jstate = js.step(jnp.asarray(eps), i, jx, jstate)
         tx, hist = ts.step(torch.from_numpy(eps), i, tx, hist)
-        assert len(hist) == min(i + 1, 4)
+        assert int((hist.flatten(1).abs().sum(1) > 0).sum()) == min(i + 1, 4)
         np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(hist.numpy(), np.asarray(jstate), rtol=1e-6, atol=1e-6)
 
 
 # The golden "tiny_txt2img_v1" case at 128 px: a regional seed on the blue
@@ -107,9 +109,11 @@ def test_txt2img_bias_and_seed_change_the_result(pair):
 
 def test_unported_options_raise(pair):
     """What the port does not have yet: latent-space img2img, per-step
-    callbacks, ControlNet, jax.random noise and schedulers other than LMS
-    (img2img, inpaint and custom weight functions came with the second
-    slice, tests/test_torch_img2img_inpaint.py)."""
+    callbacks, ControlNet, jax.random noise, the LCM scheduler and hub
+    downloads (img2img, inpaint and custom weight functions came with the
+    second slice, tests/test_torch_img2img_inpaint.py; the other schedulers
+    and local checkpoint directories are in tests/test_torch_schedulers.py
+    and tests/test_torch_loader.py)."""
     _, tp = pair
     with pytest.raises(NotImplementedError):
         tp.generate(init_latents=np.zeros((1, 16, 16, 4), np.float32), **KWARGS)
@@ -120,11 +124,11 @@ def test_unported_options_raise(pair):
     with pytest.raises(NotImplementedError):
         tp.generate(**{**KWARGS, "noise_mode": "jax"})
     with pytest.raises(NotImplementedError):
-        paint_with_words(preloaded_utils=tp, device="cpu", scheduler_type="euler")
+        paint_with_words(preloaded_utils=tp, device="cpu", scheduler_type="lcm")
     with pytest.raises(NotImplementedError):
         paint_with_words(preloaded_utils=tp, device="cpu", model_token="token")
-    with pytest.raises(NotImplementedError):
-        paint_with_words(device="cpu", local_model_path="/nonexistent")
+    with pytest.raises(FileNotFoundError):
+        paint_with_words(device="cpu", hf_model_path="runwayml/stable-diffusion-v1-5")
 
 
 def test_entry_points_default_to_the_card():

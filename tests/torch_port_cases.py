@@ -52,15 +52,15 @@ def random_jax_params(cfg, seed: int = 0, scale: float = 0.1):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-def pipeline_pair(jax_cfg=None, torch_cfg=None, seed: int = 0):
+def pipeline_pair(jax_cfg=None, torch_cfg=None, seed: int = 0, scheduler: str = "lms"):
     """(JAX pipeline, port pipeline), f32 on the CPU, on the same weights."""
     jax_cfg = jax_cfg or JaxSDModelConfig.tiny()
     torch_cfg = torch_cfg or SDModelConfig.tiny()
     tree = random_jax_params(jax_cfg, seed)
-    jp = JaxPipeline(jax_cfg, params=tree, compute_dtype=jnp.float32,
+    jp = JaxPipeline(jax_cfg, params=tree, scheduler=scheduler, compute_dtype=jnp.float32,
                      weights_dtype=jnp.float32)
-    tp = PwwPipeline(torch_cfg, params=params_from_jax(tree), device="cpu",
-                     dtype=torch.float32)
+    tp = PwwPipeline(torch_cfg, params=params_from_jax(tree), scheduler=scheduler,
+                     device="cpu", dtype=torch.float32)
     return jp, tp
 
 
