@@ -24,8 +24,10 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    (1, 128, 1024, 1024) and a scalar one (1, 64, 33, 33), K4's plan per
    case, and each kernel's loss_ms_per_run (Σ calls per 30-step run ×
    (ms − bound)); ``--kernels-only`` stops after this phase, and
-   ``--e2e-reps R`` runs phase 5's call R times in its place, with the host
-   time of each K2 and K3 wrapper call;
+   ``--e2e-reps R`` runs phase 5's call R times in its place, then R turns
+   of it without and with a ControlNet, the host time inside the UNet's and
+   the ControlNet's forward and the synchronising operations of one
+   ControlNet call, and the host time of each K2 and K3 wrapper call;
 4. reference: a reduced-depth SD-1.5-width txt2img (256 px, 3 steps) on the
    card in bf16 against the same pipeline on the CPU in f32;
 5. main path: SD-1.5 at full width (synthetic N(0, 0.02) weights) through
@@ -58,7 +60,19 @@ Phases, each printing its own lines; any failure ends the run non-zero:
     LMS steps, counts K1 = K2 = 15·N, K3 = 10·N, K4 = K5 = 0, the loader's
     cache checked; its 5-step profile (K1 one device kernel per call);
 14. schedulers: one 4-step call per scheduler kind and DPM++ 2M Karras on
-    that pipeline, K1 = K2 = 15 and K3 = 10 launches per visit.
+    that pipeline, K1 = K2 = 15 and K3 = 10 launches per visit;
+15. controlnet reference: phase 4's reduced-depth config with one ControlNet
+    and one T2I-Adapter of that config (synthetic weights, zero convs
+    included), hints drawn from the color map's edges, card bf16 against
+    CPU f32;
+16. controlnet path: SD-1.5 at full width plus a full SD-1.5 ControlNet
+    written as a diffusers directory (deleted at the end) and attached by
+    ``load_controlnet(source=...)``, 512², N LMS steps, CFG 7.5, the color
+    map's edges as the hint; counts K1 = K2 = 21·N, K3 = 14·N, K4 = K5 = 0,
+    the image unlike the one without the hint, a 5-step profile; then 4-step
+    calls with two stacked ControlNets (27/27/18 per visit), the T2I-Adapter
+    at full width (15/15/10 per visit, unlike the run without it) and a
+    custom weight function with one ControlNet (the split path: 0/0/28).
 
 Then a JSON line with every kernel, the card's name and power limit, and
 last {"ok": true, "device": {...}}.
@@ -575,6 +589,7 @@ def phase_e2e(reps, steps):
         total = time.perf_counter() - t0
         log(f"[e2e] rep {rep}: {total:.3f} s/image, denoise "
             f"{pipe.timings['denoise'] / steps * 1e3:.1f} ms/step")
+    phase_e2e_controlnet(pipe, kw, cm, reps, steps)
     import pww_tpu_torch.models.unet as unet_mod
 
     names = ("fused_pww_reduce", "fused_pww_cross_attention", "flash_self_attention")
@@ -617,6 +632,68 @@ def phase_e2e(reps, steps):
         host_us = (time.perf_counter() - t0) * 1e4
         torch.cuda.synchronize()
         log(f"[e2e] {name} wrapper at the L 4096 shape: {host_us:.1f} us of host time per call")
+
+
+def phase_e2e_controlnet(pipe, kw, cm, reps, steps):
+    """txt2img and txt2img with a ControlNet in turns, ``reps`` times each;
+    then one ControlNet call with the host time inside ``UNet.forward`` and
+    ``ControlNetModel.forward`` (no synchronisation: what the host spends
+    enqueueing) and the synchronising operations it makes, as
+    ``torch.cuda.set_sync_debug_mode`` reports them."""
+    import collections
+    import warnings
+
+    import torch
+
+    from pww_tpu_torch.config import SDModelConfig
+    from pww_tpu_torch.models.controlnet import ControlNetModel
+    from pww_tpu_torch.models.unet import UNet2DConditionModel
+    from pww_tpu_torch.pipeline.facade import paint_with_words
+    from pww_tpu_torch.weights.bridge import synthetic_params
+
+    pipe.load_controlnet(params=synthetic_params(SDModelConfig.sd15(), seed=1, device="cuda",
+                                                 parts=("controlnet",))["controlnet"])
+    hint = edge_hint(cm)
+    paint_with_words(num_inference_steps=2, control_image=hint, **kw)
+    for rep in range(reps):
+        for name, extra in (("txt2img", {}), ("controlnet", {"control_image": hint})):
+            t0 = time.perf_counter()
+            paint_with_words(num_inference_steps=steps, **kw, **extra)
+            torch.cuda.synchronize()
+            log(f"[e2e] {name} rep {rep}: {time.perf_counter() - t0:.3f} s/image, denoise "
+                f"{pipe.timings['denoise'] / steps * 1e3:.1f} ms/step")
+    host = {UNet2DConditionModel: 0.0, ControlNetModel: 0.0}
+    forwards = {cls: cls.forward for cls in host}
+
+    def timed(cls):
+        def forward(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = forwards[cls](self, *args, **kwargs)
+            host[cls] += time.perf_counter() - t0
+            return out
+        return forward
+
+    for cls in host:
+        cls.forward = timed(cls)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            paint_with_words(num_inference_steps=steps, control_image=hint, **kw)
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        for cls, fwd in forwards.items():
+            cls.forward = fwd
+    syncs = collections.Counter(f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+                                if "synchroniz" in str(w.message))
+    log(f"[e2e] controlnet call: host ms per step inside UNet.forward "
+        f"{host[UNet2DConditionModel] / steps * 1e3:.2f}, ControlNetModel.forward "
+        f"{host[ControlNetModel] / steps * 1e3:.2f}; denoise "
+        f"{pipe.timings['denoise'] / steps * 1e3:.1f} ms/step in that call")
+    log(f"[e2e] synchronising operations in that call (file:line → count): {dict(syncs)}")
+    pipe.controlnets = []
 
 
 def launch_counters():
@@ -1171,6 +1248,221 @@ def phase_sd21(steps, card):
         shutil.rmtree(path, ignore_errors=True)
 
 
+def edge_hint(cm):
+    """White where the color map changes between neighbours, black elsewhere:
+    a ControlNet or T2I-Adapter hint drawn from the regions' outlines."""
+    import numpy as np
+
+    edge = np.zeros(cm.shape[:2], bool)
+    dx = (cm[:, 1:] != cm[:, :-1]).any(-1)
+    dy = (cm[1:] != cm[:-1]).any(-1)
+    edge[:, 1:] |= dx
+    edge[:, :-1] |= dx
+    edge[1:] |= dy
+    edge[:-1] |= dy
+    return np.repeat(edge[..., None], 3, -1).astype(np.uint8) * 255
+
+
+def phase_controlnet_reference():
+    """Phase 4's reduced-depth SD-1.5-width txt2img with one ControlNet and
+    one T2I-Adapter of that config: card bf16 vs CPU f32."""
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.config import CLIPTextConfig, SDModelConfig, UNetConfig, VAEConfig
+    from pww_tpu_torch.pipeline.pipeline import PwwPipeline
+    from pww_tpu_torch.weights.bridge import PARTS, synthetic_params
+
+    clip = CLIPTextConfig.tiny()
+    cfg = SDModelConfig(
+        clip=clip,
+        unet=UNetConfig(block_out_channels=(320, 640), layers_per_block=1,
+                        down_block_has_attn=(True, False), cross_attention_dim=clip.hidden_size),
+        vae=VAEConfig.tiny(),
+    )
+    # std 0.1 in every tensor, the ControlNet's zero convs too, so that its
+    # residuals are live
+    params = synthetic_params(cfg, seed=4, device="cuda", dtype=torch.float32,
+                              parts=PARTS + ("controlnet", "t2i_adapter"))
+    params = {p: {k: v * 5.0 for k, v in sd.items()} for p, sd in params.items()}
+    cpu = {p: {k: v.cpu() for k, v in sd.items()} for p, sd in params.items()}
+    cm = np.zeros((256, 256, 3), np.uint8)
+    cm[:, :128] = (255, 0, 0)
+    cm[:, 128:] = (0, 0, 255)
+    kw = dict(prompt="a cat sitting next to a dog", color_map_image=cm,
+              color_context={(255, 0, 0): "cat,0.5", (0, 0, 255): "dog,0.5"},
+              num_inference_steps=3, seed=0, return_latents=True,
+              control_image=edge_hint(cm), controlnet_conditioning_scale=0.7,
+              adapter_image=edge_hint(cm))
+    counters = launch_counters()[:3]
+    for c in counters:
+        c.launches = 0
+    gpu = (PwwPipeline(cfg, params=params, device="cuda", dtype=torch.bfloat16)
+           .load_controlnet(params=params["controlnet"])
+           .load_t2i_adapter(params=params["t2i_adapter"]).generate(**kw))
+    launched = [c.launches for c in counters]
+    del params
+    ref_pipe = (PwwPipeline(cfg, params=cpu, device="cpu", dtype=torch.float32)
+                .load_controlnet(params=cpu["controlnet"])
+                .load_t2i_adapter(params=cpu["t2i_adapter"]))
+    ref = ref_pipe.generate(**kw)
+    plain = ref_pipe.generate(**{k: v for k, v in kw.items()
+                                 if k not in ("control_image", "adapter_image")})
+    rel = float(np.linalg.norm(gpu - ref) / np.linalg.norm(ref))
+    moved = float(np.linalg.norm(ref - plain) / np.linalg.norm(plain))
+    # per visit: K1, K2 at the UNet's 4 and the ControlNet's 2 sites of Lq >=
+    # 256 (32² and the 16² mid block), K3 at the 3 + 1 sites of L 1024
+    ok = bool(np.isfinite(gpu).all()) and rel < 5e-2 and launched == [18, 18, 12]
+    log(f"[controlnet reference] 256 px, 3 steps, (320, 640)-channel UNet with a ControlNet "
+        f"(scale 0.7) and a T2I-Adapter of that config (K1/K2/K3 {launched} launches): card "
+        f"bf16 vs CPU f32 relative L2 error {rel:.3e} (tol 5e-2); the hints move the CPU "
+        f"latents by {moved:.3e} relative L2 {'ok' if ok else 'FAIL'}")
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("[controlnet reference] card run disagrees with the CPU reference, "
+                         "or the launch counts differ")
+
+
+def phase_controlnet(steps, card):
+    """SD-1.5 at full width with a full SD-1.5 ControlNet loaded from a
+    diffusers directory: N LMS steps with the counts checked and a 5-step
+    profile, then 4-step calls with two stacked ControlNets, the T2I-Adapter
+    and the split path. The directory is deleted at the end."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.config import SDModelConfig
+    from pww_tpu_torch.pipeline.facade import paint_with_words
+    from pww_tpu_torch.pipeline.pipeline import PwwPipeline
+    from pww_tpu_torch.tokenizer.clip_bpe import synthetic_tokenizer
+    from pww_tpu_torch.weights.bridge import synthetic_params
+    from pww_tpu_torch.weights.loader import save_controlnet_checkpoint
+
+    cfg = SDModelConfig.sd15()
+    pipe = PwwPipeline(cfg, params=synthetic_params(cfg, seed=0, device="cuda"),
+                       tokenizer=synthetic_tokenizer(49408), device="cuda", profile=True)
+    path = tempfile.mkdtemp(prefix="pww_controlnet_")
+    try:
+        t0 = time.perf_counter()
+        # N(0, 0.02) in every tensor, the zero convs too, so the residuals are live
+        state = synthetic_params(cfg, seed=1, device="cuda", parts=("controlnet",))["controlnet"]
+        n_params = sum(v.numel() for v in state.values())
+        save_controlnet_checkpoint(path, cfg, state)
+        del state
+        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        t1 = time.perf_counter()
+        pipe.load_controlnet(source=path)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        log(f"[controlnet] SD-1.5 ControlNet, {n_params:.4e} synthetic parameters: diffusers "
+            f"directory of {nbytes / 1e9:.3f} GB (bf16 safetensors) written in {t1 - t0:.1f} s, "
+            f"loaded by load_controlnet(source=...) to the card in {t2 - t1:.1f} s")
+        cm = np.zeros((512, 512, 3), np.uint8)
+        cm[:, :256] = (255, 0, 0)
+        cm[:, 256:] = (0, 0, 255)
+        hint = edge_hint(cm)
+        kw = dict(color_context={(255, 0, 0): "cat,0.5", (0, 0, 255): "dog,0.5"},
+                  color_map_image=cm, input_prompt="a cat sitting next to a dog, realistic photo",
+                  guidance_scale=7.5, seed=0, preloaded_utils=pipe, device="cuda",
+                  output_type="np")
+        paint_with_words(num_inference_steps=2, control_image=hint, **kw)  # warm-up
+        counters = launch_counters()
+        for c in counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        img = paint_with_words(num_inference_steps=steps, control_image=hint, **kw)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        tm = pipe.timings
+        log(f"[controlnet] paint_with_words 512², {steps} LMS steps, CFG 7.5, one ControlNet: "
+            f"encode {tm['encode']:.3f} s, denoise {tm['denoise']:.3f} s "
+            f"({tm['denoise'] / steps * 1e3:.1f} ms/step), decode {tm['decode']:.3f} s, "
+            f"{total:.3f} s/image, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"({card})")
+        log(f"[controlnet] launches: {launches}")
+        plain = paint_with_words(num_inference_steps=steps, **kw)
+        want = {"fused_pww_reduce": 21 * steps, "fused_pww_cross_attention": 21 * steps,
+                "flash_self_attention": 14 * steps, "group_norm": 0, "layer_norm": 0}
+        diff = np.abs(img.astype(int) - plain.astype(int))
+        problems = []
+        if img.shape != (1, 512, 512, 3) or img.dtype != np.uint8 or img.std() == 0:
+            problems.append(f"image {img.shape} {img.dtype} std {img.std():.2f}")
+        if launches != want:
+            problems.append(f"launches {launches} != {want}")
+        if not diff.any():
+            problems.append("the image equals the one without control_image")
+        log(f"[controlnet] image {img.shape} {img.dtype} mean {img.mean():.2f} std "
+            f"{img.std():.2f}; against the image without control_image: mean |diff| "
+            f"{diff.mean():.2f}, {(diff > 0).mean():.3f} of the values differ")
+        if problems:
+            raise SystemExit(f"[controlnet] {problems}")
+        profiled = phase_profile(lambda n: paint_with_words(num_inference_steps=n,
+                                                            control_image=hint, **kw),
+                                 "controlnet")
+        if profiled["K1 pww_reduce"][1] != 1:
+            raise SystemExit("[profile controlnet] K1 is not one device kernel per call")
+        phase_controlnet_variants(pipe, kw, hint)
+        return launches, profiled
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def phase_controlnet_variants(pipe, kw, hint, steps=4):
+    """4-step calls on the ControlNet pipeline: two stacked nets, the
+    T2I-Adapter alone, and one net on the split path (a custom weight
+    function); launches per visit and finite outputs checked."""
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.config import SDModelConfig
+    from pww_tpu_torch.pipeline.facade import paint_with_words
+    from pww_tpu_torch.weights.bridge import synthetic_params
+
+    def custom(w, sigma, qk):  # the default function, as a callable: the split path
+        return 0.1 * w * torch.log1p(sigma) * torch.amax(qk)
+
+    single = pipe.controlnets
+    second = synthetic_params(SDModelConfig.sd15(), seed=2, device="cuda",
+                              parts=("controlnet",))["controlnet"]
+    pipe.add_controlnet(params=second)
+    del second
+    pipe.load_t2i_adapter(seed=3)
+    plain = paint_with_words(num_inference_steps=steps, **kw)
+    cases = (  # name, generate's arguments, launches K1/K2/K3 per visit, ControlNets
+        ("two ControlNets", dict(control_image=[hint, hint],
+                                 controlnet_conditioning_scale=[1.0, 0.5]), (27, 27, 18), 2),
+        ("T2I-Adapter", dict(adapter_image=hint), (15, 15, 10), 2),
+        ("split path, one ControlNet", dict(control_image=hint, weight_function=custom),
+         (0, 0, 28), 1),
+    )
+    counters = launch_counters()[:3]
+    failed = []
+    for name, extra, per_visit, nets in cases:
+        pipe.controlnets = pipe.controlnets[:nets]
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        img = paint_with_words(num_inference_steps=steps, **kw, **extra)
+        torch.cuda.synchronize()
+        launched = [c.launches for c in counters]
+        ok = (img.std() > 0 and launched == [n * steps for n in per_visit]
+              and (name != "T2I-Adapter" or not np.array_equal(img, plain)))
+        log(f"[controlnet] {name}: {steps} steps, launches K1/K2/K3 {launched} "
+            f"({[n * steps for n in per_visit]} wanted), mean |diff| against no control "
+            f"{np.abs(img.astype(int) - plain.astype(int)).mean():.2f}, "
+            f"{time.perf_counter() - t0:.3f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
+    pipe.controlnets, pipe.t2i_adapter = single, None
+    if failed:
+        raise SystemExit(f"[controlnet] {failed}")
+
+
 def phase_schedulers(pipe, kw, steps=4):
     """One ``steps``-step call per scheduler kind (and DPM++ 2M with Karras
     sigmas) on the SD-2.1 pipeline: finite latents, and K1 = K2 = 15 and
@@ -1221,8 +1513,9 @@ def main():
                     help="phases 1-3 only (K1-K5), then their cases as one JSON line and "
                          "each kernel's loss_ms_per_run (A/B of two trees)")
     ap.add_argument("--e2e-reps", type=int, default=0,
-                    help="phases 1-2, then the main path's s/image this many times and the "
-                         "K2/K3 wrappers' host time per call (A/B of two trees)")
+                    help="phases 1-2, then the main path's s/image this many times, as many "
+                         "turns without and with a ControlNet, and the host time in the "
+                         "models' forward and the K2/K3 wrappers (A/B of two trees)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1265,6 +1558,9 @@ def main():
     phase_tiny()
     phase_sd2_reference()
     slaunches, sprofiled = phase_sd21(args.steps, smi)
+    torch.cuda.empty_cache()
+    phase_controlnet_reference()
+    claunches, cprofiled = phase_controlnet(args.steps, smi)
 
     kernels = []
     for name, (source, replaces, counter, group, head) in KERNELS.items():
@@ -1281,7 +1577,9 @@ def main():
             loss_ms_per_run=loss_ms_per_run(cs),
             main_path_device_ms_per_call=(iprofiled if norm else profiled).get(group, (None,))[0],
             inpaint_path_launches=ilaunches[counter], sd21_path_launches=slaunches[counter],
-            sd21_path_device_ms_per_call=sprofiled.get(group, (None,))[0], cases=cs,
+            sd21_path_device_ms_per_call=sprofiled.get(group, (None,))[0],
+            controlnet_path_launches=claunches[counter],
+            controlnet_path_device_ms_per_call=cprofiled.get(group, (None,))[0], cases=cs,
         ))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

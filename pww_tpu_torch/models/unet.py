@@ -20,7 +20,7 @@ Attention dispatch (``pww_tpu/models/unet.py:177-211``), per site:
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -215,11 +215,18 @@ class DownBlock(nn.Module):
         ) if has_attn else None
         self.downsamplers = None if last else nn.ModuleList([Downsample2D(c_out)])
 
-    def forward(self, x, temb, ctx, pww, skips: List[torch.Tensor]):
+    def forward(self, x, temb, ctx, pww, skips: List[torch.Tensor],
+                intrablock: Optional[torch.Tensor] = None):
+        """``intrablock``: a T2I-Adapter feature, added after the last
+        transformer, so that it joins that skip and the downsampler's input
+        (diffusers' CrossAttnDownBlock2D ``additional_residuals``). An
+        attention-less block takes its feature in the UNet, after the block."""
         for i, resnet in enumerate(self.resnets):
             x = resnet(x, temb)
             if self.attentions is not None:
                 x = self.attentions[i](x, ctx, pww)
+                if intrablock is not None and i == len(self.resnets) - 1:
+                    x = x + intrablock.to(x.dtype)
             skips.append(x)
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
@@ -272,6 +279,16 @@ class UNetMidBlock2DCrossAttn(nn.Module):
         return self.resnets[1](x, temb)
 
 
+def skip_channels(cfg: UNetConfig) -> List[int]:
+    """Channels of the down path's skips, in the order it appends them: the
+    ``conv_in`` output, each layer of each block, each downsampler."""
+    chs = cfg.block_out_channels
+    out = [chs[0]]
+    for i, ch in enumerate(chs):
+        out += [ch] * cfg.layers_per_block + ([ch] if i < len(chs) - 1 else [])
+    return out
+
+
 class UNet2DConditionModel(nn.Module):
     """SD-1.x UNet; ``pww`` carries the paint-with-words bias pyramid."""
 
@@ -289,10 +306,7 @@ class UNet2DConditionModel(nn.Module):
             for i in range(n)
         )
         self.mid_block = UNetMidBlock2DCrossAttn(chs[-1], temb_dim, cfg)
-        # skip channels, in the order the up path pops them
-        skip_chs = [chs[0]]
-        for i, ch in enumerate(chs):
-            skip_chs += [ch] * cfg.layers_per_block + ([ch] if i < n - 1 else [])
+        skip_chs = skip_channels(cfg)
         rev = list(reversed(chs))
         ups = []
         for i, ch in enumerate(rev):
@@ -305,8 +319,21 @@ class UNet2DConditionModel(nn.Module):
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
-                pww: Optional[PwwState] = None) -> torch.Tensor:
-        """(B, C_in, h, w) latents → (B, C_out, h, w) in the compute dtype."""
+                pww: Optional[PwwState] = None,
+                down_block_residuals: Optional[Sequence[torch.Tensor]] = None,
+                mid_block_residual: Optional[torch.Tensor] = None,
+                down_intrablock_residuals: Optional[Sequence[torch.Tensor]] = None,
+                ) -> torch.Tensor:
+        """(B, C_in, h, w) latents → (B, C_out, h, w) in the compute dtype.
+
+        ``down_block_residuals`` (one per skip, the ``conv_in`` skip first)
+        and ``mid_block_residual`` are ControlNet residuals: added to every
+        skip, and to the mid block's output. ``down_intrablock_residuals``
+        (one per down block) are T2I-Adapter features
+        (``pww_tpu/models/unet.py:424-432, 585-600``): on an attention
+        block after its last transformer, inside its skip; on an
+        attention-less one after the whole block, outside every skip.
+        """
         dtype = self.conv_in.weight.dtype
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(sample.shape[0])
@@ -315,9 +342,19 @@ class UNet2DConditionModel(nn.Module):
         ctx = encoder_hidden_states.to(dtype)
         x = self.conv_in(sample.to(dtype))
         skips = [x]
-        for blk in self.down_blocks:
-            x = blk(x, temb, ctx, pww, skips)
+        for i, blk in enumerate(self.down_blocks):
+            intra = None if down_intrablock_residuals is None else down_intrablock_residuals[i]
+            x = blk(x, temb, ctx, pww, skips, intra)
+            if intra is not None and blk.attentions is None:
+                x = x + intra.to(x.dtype)
+        if down_block_residuals is not None:
+            if len(down_block_residuals) != len(skips):
+                raise ValueError(f"{len(down_block_residuals)} down-block residuals for "
+                                 f"{len(skips)} skips")
+            skips = [s + r for s, r in zip(skips, down_block_residuals)]
         x = self.mid_block(x, temb, ctx, pww)
+        if mid_block_residual is not None:
+            x = x + mid_block_residual
         for blk in self.up_blocks:
             x = blk(x, temb, ctx, pww, skips)
         return self.conv_out(group_norm_site(self.conv_norm_out, x, silu=True,

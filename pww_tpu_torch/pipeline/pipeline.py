@@ -17,6 +17,14 @@ Port of :class:`pww_tpu.pipeline.pipeline.PwwPipeline` for these modes:
   * decode: VAE decode to uint8 on the device, one copy to the host, and
     for ``inpaint_full_res`` the paste back into the full image.
 
+Structural control (``pww_tpu/pipeline/pipeline.py:47-151, 780-886``): one
+or more ControlNets (:meth:`PwwPipeline.load_controlnet`,
+:meth:`PwwPipeline.add_controlnet`) run beside the UNet at every visit, on
+the same latents, text states and paint-with-words state, and their
+residuals, scaled and summed in order, join the UNet's skips and mid
+block; a T2I-Adapter (:meth:`PwwPipeline.load_t2i_adapter`) turns its hint
+into features once per call, which the UNet adds in its down blocks.
+
 :meth:`PwwPipeline.from_pretrained` loads a diffusers-layout directory
 (:mod:`~pww_tpu_torch.weights.loader`). Everything else the JAX pipeline's
 ``generate`` takes raises ``NotImplementedError`` here.
@@ -25,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +46,7 @@ from ..ops.resize import resize_linear_antialias, resize_nearest
 from ..ops.weight_functions import AnyWeightFunction, CustomWeightFunction
 from ..schedulers.schedules import make_scheduler, t_start_from_strength
 from ..types import PwwState
-from ..weights.bridge import StateDicts, build_models, synthetic_params
+from ..weights.bridge import StateDicts, build_models, synthetic_params, synthetic_state
 from .inpaint import (blur_mask, expand_crop_region, fill_masked_region, paste_region,
                       prepare_mask_and_masked_image)
 
@@ -83,6 +91,23 @@ def preprocess_image(img) -> np.ndarray:
     img = img.resize((w, h), resample=Image.LANCZOS)
     x = np.asarray(img, np.float32)[None] / 255.0
     return 2.0 * x - 1.0
+
+
+def _load_hint(img, channels: int, proc_hw: Tuple[int, int], name: str) -> np.ndarray:
+    """A uint8 hint image → (H, W, channels) f32 in [0, 1], at the processing
+    resolution (the latent grid × the VAE's factor, not the raw input's
+    size); an RGB hint for a 1-channel adapter becomes its mean."""
+    arr = _to_numpy_image(img).astype(np.float32) / 255.0
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    if channels == 1 and arr.shape[-1] == 3:
+        arr = arr.mean(-1, keepdims=True)  # mono hint (sketch, depth)
+    if arr.shape[:2] != proc_hw:
+        raise ValueError(f"{name} size {arr.shape[:2]} != processing resolution {proc_hw}; "
+                         "resize the hint")
+    if arr.ndim != 3 or arr.shape[-1] != channels:
+        raise ValueError(f"{name} must be (H, W, {channels}), got {arr.shape}")
+    return arr
 
 
 def side_generator(seed: int, stream: int) -> torch.Generator:
@@ -141,10 +166,10 @@ class PwwPipeline:
             params = synthetic_params(self.config, seed, self.device, dtype)
         models = build_models(self.config)  # on the meta device
         for part, module in models.items():
-            sd = {k: v.to(device=self.device, dtype=dtype) for k, v in params[part].items()}
-            module.load_state_dict(sd, strict=True, assign=True)
-            module.eval().requires_grad_(False)
+            self._place(module, params[part])
         self.unet, self.clip, self.vae = models["unet"], models["clip"], models["vae"]
+        self.controlnets: List[torch.nn.Module] = []  # more than one: multi-ControlNet
+        self.t2i_adapter: Optional[torch.nn.Module] = None
         self.profile = profile
         self.timings: Dict[str, float] = {}
 
@@ -163,6 +188,82 @@ class PwwPipeline:
             scheduler = recorded_scheduler(model_path)
         return cls(config=config, params=params, tokenizer=tokenizer, scheduler=scheduler,
                    **kwargs)
+
+    def _place(self, module: torch.nn.Module, state) -> torch.nn.Module:
+        """A module built on the meta device, given ``state`` on this
+        pipeline's device and dtype, for inference."""
+        sd = {k: v.to(device=self.device, dtype=self.dtype) for k, v in state.items()}
+        module.load_state_dict(sd, strict=True, assign=True)
+        return module.eval().requires_grad_(False)
+
+    # -- ControlNet and T2I-Adapter ----------------------------------------------
+    def load_controlnet(self, source: Optional[str] = None, params=None, seed: int = 0):
+        """Attach a ControlNet for the pipeline's UNet config, replacing any
+        attached ones (``pww_tpu/pipeline/pipeline.py:780-812``). ``source``:
+        a diffusers ControlNet directory or file; ``params``: the port's
+        state dict; neither: N(0, 0.02) from ``seed`` with the zero convs
+        zero, a net that adds nothing until trained. Returns the pipeline."""
+        from ..models.controlnet import ZERO_CONV_PREFIXES
+
+        net = build_models(self.config, parts=("controlnet",))["controlnet"]
+        if params is None and source is not None:
+            from ..weights.loader import load_controlnet_checkpoint
+
+            params = load_controlnet_checkpoint(source, self.config)
+        elif params is None:
+            g = torch.Generator(device=self.device).manual_seed(int(seed))
+            params = synthetic_state(net, g, self.dtype)
+            for k, v in params.items():
+                if k.startswith(ZERO_CONV_PREFIXES):
+                    v.zero_()
+        self.controlnets = [self._place(net, params)]
+        return self
+
+    def add_controlnet(self, source: Optional[str] = None, params=None, seed: int = 1):
+        """Stack another ControlNet (diffusers' ``MultiControlNetModel``):
+        at ``generate`` each net takes its own ``control_image`` and
+        conditioning scale, and their residuals are summed."""
+        stacked = self.controlnets
+        self.load_controlnet(source=source, params=params, seed=seed)
+        self.controlnets = stacked + self.controlnets
+        return self
+
+    def load_t2i_adapter(self, source=None, params=None, in_channels: int = 3,
+                         channels: Optional[Sequence[int]] = None, num_res_blocks: int = 2,
+                         seed: int = 0):
+        """Attach a T2I-Adapter (diffusers' full ``T2IAdapter``; ``channels``
+        default to the UNet's blocks). ``source``: a ``.safetensors``/``.bin``
+        path or a state dict with diffusers' keys, bare or under
+        ``adapter.``; ``params``: the port's state dict; neither: N(0, 0.02)
+        from ``seed``. Returns the pipeline."""
+        from ..models.t2i_adapter import T2IAdapter
+
+        with torch.device("meta"):
+            adapter = T2IAdapter(tuple(channels or self.config.unet.block_out_channels),
+                                 num_res_blocks, self.config.vae.scale_factor, in_channels)
+        if params is None and source is not None:
+            from ..weights.loader import t2i_adapter_state_dict
+
+            params = t2i_adapter_state_dict(source, adapter.state_dict())
+        elif params is None:
+            g = torch.Generator(device=self.device).manual_seed(int(seed))
+            params = synthetic_state(adapter, g, self.dtype)
+        self.t2i_adapter = self._place(adapter, params)
+        return self
+
+    def _control_residuals(self, control, lat: torch.Tensor, t,
+                           text_states: torch.Tensor, pww: Optional[PwwState]):
+        """Every attached ControlNet on its own (hint, scale), the residuals
+        summed in order (``pww_tpu/pipeline/pipeline.py:47-70``)."""
+        down = mid = None
+        for net, hint, scale in control:
+            d, m = net(lat, t, text_states, hint, pww, scale)
+            if down is None:
+                down, mid = list(d), m
+            else:
+                down = [a + b for a, b in zip(down, d)]
+                mid = mid + m
+        return down, mid
 
     # -- stages ----------------------------------------------------------------
     def encode_text(self, ids: torch.Tensor) -> torch.Tensor:
@@ -185,7 +286,7 @@ class PwwPipeline:
 
     def denoise(self, latents, text_states, pww: PwwState, schedule, guidance_scale,
                 t_start: int = 0, extra: Optional[torch.Tensor] = None, blend=None,
-                seed: int = 0):
+                seed: int = 0, control=None, adapter=None):
         """The scheduler's loop from visit ``t_start``; latents (N, C, h, w)
         f32 in and out.
 
@@ -198,6 +299,11 @@ class PwwPipeline:
         trajectory at that step, and restored exactly at the end. The UNet's
         output is converted to ε per CFG half (v-prediction), and the
         stochastic kinds draw their step noise from ``side_generator(seed, 3)``.
+
+        ``control``: (ControlNet, (N, 3, H, W) hint, scale) per attached net;
+        on the batched path each net sees the hint twice and the batched PwW
+        state, on the split path it runs per half, without any bias on the
+        uncond one. ``adapter``: the T2I-Adapter's f32 features, N-batched.
         """
         n = latents.shape[0]
         lat = latents.float()
@@ -209,21 +315,36 @@ class PwwPipeline:
         prediction_type = self.config.unet.prediction_type
         state = schedule.init_state(lat.shape, self.device)
         step_noise = side_generator(seed, 3) if schedule.needs_noise else None
+        if not split:  # both CFG halves in one call: hints and features twice
+            control = [(net, torch.cat([h, h]), sc) for net, h, sc in control or ()]
+            adapter = None if adapter is None else [torch.cat([a, a]) for a in adapter]
         for i in range(t_start, schedule.num_steps):
             if blend is not None:
                 mask, init, noise = blend
                 lat = schedule.add_noise(init, noise, i) * (1.0 - mask) + lat * mask
-            lat_in = schedule.scale_model_input(lat, i).to(self.dtype)
-            if extra is not None:
-                lat_in = torch.cat([lat_in, extra], dim=1)
+            lat_c = schedule.scale_model_input(lat, i).to(self.dtype)
             t, sigma = schedule.timesteps[i], schedule.sigma(i)
             if split:
-                out_u = self.unet(lat_in, t, text_states[:n]).float()
-                out_c = self.unet(lat_in, t, text_states[n:],
-                                  cond_pww.with_sigma(sigma)).float()
+                lat_in = lat_c if extra is None else torch.cat([lat_c, extra], dim=1)
+                outs = []
+                for half, p in ((slice(0, n), None), (slice(n, 2 * n),
+                                                      cond_pww.with_sigma(sigma))):
+                    down = mid = None
+                    if control:
+                        down, mid = self._control_residuals(control, lat_c, t,
+                                                            text_states[half], p)
+                    outs.append(self.unet(lat_in, t, text_states[half], p, down, mid,
+                                          adapter).float())
+                out_u, out_c = outs
             else:
-                eps2 = self.unet(torch.cat([lat_in, lat_in]), t, text_states,
-                                 pww.with_sigma(sigma))
+                lat2 = torch.cat([lat_c, lat_c])
+                pww_t = pww.with_sigma(sigma)
+                down = mid = None
+                if control:
+                    down, mid = self._control_residuals(control, lat2, t, text_states, pww_t)
+                if extra is not None:
+                    lat2 = torch.cat([lat2, torch.cat([extra, extra])], dim=1)
+                eps2 = self.unet(lat2, t, text_states, pww_t, down, mid, adapter)
                 out_u, out_c = eps2[:n].float(), eps2[n:].float()
             eps_u = schedule.to_epsilon(out_u, lat, i, prediction_type)
             eps_c = schedule.to_epsilon(out_c, lat, i, prediction_type)
@@ -272,6 +393,10 @@ class PwwPipeline:
         #   latent_nothing (latent_* need a 4-channel UNet)
         inpaint_full_res: bool = False,  # A1111 "inpaint area: only masked"
         inpaint_full_res_padding: int = 32,  # context px around the mask
+        control_image=None,  # ControlNet hint(s), (H, W, 3) uint8 (load_controlnet first)
+        controlnet_conditioning_scale=1.0,  # a float, or one per stacked ControlNet
+        adapter_image=None,  # T2I-Adapter hint (load_t2i_adapter first)
+        adapter_conditioning_scale: float = 1.0,
         num_samples: int = 1,
         noise_mode: str = "torch",
         vae_sample_mode: str = "sample",  # "mean" = the posterior mean
@@ -281,7 +406,12 @@ class PwwPipeline:
     ):
         """txt2img, img2img and inpaint with paint-with-words. Returns PIL
         image(s), a (N, H, W, 3) uint8 array (``output_type="np"``), or with
-        ``return_latents`` the final (N, h, w, 4) f32 latents (NHWC)."""
+        ``return_latents`` the final (N, h, w, 4) f32 latents (NHWC).
+
+        ``control_image``: one hint per attached ControlNet (a single one is
+        shared by all), RGB in [0, 255] at the processing resolution;
+        ``adapter_image``: the T2I-Adapter's hint, RGB or, for a 1-channel
+        adapter, gray (an RGB one is averaged)."""
         if unported:
             raise NotImplementedError(
                 f"generate({', '.join(sorted(unported))}=...) is not ported to "
@@ -299,9 +429,10 @@ class PwwPipeline:
             if return_latents:
                 raise ValueError("inpaint_full_res pastes decoded pixels back into the "
                                  "init image; return_latents is unsupported")
-            init_image, mask_image, color_map, ifr_state = self._crop_for_full_res(
-                init_image, mask_image, color_map, float(mask_blur),
-                int(inpaint_full_res_padding))
+            (init_image, mask_image, color_map, control_image, adapter_image,
+             ifr_state) = self._crop_for_full_res(
+                init_image, mask_image, color_map, control_image, adapter_image,
+                float(mask_blur), int(inpaint_full_res_padding))
             mask_blur = 0.0  # the crop's mask is feathered already
         enc = self.encode_inputs(prompt, color_map, color_context or {},
                                  negative_prompt, weight_function)
@@ -377,6 +508,29 @@ class PwwPipeline:
                         f"{cfg.vae.latent_channels + extra.shape[1]}; pass an "
                         "inpainting checkpoint (9-channel UNet)")
 
+        proc_hw = (lat.shape[2] * sf, lat.shape[3] * sf)
+        control = None
+        if control_image is not None:
+            if extra is not None:
+                # pww_tpu feeds its ControlNet (conv_in built for the UNet's
+                # in_channels) the 4-channel latents, and cannot run this
+                raise ValueError("a ControlNet on a 9-channel inpainting UNet is not "
+                                 "supported (the reference cannot run it: ROADMAP C.7)")
+            control = self._control_inputs(control_image, controlnet_conditioning_scale,
+                                           proc_hw, n)
+        adapter = None
+        if adapter_image is not None:
+            if self.t2i_adapter is None:
+                raise ValueError("adapter_image given but no T2I-Adapter loaded; call "
+                                 "pipeline.load_t2i_adapter(...) first")
+            arr = _load_hint(adapter_image, self.t2i_adapter.in_channels, proc_hw,
+                             "adapter_image")
+            hint = torch.from_numpy(arr).permute(2, 0, 1)[None].expand(n, -1, -1, -1)
+            # run once, outside the loop; f32 features times an f32 scale
+            # (pww_tpu/pipeline/pipeline.py:1798-1826)
+            adapter = [f.float() * float(np.float32(adapter_conditioning_scale))
+                       for f in self.t2i_adapter(hint.to(self.device))]
+
         text_states, pww = enc.text_states, enc.pww
         if n > 1:  # rows [uncond*N, cond*N]
             def tile(x):
@@ -390,7 +544,8 @@ class PwwPipeline:
             )
         t0 = self._phase("encode", t0)
         lat = self.denoise(lat, text_states, pww, schedule, float(guidance_scale),
-                           t_start=t_start, extra=extra, blend=blend, seed=seed)
+                           t_start=t_start, extra=extra, blend=blend, seed=seed,
+                           control=control, adapter=adapter)
         t0 = self._phase("denoise", t0)
         if return_latents:
             return lat.permute(0, 2, 3, 1).cpu().numpy()
@@ -408,13 +563,45 @@ class PwwPipeline:
 
     __call__ = generate
 
+    def _control_inputs(self, control_image, scale, proc_hw, n: int):
+        """[(ControlNet, (n, 3, H, W) f32 hint on the device, scale)] for the
+        attached nets; a single hint or scale is shared by every net
+        (``pww_tpu/pipeline/pipeline.py:1736-1796``)."""
+        nets = self.controlnets
+        if not nets:
+            raise ValueError("control_image given but no ControlNet loaded; call "
+                             "pipeline.load_controlnet(...) first")
+        k = len(nets)
+        if k == 1:
+            if isinstance(control_image, (list, tuple)) or isinstance(scale, (list, tuple)):
+                raise ValueError("a list of control images or conditioning scales requires "
+                                 "stacked ControlNets; call pipeline.add_controlnet(...)")
+            images, scales = [control_image], [scale]
+        else:
+            images = (list(control_image) if isinstance(control_image, (list, tuple))
+                      else [control_image] * k)
+            if len(images) != k:
+                raise ValueError(f"{k} ControlNets attached but {len(images)} control "
+                                 "images given")
+            scales = list(scale) if isinstance(scale, (list, tuple)) else [scale] * k
+            if len(scales) != k:
+                raise ValueError(f"{k} ControlNets attached but {len(scales)} conditioning "
+                                 "scales given")
+        out = []
+        for net, img, sc in zip(nets, images, scales):
+            hint = torch.from_numpy(_load_hint(img, 3, proc_hw, "control_image"))
+            hint = hint.permute(2, 0, 1)[None].expand(n, -1, -1, -1)
+            out.append((net, hint.to(self.device), float(sc)))
+        return out
+
     # -- inpaint helpers -----------------------------------------------------------
-    def _crop_for_full_res(self, init_image, mask_image, color_map, mask_blur: float,
-                           padding: int):
+    def _crop_for_full_res(self, init_image, mask_image, color_map, control_image,
+                           adapter_image, mask_blur: float, padding: int):
         """A1111 "inpaint area: only masked": crop the blurred mask's padded,
         aspect-matched bounding box and scale the crop of the init image, the
-        mask and the color map up to the full processing size. Returns them
-        and (init, feathered mask, region) for :func:`paste_region`."""
+        mask, the color map and the hints up to the full processing size.
+        Returns them and (init, feathered mask, region) for
+        :func:`paste_region`."""
         from PIL import Image
 
         init_np = _to_numpy_image(init_image)  # (H, W, 3) uint8
@@ -437,7 +624,21 @@ class PwwPipeline:
                 color_map = np.asarray(Image.fromarray(color_map).resize((fw, fh),
                                                                          Image.NEAREST))
             color_map = up(color_map[y0:y1, x0:x1], Image.NEAREST)
-        return crop_init, crop_mask, color_map, (init_np, mask_full, (x0, y0, x1, y1))
+
+        def crop_hint(img):
+            a = _to_numpy_image(img)
+            if a.shape[:2] != (fh, fw):
+                a = np.asarray(Image.fromarray(a).resize((fw, fh), Image.LANCZOS))
+            return up(a[y0:y1, x0:x1], Image.LANCZOS)
+
+        if isinstance(control_image, (list, tuple)):
+            control_image = [crop_hint(c) for c in control_image]
+        elif control_image is not None:
+            control_image = crop_hint(control_image)
+        if adapter_image is not None:
+            adapter_image = crop_hint(adapter_image)
+        return (crop_init, crop_mask, color_map, control_image, adapter_image,
+                (init_np, mask_full, (x0, y0, x1, y1)))
 
     def _prepare_pixel_mask(self, mask_image, init, mask_blur: float) -> np.ndarray:
         """(H, W) f32 mask in [0, 1] at the preprocessed init's size,

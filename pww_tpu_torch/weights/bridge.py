@@ -8,6 +8,10 @@
   ``(O, I, kh, kw)`` and flax ``(in, out)`` dense kernels become
   ``(out, in)``. The VAE encoder and ``quant_conv`` come across with the
   decoder, and a 9-channel inpainting ``conv_in`` as any other conv.
+  A ControlNet tree (part "controlnet") takes the inverse of
+  ``controlnet_key`` (``pww_tpu/weights/loader.py:239-257``), and a
+  T2I-Adapter tree (part "t2i_adapter") the inverse of
+  ``pww_tpu/models/t2i_adapter.py``'s ``t2i_adapter_key``.
 * :func:`synthetic_params` fills every float tensor of the port's modules
   with N(0, 0.02), drawn on the device from a seeded ``torch.Generator``.
 """
@@ -112,6 +116,44 @@ def vae_key(path: Tuple[str, ...]) -> str:
     return ".".join(parts)
 
 
+def controlnet_key(path: Tuple[str, ...]) -> str:
+    """('zero_conv_3', 'conv') → 'controlnet_down_blocks.3' (a ZeroConv wraps
+    its conv in a module of its own); ('cond_embedding', 'blocks_2') →
+    'controlnet_cond_embedding.blocks.2'; the encoder copy's paths as the
+    UNet's."""
+    m = re.fullmatch(r"zero_conv_(\d+)", path[0])
+    if m:
+        return f"controlnet_down_blocks.{m[1]}"
+    if path[0] == "zero_conv_mid":
+        return "controlnet_mid_block"
+    if path[0] == "cond_embedding":
+        m = re.fullmatch(r"blocks_(\d+)", path[1])
+        return "controlnet_cond_embedding." + (f"blocks.{m[1]}" if m else path[1])
+    return unet_key(path)
+
+
+def t2i_adapter_key(path: Tuple[str, ...]) -> str:
+    """('body_1', 'resnets_0', 'block2') → 'adapter.body.1.resnets.0.block2'."""
+    parts = ["adapter"]
+    for m in path:
+        mm = re.fullmatch(r"(body|resnets)_(\d+)", m)
+        parts.append(f"{mm[1]}.{mm[2]}" if mm else m)
+    return ".".join(parts)
+
+
+# the JAX package's conditioning embedding ends in a 1×1 conv where
+# diffusers' (and the port's) has a 3×3 one (ROADMAP C.8)
+COND_EMBEDDING_OUT = "controlnet_cond_embedding.conv_out.weight"
+
+
+def centre_tap(kernel: torch.Tensor) -> torch.Tensor:
+    """A 1×1 conv kernel as the centre of a zero 3×3 one: with padding 1 the
+    same function."""
+    out = kernel.new_zeros((*kernel.shape[:2], 3, 3))
+    out[:, :, 1, 1] = kernel[:, :, 0, 0]
+    return out
+
+
 def _walk(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -120,50 +162,75 @@ def _walk(tree, prefix=()):
             yield prefix + (k,), v
 
 
+_KEYS = {"unet": unet_key, "clip": clip_key, "vae": vae_key, "controlnet": controlnet_key,
+         "t2i_adapter": t2i_adapter_key}
+
+
 def params_from_jax(tree) -> StateDicts:
-    """{"unet", "clip", "vae"} flax trees of numpy arrays → torch state dicts."""
-    out: StateDicts = {"unet": {}, "clip": {}, "vae": {}}
-    for part in out:
-        for path, arr in _walk(tree[part]):
+    """{part: flax tree of numpy arrays} → {part: torch state dict}, for the
+    parts "unet", "clip", "vae", "controlnet" and "t2i_adapter" in ``tree``."""
+    out: StateDicts = {}
+    for part, sub in tree.items():
+        sd = out[part] = {}
+        for path, arr in _walk(sub):
             *mods, leaf = path
             mods = tuple(mods)
             arr = np.asarray(arr)
             if part == "clip" and leaf == "position_embedding":
                 key, t = "text_model.embeddings.position_embedding.weight", arr
             else:
-                prefix = {"unet": unet_key, "clip": clip_key, "vae": vae_key}[part](mods)
                 name, t = _leaf(leaf, arr)
-                key = f"{prefix}.{name}"
-            if key in out[part]:
+                key = f"{_KEYS[part](mods)}.{name}"
+            if key in sd:
                 raise ValueError(f"duplicate key {key} from {path}")
-            out[part][key] = torch.tensor(np.asarray(t))
+            sd[key] = torch.tensor(np.asarray(t))
+        if part == "controlnet":
+            sd[COND_EMBEDDING_OUT] = centre_tap(sd[COND_EMBEDDING_OUT])
     return out
 
 
-def build_models(config: SDModelConfig, device="meta"):
-    """The port's three modules, uninitialized on ``device``."""
+PARTS = ("unet", "clip", "vae")
+
+
+def build_models(config: SDModelConfig, device="meta", parts=PARTS):
+    """The port's modules for ``parts``, uninitialized on ``device``: "unet",
+    "clip", "vae", "controlnet" (for ``config.unet``) and "t2i_adapter" (a
+    full adapter for ``config.unet``'s blocks, 2 residual blocks per stage,
+    an RGB hint)."""
     from ..models.clip import CLIPTextModel
+    from ..models.controlnet import ControlNetModel
+    from ..models.t2i_adapter import T2IAdapter
     from ..models.unet import UNet2DConditionModel
     from ..models.vae import AutoencoderKL
 
+    builders = {
+        "unet": lambda: UNet2DConditionModel(config.unet),
+        "clip": lambda: CLIPTextModel(config.clip),
+        "vae": lambda: AutoencoderKL(config.vae),
+        "controlnet": lambda: ControlNetModel(config.unet),
+        "t2i_adapter": lambda: T2IAdapter(config.unet.block_out_channels,
+                                          downscale_factor=config.vae.scale_factor),
+    }
     with torch.device(device):
-        return {
-            "unet": UNet2DConditionModel(config.unet),
-            "clip": CLIPTextModel(config.clip),
-            "vae": AutoencoderKL(config.vae),
-        }
+        return {part: builders[part]() for part in parts}
+
+
+def synthetic_state(module: torch.nn.Module, generator: torch.Generator,
+                    dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """N(0, 0.02) in every tensor of ``module``'s state dict, in its order,
+    drawn on the generator's device."""
+    sd = {}
+    for key, ref in module.state_dict().items():
+        x = torch.randn(ref.shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        sd[key] = x.mul_(0.02).to(dtype)
+    return sd
 
 
 def synthetic_params(config: SDModelConfig, seed: int = 0, device="cuda",
-                     dtype=torch.bfloat16) -> StateDicts:
-    """N(0, 0.02) in every float tensor, in state-dict order, drawn on
-    ``device`` from ``torch.Generator(device).manual_seed(seed)``."""
+                     dtype=torch.bfloat16, parts=PARTS) -> StateDicts:
+    """N(0, 0.02) in every float tensor of each part, in state-dict order,
+    drawn on ``device`` from ``torch.Generator(device).manual_seed(seed)``."""
     g = torch.Generator(device=device).manual_seed(int(seed))
-    out: StateDicts = {}
-    for part, module in build_models(config).items():
-        sd = {}
-        for key, ref in module.state_dict().items():
-            x = torch.randn(ref.shape, generator=g, dtype=torch.float32, device=device)
-            sd[key] = x.mul_(0.02).to(dtype)
-        out[part] = sd
-    return out
+    return {part: synthetic_state(module, g, dtype)
+            for part, module in build_models(config, parts=parts).items()}

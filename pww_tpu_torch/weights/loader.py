@@ -15,6 +15,12 @@ the exceptions, which the JAX package handles in ``fill_params`` and
 * buffers that are not parameters (``text_model.embeddings.position_ids``)
   are dropped.
 
+ControlNet checkpoints (a diffusers ``ControlNetModel`` directory or one
+file) load through :func:`load_controlnet_checkpoint`, T2I-Adapter state
+dicts (bare or ``adapter.``-prefixed keys) through
+:func:`t2i_adapter_state_dict`; :func:`save_controlnet_checkpoint` writes
+the former.
+
 A parameter missing from the checkpoint raises ``KeyError`` naming the
 first few; any other key left over makes the pipeline's
 ``load_state_dict(strict=True)`` raise. ``.safetensors`` files are read by
@@ -33,7 +39,7 @@ import torch
 
 from ..config import CLIPTextConfig, SDModelConfig, UNetConfig, VAEConfig
 from . import safetensors_io
-from .bridge import StateDicts, build_models
+from .bridge import COND_EMBEDDING_OUT, StateDicts, build_models, centre_tap
 
 WEIGHT_FILES = (
     "diffusion_pytorch_model.safetensors",
@@ -146,8 +152,8 @@ def config_from_checkpoint(model_path: str) -> SDModelConfig:
 def convert_state_dict(part: str, state: Dict[str, torch.Tensor],
                        expected: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """A checkpoint's state dict → the port's keys and layouts for module
-    ``part`` ("unet", "clip" or "vae"), whose state dict (on any device,
-    the meta device too) is ``expected``."""
+    ``part`` ("unet", "clip", "vae", "controlnet" or "t2i_adapter"), whose
+    state dict (on any device, the meta device too) is ``expected``."""
     out = {}
     for key, t in state.items():
         if key.endswith(".position_ids"):
@@ -191,6 +197,41 @@ def load_pipeline_checkpoint(model_path: str):
     return config, params, CLIPTokenizer.from_dir(model_path)
 
 
+def load_controlnet_checkpoint(path: str, config: SDModelConfig) -> Dict[str, torch.Tensor]:
+    """A diffusers ControlNet directory (``config.json`` and one of
+    :data:`WEIGHT_FILES`) or a single ``.safetensors``/``.bin`` file → the
+    port's ControlNet state dict for ``config`` (``pww_tpu/weights/loader.py:
+    260-278``). The conditioning embedding's ``conv_out`` may be diffusers'
+    3×3 kernel or the JAX package's 1×1 one (ROADMAP C.8); an SDXL
+    (``text_time``) ControlNet raises."""
+    if os.path.isdir(path):
+        cn_cfg = _read_json(os.path.join(path, "config.json")) or {}
+        if cn_cfg.get("addition_embed_type") is not None:
+            raise NotImplementedError(f"{path}: SDXL ControlNets are not ported to "
+                                      "pww_tpu_torch yet (ROADMAP A.16)")
+        path = _find_weights_file(path)
+    state = dict(read_state_dict(path))
+    t = state.get(COND_EMBEDDING_OUT)
+    if t is not None and tuple(t.shape[2:]) == (1, 1):
+        state[COND_EMBEDDING_OUT] = centre_tap(t)
+    expected = build_models(config, parts=("controlnet",))["controlnet"].state_dict()
+    return convert_state_dict("controlnet", state, expected)
+
+
+def t2i_adapter_state_dict(source, expected: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A T2I-Adapter checkpoint (a ``.safetensors``/``.bin`` path or a state
+    dict of tensors or arrays) with diffusers' keys, bare or under
+    ``adapter.`` (``pww_tpu/pipeline/pipeline.py:852-854``), → the port's
+    state dict, checked against the module's ``expected`` one."""
+    if isinstance(source, dict):
+        state = {k: torch.as_tensor(v) for k, v in source.items()}
+    else:
+        state = read_state_dict(source)
+    if not any(k.startswith("adapter.") for k in state):
+        state = {f"adapter.{k}": v for k, v in state.items()}
+    return convert_state_dict("t2i_adapter", state, expected)
+
+
 def recorded_scheduler(model_path: str) -> str:
     """The ``scheduler_type`` a top-level ``config.json`` records (the JAX
     package's ``save_pretrained`` and converter write it), else "lms"."""
@@ -204,6 +245,51 @@ def recorded_scheduler(model_path: str) -> str:
     return "lms"
 
 
+def _unet_json(u: UNetConfig, class_name: str) -> dict:
+    """A UNet's or a ControlNet's ``config.json``, diffusers' field names."""
+    return {
+        "_class_name": class_name,
+        "in_channels": u.in_channels, "out_channels": u.out_channels,
+        "sample_size": u.sample_size, "block_out_channels": list(u.block_out_channels),
+        "layers_per_block": u.layers_per_block,
+        "attention_head_dim": [u.heads_for(ch)[0] for ch in u.block_out_channels]
+        if u.attention_head_dim is not None else u.num_attention_heads,
+        "use_linear_projection": u.attention_head_dim is not None,
+        "prediction_type": u.prediction_type,
+        "cross_attention_dim": u.cross_attention_dim, "norm_num_groups": u.norm_num_groups,
+        "down_block_types": ["CrossAttnDownBlock2D" if a else "DownBlock2D"
+                             for a in u.down_block_has_attn],
+        "up_block_types": ["CrossAttnUpBlock2D" if a else "UpBlock2D"
+                           for a in u.up_block_has_attn],
+    }
+
+
+def _check_format(weights_format: str) -> None:
+    if weights_format not in ("safetensors", "bin"):
+        raise ValueError(f"weights_format must be 'safetensors' or 'bin', got "
+                         f"{weights_format!r}")
+
+
+def _write_part(d: str, cfg_json: dict, state: Dict[str, torch.Tensor], stem: str,
+                bin_name: str, weights_format: str, linear_projection: bool = False) -> None:
+    """One module's ``config.json`` and weights file in directory ``d``; with
+    ``linear_projection`` the Transformer2D ``proj_in``/``proj_out`` weights
+    are stored as Linear ones, as diffusers' ``use_linear_projection`` does."""
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(cfg_json, f, indent=1)
+    sd = {}
+    for key, t in state.items():
+        if (linear_projection and t.dim() == 4
+                and re.search(r"attentions\.\d+\.proj_(in|out)\.weight$", key)):
+            t = t[:, :, 0, 0]
+        sd[key] = t.detach().to("cpu").contiguous()
+    if weights_format == "safetensors":
+        safetensors_io.save_file(sd, os.path.join(d, stem + ".safetensors"))
+    else:
+        torch.save(sd, os.path.join(d, bin_name))
+
+
 def save_diffusers_checkpoint(path: str, config: SDModelConfig, params: StateDicts,
                               tokenizer=None, weights_format: str = "safetensors") -> None:
     """Write ``params`` as a diffusers-layout directory that
@@ -215,26 +301,8 @@ def save_diffusers_checkpoint(path: str, config: SDModelConfig, params: StateDic
     weights, as diffusers' ``use_linear_projection`` does."""
     from ..tokenizer.clip_bpe import save_tokenizer_assets
 
-    if weights_format not in ("safetensors", "bin"):
-        raise ValueError(f"weights_format must be 'safetensors' or 'bin', got "
-                         f"{weights_format!r}")
-    u, c, v = config.unet, config.clip, config.vae
-    linear_projection = u.attention_head_dim is not None
-    heads = [u.heads_for(ch)[0] for ch in u.block_out_channels]
-    unet_json = {
-        "_class_name": "UNet2DConditionModel",
-        "in_channels": u.in_channels, "out_channels": u.out_channels,
-        "sample_size": u.sample_size, "block_out_channels": list(u.block_out_channels),
-        "layers_per_block": u.layers_per_block,
-        "attention_head_dim": heads if u.attention_head_dim is not None
-        else u.num_attention_heads,
-        "use_linear_projection": linear_projection, "prediction_type": u.prediction_type,
-        "cross_attention_dim": u.cross_attention_dim, "norm_num_groups": u.norm_num_groups,
-        "down_block_types": ["CrossAttnDownBlock2D" if a else "DownBlock2D"
-                             for a in u.down_block_has_attn],
-        "up_block_types": ["CrossAttnUpBlock2D" if a else "UpBlock2D"
-                           for a in u.up_block_has_attn],
-    }
+    _check_format(weights_format)
+    c, v = config.clip, config.vae
     clip_json = {
         "architectures": ["CLIPTextModel"], "vocab_size": c.vocab_size,
         "hidden_size": c.hidden_size, "intermediate_size": c.intermediate_size,
@@ -247,30 +315,32 @@ def save_diffusers_checkpoint(path: str, config: SDModelConfig, params: StateDic
         "layers_per_block": v.layers_per_block, "norm_num_groups": v.norm_num_groups,
         "scaling_factor": v.scaling_factor,
     }
-    parts = (("unet", "unet", unet_json, "diffusion_pytorch_model"),
-             ("clip", "text_encoder", clip_json, "model"),
-             ("vae", "vae", vae_json, "diffusion_pytorch_model"))
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "model_index.json"), "w") as f:
         json.dump({"_class_name": "StableDiffusionPipeline",
                    "unet": ["diffusers", "UNet2DConditionModel"],
                    "text_encoder": ["transformers", "CLIPTextModel"],
                    "vae": ["diffusers", "AutoencoderKL"]}, f, indent=1)
-    for part, subdir, cfg_json, stem in parts:
-        d = os.path.join(path, subdir)
-        os.makedirs(d, exist_ok=True)
-        with open(os.path.join(d, "config.json"), "w") as f:
-            json.dump(cfg_json, f, indent=1)
-        sd = {}
-        for key, t in params[part].items():
-            if (linear_projection and part == "unet" and t.dim() == 4
-                    and re.search(r"attentions\.\d+\.proj_(in|out)\.weight$", key)):
-                t = t[:, :, 0, 0]
-            sd[key] = t.detach().to("cpu").contiguous()
-        if weights_format == "safetensors":
-            safetensors_io.save_file(sd, os.path.join(d, stem + ".safetensors"))
-        else:
-            name = "pytorch_model.bin" if part == "clip" else stem + ".bin"
-            torch.save(sd, os.path.join(d, name))
+    _write_part(os.path.join(path, "unet"), _unet_json(config.unet, "UNet2DConditionModel"),
+                params["unet"], "diffusion_pytorch_model", "diffusion_pytorch_model.bin",
+                weights_format, linear_projection=config.unet.attention_head_dim is not None)
+    _write_part(os.path.join(path, "text_encoder"), clip_json, params["clip"], "model",
+                "pytorch_model.bin", weights_format)
+    _write_part(os.path.join(path, "vae"), vae_json, params["vae"], "diffusion_pytorch_model",
+                "diffusion_pytorch_model.bin", weights_format)
     if tokenizer is not None:
         save_tokenizer_assets(tokenizer, os.path.join(path, "tokenizer"))
+
+
+def save_controlnet_checkpoint(path: str, config: SDModelConfig, state: Dict[str, torch.Tensor],
+                               weights_format: str = "safetensors") -> None:
+    """Write a ControlNet state dict for ``config`` as a diffusers
+    ``ControlNetModel`` directory that :func:`load_controlnet_checkpoint`
+    reads (``config.json`` and the weights in their own types)."""
+    _check_format(weights_format)
+    cfg_json = _unet_json(config.unet, "ControlNetModel")
+    for key in ("out_channels", "sample_size", "prediction_type", "up_block_types"):
+        del cfg_json[key]
+    cfg_json.update(conditioning_channels=3, conditioning_embedding_out_channels=[16, 32, 96, 256])
+    _write_part(path, cfg_json, state, "diffusion_pytorch_model", "diffusion_pytorch_model.bin",
+                weights_format, linear_projection=config.unet.attention_head_dim is not None)
