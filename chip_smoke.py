@@ -72,7 +72,19 @@ Phases, each printing its own lines; any failure ends the run non-zero:
     the image unlike the one without the hint, a 5-step profile; then 4-step
     calls with two stacked ControlNets (27/27/18 per visit), the T2I-Adapter
     at full width (15/15/10 per visit, unlike the run without it) and a
-    custom weight function with one ControlNet (the split path: 0/0/28).
+    custom weight function with one ControlNet (the split path: 0/0/28);
+17. sdxl reference: SDXL base and refiner at their published widths, cut in
+    depth (layers_per_block 1, transformer depth 2, 2-layer towers), 512²,
+    3 LMS steps, card bf16 against CPU f32 (K1/K2/K3 14/14/6 a visit); then
+    6 steps cut at 0.5: the base to denoising_end, the refiner from there
+    (12/12/6), and the refiner's update from the CPU's base latents;
+18. sdxl path: SDXL-base at diffusers' published shapes written as an fp16
+    diffusers directory (the free space printed first; deleted once
+    loaded), through ``paint_with_words(local_model_path=...)``, 1024², N
+    LMS steps, CFG 7.5, K1 = K2 = K3 = 70·N (SDXL_LAUNCHES_PER_VISIT), a
+    5-step profile; the refiner at its published shapes the same way, one
+    ensemble call (the base's visits at t >= 200, the refiner's 44/44/40 a
+    visit after them), and one 4-step euler call on the base.
 
 Then a JSON line with every kernel, the card's name and power limit, and
 last {"ok": true, "device": {...}}.
@@ -100,6 +112,21 @@ SHAPES = ((4096, 40), (1024, 80), (256, 160))
 # L 576 self-attention stay dense)
 SD21_SHAPES = ((9216, 5), (2304, 10), (576, 20))
 STEPS_PER_RUN = 30  # the operating point's LMS steps, for calls per run
+# SDXL at 1024² (latent 128², CFG batch 2): (heads, Lq, head dim) of the
+# cross-attention sites → K1 and K2 calls per UNet visit; K3 takes the
+# self-attention sites of L >= 1024 (tests/test_torch_sdxl.py traces both
+# UNets on the meta device against these tables)
+SDXL_SITES = {
+    "sdxl": {(10, 4096, 64): 10, (20, 1024, 64): 60},
+    "sdxl_refiner": {(12, 4096, 64): 20, (24, 1024, 64): 20, (24, 256, 64): 4},
+}
+SDXL_LAUNCHES_PER_VISIT = {"sdxl": (70, 70, 70), "sdxl_refiner": (44, 44, 40)}
+# diffusers' parameter counts of the two models' parts
+SDXL_PARAMS = {
+    "sdxl": {"unet": 2_567_463_684, "clip": 123_060_480, "clip2": 694_659_840,
+             "vae": 83_653_863},
+    "sdxl_refiner": {"unet": 2_259_526_660, "clip": 694_659_840, "vae": 83_653_863},
+}
 # The inpaint path's GroupNorm sites at 512² (SD-1.5-inpainting, CFG batch 2
 # in the UNet): (shape, groups, eps, SiLU, pre-add) → calls per UNet step,
 # per VAE encode, per VAE decode. An inpaint call at strength 1.0 runs N
@@ -431,22 +458,31 @@ def phase_kernels():
             reduce_case(q, k, mode, f"Lq{lq} dh{dh}{f' Lk{lk}' if lk != LK else ''} {mode}")
     # SD-2.1 768-v: head dim 64 at every site, five sites of each per UNet
     # call (their calls per 30-step run join loss_ms_per_run)
-    for (lq, h) in SD21_SHAPES:
-        q, k, v = randn(B, h, lq, 64), randn(B, h, LK, 64), randn(B, h, LK, 64)
-        for mode in ("max", "mean", "std"):
-            reduce_case(q, k, mode, f"sd21 Lq{lq} H{h} dh64 {mode}",
-                        calls=5 * STEPS_PER_RUN if mode == "max" else None)
-        reduce_case(randn(B, h, lq, 64, mean=4.0), randn(B, h, LK, 64, mean=4.0), "std",
-                    f"sd21 Lq{lq} H{h} dh64 std large-mean")
-        xattn_case(q, k, v, f"sd21 Lq{lq} H{h} dh64", calls=5 * STEPS_PER_RUN)
-        del q, k, v
-        if lq >= 1024:
-            flash_case(lq, 64, f"sd21 L{lq} H{h} dh64", calls=5 * STEPS_PER_RUN, H=h)
+    # SD-2.1 768-v, then SDXL base and refiner at 1024² (SDXL_SITES): head
+    # dim 64 at every site, their calls per 30-step run join loss_ms_per_run
+    tables = [("sd21", {(h, lq, 64): 5 for lq, h in SD21_SHAPES})]
+    tables += [("xl" if name == "sdxl" else "xlr", table) for name, table in SDXL_SITES.items()]
+    for tag, table in tables:
+        for (h, lq, dh), per_visit in table.items():
+            calls = per_visit * STEPS_PER_RUN
+            q, k, v = randn(B, h, lq, dh), randn(B, h, LK, dh), randn(B, h, LK, dh)
+            for mode in ("max", "mean", "std"):
+                reduce_case(q, k, mode, f"{tag} Lq{lq} H{h} dh{dh} {mode}",
+                            calls=calls if mode == "max" else None)
+            reduce_case(randn(B, h, lq, dh, mean=4.0), randn(B, h, LK, dh, mean=4.0), "std",
+                        f"{tag} Lq{lq} H{h} dh{dh} std large-mean")
+            xattn_case(q, k, v, f"{tag} Lq{lq} H{h} dh{dh}", calls=calls)
+            del q, k, v
+            if lq >= 1024:
+                flash_case(lq, dh, f"{tag} L{lq} H{h} dh{dh}", calls=calls, H=h)
     for name, cs in cases.by_kernel.items():
-        sd21 = [c for c in cs if c["case"].startswith("sd21")]
-        log(f"[kernels] {name}: loss_ms_per_run SD-1.5 512² "
-            f"{loss_ms_per_run([c for c in cs if c not in sd21]):.3f}, SD-2.1 768² "
-            f"{loss_ms_per_run(sd21):.3f}")
+        tagged = {tag: [c for c in cs if c["case"].startswith(tag + " ")]
+                  for tag, _ in tables}
+        plain = [c for c in cs if not any(c in t for t in tagged.values())]
+        log(f"[kernels] {name}: loss_ms_per_run SD-1.5 512² {loss_ms_per_run(plain):.3f}, "
+            f"SD-2.1 768² {loss_ms_per_run(tagged['sd21']):.3f}, SDXL 1024² "
+            f"{loss_ms_per_run(tagged['xl']):.3f}, refiner 1024² "
+            f"{loss_ms_per_run(tagged['xlr']):.3f}")
     cases.check()
     return cases.by_kernel
 
@@ -1506,6 +1542,273 @@ def phase_schedulers(pipe, kw, steps=4):
         raise SystemExit(f"[schedulers] {failed}")
 
 
+def xl_reduced_configs():
+    """SDXL base and refiner at their published widths (channels, head dim
+    64, both text towers), cut in depth: layers_per_block 1, transformer
+    depth 2 where there is attention, 2 layers per tower, the tiny VAE."""
+    import dataclasses
+
+    from pww_tpu_torch.config import CLIPTextConfig, SDModelConfig, UNetConfig, VAEConfig
+
+    vae = dataclasses.replace(VAEConfig.tiny(), scaling_factor=0.13025)
+    base = SDModelConfig.sdxl()
+    base = dataclasses.replace(
+        base, clip=dataclasses.replace(CLIPTextConfig.sdxl_l(), num_layers=2),
+        clip2=dataclasses.replace(CLIPTextConfig.sdxl_bigg(), num_layers=2),
+        unet=dataclasses.replace(UNetConfig.sdxl(), layers_per_block=1,
+                                 transformer_depth=(0, 2, 2)), vae=vae)
+    refiner = SDModelConfig.sdxl_refiner()
+    refiner = dataclasses.replace(
+        refiner, clip=dataclasses.replace(refiner.clip, num_layers=2),
+        unet=dataclasses.replace(refiner.unet, layers_per_block=1,
+                                 transformer_depth=(0, 2, 2, 2)), vae=vae)
+    return base, refiner
+
+
+def phase_sdxl_reference():
+    """The reduced SDXL base (xl_reduced_configs) at 512², 3 LMS steps, card
+    bf16 vs CPU f32; then a 6-step trajectory cut at 0.5 (3 visits each):
+    the base to ``denoising_end``, the reduced refiner from
+    ``denoising_start`` on each device's own base latents, and the card's
+    refiner from the CPU's base latents, whose update (output minus those
+    latents) is held against the CPU's update, so that the refiner's own
+    error is not hidden under what it inherits."""
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.pipeline.pipeline import PwwPipeline
+    from pww_tpu_torch.weights.bridge import synthetic_params
+
+    base_cfg, ref_cfg = xl_reduced_configs()
+    pipes = {}
+    for name, cfg, seed in (("base", base_cfg, 5), ("refiner", ref_cfg, 6)):
+        params = synthetic_params(cfg, seed=seed, device="cuda", dtype=torch.float32)
+        params = {p: {k: v * 5.0 for k, v in sd.items()} for p, sd in params.items()}
+        cpu = {p: {k: v.cpu() for k, v in sd.items()} for p, sd in params.items()}
+        pipes[name] = (PwwPipeline(cfg, params=params, device="cuda", dtype=torch.bfloat16),
+                       PwwPipeline(cfg, params=cpu, device="cpu", dtype=torch.float32))
+        del params, cpu
+    cm = sd21_color_map(512)
+    kw = dict(prompt="a cat sitting next to a dog", color_map_image=cm,
+              color_context={(255, 0, 0): "cat,0.5", (0, 0, 255): "dog,0.5"},
+              seed=0, return_latents=True)
+    counters = launch_counters()[:3]
+    # per visit at 512² (latent 64²): the base's 32² stage (Lq 1024: 2 down
+    # and 4 up sites, K1-K3) and 16² stage (Lq 256: 2 down, 2 mid, 4 up, K1
+    # and K2); the refiner's 32² stage (6, K1-K3) and 16² stage (6, K1 and
+    # K2), its 8² mid block dense
+    per_visit = {"base": (14, 14, 6), "refiner": (12, 12, 6)}
+    cases = (  # label, model, generate's arguments, visits, init latents from
+        ("base", "base", dict(num_inference_steps=3), 3, None),
+        ("base denoising_end=0.5", "base", dict(num_inference_steps=6, denoising_end=0.5),
+         3, None),
+        ("refiner denoising_start=0.5", "refiner",
+         dict(num_inference_steps=6, denoising_start=0.5), 3, "own"),
+        ("refiner denoising_start=0.5 from the CPU's latents, its update", "refiner",
+         dict(num_inference_steps=6, denoising_start=0.5), 3, "cpu"),
+    )
+    failed, lats, ref = [], {}, None
+    for label, name, extra, visits, init in cases:
+        gpu_pipe, cpu_pipe = pipes[name]
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        start = {"own": lats.get("gpu"), "cpu": lats.get("cpu")}.get(init)
+        gpu = gpu_pipe.generate(**kw, **extra, **({} if init is None
+                                                  else {"init_latents": start}))
+        launched = [c.launches for c in counters]
+        t1 = time.perf_counter()
+        if init != "cpu":  # the CPU run of the update case is the one before it
+            ref = cpu_pipe.generate(**kw, **extra, **({} if init is None
+                                                      else {"init_latents": lats["cpu"]}))
+        t2 = time.perf_counter()
+        if "denoising_end" in extra:
+            lats = {"gpu": gpu, "cpu": ref}
+        got, want = (gpu - start, ref - start) if init == "cpu" else (gpu, ref)
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        expect = [n * visits for n in per_visit[name]]
+        ok = bool(np.isfinite(gpu).all()) and rel < 5e-2 and launched == expect
+        log(f"[sdxl reference] {label}, 512², {visits} LMS visits, SDXL widths (layers 1, "
+            f"depth 2, 2-layer towers; K1/K2/K3 {launched}, {expect} wanted): card bf16 vs "
+            f"CPU f32 relative L2 error {rel:.3e} (tol 5e-2), |want| {np.linalg.norm(want):.1f}, "
+            f"card {t1 - t0:.1f} s, CPU {t2 - t1:.1f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(label)
+    del pipes
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"[sdxl reference] card run disagrees with the CPU reference, or the "
+                         f"launch counts differ: {failed}")
+
+
+def xl_directory(cfg, seed, tag):
+    """Write a synthetic fp16 diffusers directory of ``cfg`` to a temporary
+    directory, after printing the free space there; returns (path, number
+    of parameters, GB written, write s)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pww_tpu_torch.tokenizer.clip_bpe import synthetic_tokenizer
+    from pww_tpu_torch.weights.bridge import synthetic_params
+    from pww_tpu_torch.weights.loader import save_diffusers_checkpoint
+
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    log(f"[sdxl] {tag}: {free / 1e9:.1f} GB free in {tempfile.gettempdir()}")
+    path = tempfile.mkdtemp(prefix=f"pww_{tag}_")
+    t0 = time.perf_counter()
+    params = synthetic_params(cfg, seed=seed, device="cuda", dtype=torch.float16)
+    n_params = sum(v.numel() for sd in params.values() for v in sd.values())
+    save_diffusers_checkpoint(path, cfg, params, synthetic_tokenizer(49408))
+    del params
+    torch.cuda.empty_cache()
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+    return path, n_params, nbytes / 1e9, time.perf_counter() - t0
+
+
+def load_xl(cfg, seed, tag):
+    """``xl_directory``, then ``pww_load_tools`` on it; the directory is
+    deleted once the pipeline is on the card (the loader's cache keeps it)."""
+    import shutil
+
+    import torch
+
+    from pww_tpu_torch.pipeline.facade import pww_load_tools
+
+    path, n_params, gb, write_s = xl_directory(cfg, seed, tag)
+    try:
+        t0 = time.perf_counter()
+        pipe = pww_load_tools("cuda", "lms", local_model_path=path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    log(f"[sdxl] {tag}, {n_params:.4e} synthetic parameters: diffusers directory of "
+        f"{gb:.3f} GB (fp16 safetensors) written in {write_s:.1f} s, loaded by pww_load_tools "
+        f"to the card in bf16 in {load_s:.1f} s, then deleted")
+    return pipe, path
+
+
+def phase_sdxl(steps, card):
+    """SDXL-base at diffusers' published shapes from a written directory,
+    through ``paint_with_words(local_model_path=...)``: N LMS steps at 1024²
+    with 70 launches of each of K1-K3 per visit, the loader's cache, a
+    5-step profile; then the refiner at its published shapes the same way,
+    one ensemble call (base ``denoising_end=0.8``, refiner ``init_latents``
+    and ``denoising_start=0.8``) with launches checked per model, and one
+    euler call on the base."""
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.config import SDModelConfig
+    from pww_tpu_torch.pipeline.facade import paint_with_words, pww_load_tools
+    from pww_tpu_torch.schedulers.schedules import make_scheduler
+
+    base_cfg, ref_cfg = SDModelConfig.sdxl(), SDModelConfig.sdxl_refiner()
+    pipe, path = load_xl(base_cfg, 0, "sdxl")
+    pipe.profile = True
+    kw = dict(local_model_path=path, device="cuda", scheduler_type="lms",
+              color_context={(255, 0, 0): "cat,0.5", (0, 0, 255): "dog,0.5"},
+              color_map_image=sd21_color_map(1024),
+              input_prompt="a cat sitting next to a dog, realistic photo",
+              guidance_scale=7.5, seed=0, output_type="np")
+    paint_with_words(num_inference_steps=2, **kw)  # warm-up
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img = paint_with_words(num_inference_steps=steps, **kw)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    tm = pipe.timings
+    log(f"[sdxl] paint_with_words 1024², {steps} LMS steps, CFG 7.5: encode "
+        f"{tm['encode']:.3f} s, denoise {tm['denoise']:.3f} s "
+        f"({tm['denoise'] / steps * 1e3:.1f} ms/step), decode {tm['decode']:.3f} s, "
+        f"{total:.3f} s/image, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"({card})")
+    log(f"[sdxl] launches: {launches}")
+    k1, k2, k3 = SDXL_LAUNCHES_PER_VISIT["sdxl"]
+    want = {"fused_pww_reduce": k1 * steps, "fused_pww_cross_attention": k2 * steps,
+            "flash_self_attention": k3 * steps, "group_norm": 0, "layer_norm": 0}
+    problems = []
+    if img.shape != (1, 1024, 1024, 3) or img.dtype != np.uint8 or img.std() == 0:
+        problems.append(f"image {img.shape} {img.dtype} std {img.std():.2f}")
+    if launches != want:
+        problems.append(f"launches {launches} != {want}")
+    cached = pww_load_tools("cuda", "lms", local_model_path=path) is pipe
+    if not cached:
+        problems.append("pww_load_tools did not return the cached pipeline")
+    log(f"[sdxl] image {img.shape} {img.dtype} mean {img.mean():.2f} std {img.std():.2f}; "
+        f"pww_load_tools returned the cached pipeline: {cached}")
+    if problems:
+        raise SystemExit(f"[sdxl] {problems}")
+    profiled = phase_profile(lambda n: paint_with_words(num_inference_steps=n, **kw), "sdxl")
+    if profiled["K1 pww_reduce"][1] != 1:
+        raise SystemExit("[profile sdxl] K1 is not one device kernel per call")
+
+    refiner, ref_path = load_xl(ref_cfg, 1, "sdxl_refiner")
+    refiner.profile = True
+    run_kw = {k: v for k, v in kw.items() if k not in ("local_model_path", "scheduler_type",
+                                                       "output_type", "device")}
+    prompt = run_kw.pop("input_prompt")
+    cutoff_visits = int((pipe.scheduler.set_timesteps(steps).timesteps.cpu() >= 200).sum())
+    refiner.generate(prompt=prompt, num_inference_steps=4, init_latents=pipe.generate(
+        prompt=prompt, num_inference_steps=4, denoising_end=0.8, return_latents=True,
+        **run_kw), denoising_start=0.8, output_type="np", **run_kw)  # warm-up
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lat = paint_with_words(num_inference_steps=steps, denoising_end=0.8, return_latents=True,
+                           **kw)
+    base_launches = [c.launches for c in counters[:3]]
+    for c in counters:
+        c.launches = 0
+    img = refiner.generate(prompt=prompt, num_inference_steps=steps, init_latents=lat,
+                           denoising_start=0.8, output_type="np", **run_kw)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    ref_launches = [c.launches for c in counters[:3]]
+    want_base = [n * cutoff_visits for n in SDXL_LAUNCHES_PER_VISIT["sdxl"]]
+    want_ref = [n * (steps - cutoff_visits) for n in SDXL_LAUNCHES_PER_VISIT["sdxl_refiner"]]
+    ok = (base_launches == want_base and ref_launches == want_ref and img.std() > 0
+          and img.shape == (1, 1024, 1024, 3) and bool(np.isfinite(lat).all()))
+    log(f"[sdxl] ensemble, {steps} LMS steps: the base {cutoff_visits} visits (K1/K2/K3 "
+        f"{base_launches}, {want_base} wanted), the refiner {steps - cutoff_visits} from "
+        f"its latents (K1/K2/K3 {ref_launches}, {want_ref} wanted), {total:.3f} s/image, "
+        f"refiner denoise {refiner.timings['denoise']:.3f} s, decode "
+        f"{refiner.timings['decode']:.3f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; image std {img.std():.2f} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[sdxl] the ensemble call failed its launch or output checks")
+    del refiner
+    torch.cuda.empty_cache()
+    lms = pipe.scheduler
+    pipe.scheduler = make_scheduler("euler")
+    try:
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        lat = paint_with_words(num_inference_steps=4, preloaded_utils=pipe, return_latents=True,
+                               **{k: v for k, v in kw.items() if k != "local_model_path"})
+        torch.cuda.synchronize()
+        launched = [c.launches for c in counters[:3]]
+    finally:
+        pipe.scheduler = lms
+    want = [n * 4 for n in SDXL_LAUNCHES_PER_VISIT["sdxl"]]
+    ok = launched == want and lat.shape == (1, 128, 128, 4) and bool(np.isfinite(lat).all())
+    log(f"[sdxl] euler, 4 steps: launches K1/K2/K3 {launched} ({want} wanted), latents "
+        f"|max| {np.abs(lat).max():.3f}, {time.perf_counter() - t0:.3f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[sdxl] the euler call failed its launch or output checks")
+    return launches, profiled, {"base": base_launches, "refiner": ref_launches}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=30, help="LMS steps of the main path")
@@ -1561,6 +1864,10 @@ def main():
     torch.cuda.empty_cache()
     phase_controlnet_reference()
     claunches, cprofiled = phase_controlnet(args.steps, smi)
+    torch.cuda.empty_cache()
+    phase_sdxl_reference()
+    xlaunches, xprofiled, ensemble = phase_sdxl(args.steps, smi)
+    path_kernels = [c.__name__ for c in launch_counters()[:3]]
 
     kernels = []
     for name, (source, replaces, counter, group, head) in KERNELS.items():
@@ -1579,7 +1886,13 @@ def main():
             inpaint_path_launches=ilaunches[counter], sd21_path_launches=slaunches[counter],
             sd21_path_device_ms_per_call=sprofiled.get(group, (None,))[0],
             controlnet_path_launches=claunches[counter],
-            controlnet_path_device_ms_per_call=cprofiled.get(group, (None,))[0], cases=cs,
+            controlnet_path_device_ms_per_call=cprofiled.get(group, (None,))[0],
+            sdxl_path_launches=xlaunches[counter],
+            sdxl_path_device_ms_per_call=xprofiled.get(group, (None,))[0],
+            ensemble_launches=({part: n[path_kernels.index(counter)]
+                                for part, n in ensemble.items()}
+                               if counter in path_kernels else None),
+            cases=cs,
         ))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,11 @@
 """Prompt + color-context encoding → typed PwW conditioning.
 
 Port of the plain case of :func:`pww_tpu.conditioning.encode.
-encode_text_color_inputs` (no long prompts, prompt weighting, CLIP skip or
-second tokenizer): tokenize, parse the color context, rasterize the bias
-pyramid on the device and CLIP-encode, with CFG batched as
-``[uncond, cond]``.
+encode_text_color_inputs` (no long prompts, prompt weighting or CLIP skip):
+tokenize (with SDXL's second tokenizer too), parse the color context,
+rasterize the bias pyramid on the device and CLIP-encode, with CFG batched
+as ``[uncond, cond]``. The PwW token match uses the first tokenizer's ids,
+as the reference does.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ class EncodedInputs:
     regions: List[Region]
     width: int
     height: int
+    pooled: Optional[torch.Tensor] = None  # (2, D_pool): SDXL's pooled text
 
 
 def _padded_ids(tokenizer, text: str) -> List[int]:
@@ -51,11 +53,17 @@ def encode_text_color_inputs(
     negative_prompt: str = "",
     weight_function: Optional[AnyWeightFunction] = None,
     device="cpu",
+    tokenizer_2=None,
+    zero_empty_negative: bool = False,
 ) -> EncodedInputs:
     """Host prologue + device rasterization + CLIP encode.
 
     ``encode_text`` maps (B, 77) int64 ids on ``device`` to (B, 77, D)
-    hidden states.
+    hidden states, or to ``(text_states, pooled)`` for SDXL; with
+    ``tokenizer_2`` it takes the second tokenizer's ids as well.
+    ``zero_empty_negative`` (SDXL's ``force_zeros_for_empty_prompt``): an
+    empty negative prompt gives all-zero uncond text states and pooled
+    vector (``pww_tpu/conditioning/encode.py:262-267``).
     """
     prompt_ids = _padded_ids(tokenizer, prompt)
     uncond_ids = _padded_ids(tokenizer, negative_prompt)
@@ -80,6 +88,17 @@ def encode_text_color_inputs(
         return torch.stack([torch.zeros_like(x), x])
 
     ids = torch.tensor([uncond_ids, prompt_ids], dtype=torch.int64, device=device)
+    if tokenizer_2 is None:
+        out = encode_text(ids)
+    else:
+        ids2 = torch.tensor([_padded_ids(tokenizer_2, negative_prompt),
+                             _padded_ids(tokenizer_2, prompt)], dtype=torch.int64, device=device)
+        out = encode_text(ids, ids2)
+    text_states, pooled = out if isinstance(out, tuple) else (out, None)
+    if zero_empty_negative and negative_prompt == "" and pooled is not None:
+        text_states, pooled = text_states.clone(), pooled.clone()
+        text_states[0] = 0.0
+        pooled[0] = 0.0
     pww = PwwState(
         weights={k: cfg_pair(v) for k, v in pyramid.items()},
         weight_orig=cfg_pair(orig),
@@ -87,9 +106,10 @@ def encode_text_color_inputs(
         weight_fn=as_weight_function(weight_function),
     )
     return EncodedInputs(
-        text_states=encode_text(ids),
+        text_states=text_states,
         pww=pww,
         regions=regions,
         width=width,
         height=height,
+        pooled=pooled,
     )

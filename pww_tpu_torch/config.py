@@ -1,7 +1,9 @@
 """Frozen configuration dataclasses for the PyTorch port.
 
-Mirrors :mod:`pww_tpu.config` for SD-1.x (txt2img, img2img, inpaint) and
-SD-2.x (head dim 64, OpenCLIP-H text tower, v-prediction). The knobs that only shaped TPU code (conv lowering, head-dim lane
+Mirrors :mod:`pww_tpu.config` for SD-1.x (txt2img, img2img, inpaint),
+SD-2.x (head dim 64, OpenCLIP-H text tower, v-prediction) and SDXL base and
+refiner (dual or single projected text tower, transformer depth per stage,
+``text_time`` micro-conditioning). The knobs that only shaped TPU code (conv lowering, head-dim lane
 padding, cross-attention grid-order variants, Mosaic block sizes) are not
 carried over; the kernel dispatch thresholds and the norm-kernel switches
 are.
@@ -24,10 +26,29 @@ class CLIPTextConfig:
     max_position_embeddings: int = 77
     layer_norm_eps: float = 1e-5
     hidden_act: str = "quick_gelu"  # SD 1.x; "gelu" for OpenCLIP towers
+    # width of the bias-free text_projection head (SDXL's pooled
+    # conditioning); None = no head
+    projection_dim: Optional[int] = None
+    # the pooled vector's position is the first eos_token_id; None (or the
+    # legacy 2 of SD config files) takes the largest id instead
+    eos_token_id: Optional[int] = None
 
     @staticmethod
     def sd15() -> "CLIPTextConfig":
         return CLIPTextConfig()
+
+    @staticmethod
+    def sdxl_l() -> "CLIPTextConfig":
+        """SDXL's text_encoder: CLIP ViT-L/14 (penultimate hidden state, no
+        projection head)."""
+        return CLIPTextConfig()
+
+    @staticmethod
+    def sdxl_bigg() -> "CLIPTextConfig":
+        """SDXL's text_encoder_2: the OpenCLIP ViT-bigG/14 text tower."""
+        return CLIPTextConfig(hidden_size=1280, intermediate_size=5120, num_layers=32,
+                              num_heads=20, hidden_act="gelu", projection_dim=1280,
+                              eos_token_id=49407)
 
     @staticmethod
     def sd21() -> "CLIPTextConfig":
@@ -61,6 +82,14 @@ class UNetConfig:
     norm_num_groups: int = 32
     time_embed_mult: int = 4
     down_block_has_attn: Tuple[bool, ...] = (True, True, True, False)
+    # transformer blocks per attention site, per down block (SDXL: (0, 2,
+    # 10)); None = 1 everywhere
+    transformer_depth: Optional[Tuple[int, ...]] = None
+    # SDXL micro-conditioning: "text_time" adds an MLP of [pooled text ‖
+    # sinusoidal(time_ids)] to the timestep embedding
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: Optional[int] = None
     # Kernel dispatch (pww_tpu/models/unet.py:177-211): self-attention with
     # L >= flash_min_seq runs the flash kernel; PwW cross-attention with
     # Lq >= fused_cross_min_seq runs the reduce + fused cross-attention pair.
@@ -76,6 +105,13 @@ class UNetConfig:
     @property
     def up_block_has_attn(self) -> Tuple[bool, ...]:
         return tuple(reversed(self.down_block_has_attn))
+
+    def depth_for(self, block_index: int) -> int:
+        """Transformer depth of down block ``block_index`` (the mid block
+        takes the last block's, up block ``i`` the mirrored index's)."""
+        if self.transformer_depth is None:
+            return 1
+        return self.transformer_depth[block_index]
 
     def heads_for(self, channels: int) -> Tuple[int, int]:
         """(num_heads, head_dim) at a resolution."""
@@ -95,6 +131,22 @@ class UNetConfig:
             cross_attention_dim=1024,
             sample_size=96 if v_prediction else 64,
             prediction_type="v_prediction" if v_prediction else "epsilon",
+        )
+
+    @staticmethod
+    def sdxl() -> "UNetConfig":
+        """SDXL-base: 3 stages, transformer depth (0, 2, 10) with no
+        attention in stage 0, 2048-dim dual-CLIP context, text_time
+        micro-conditioning (1280 + 6·256 = 2816)."""
+        return UNetConfig(
+            block_out_channels=(320, 640, 1280),
+            attention_head_dim=64,
+            cross_attention_dim=2048,
+            sample_size=128,
+            down_block_has_attn=(False, True, True),
+            transformer_depth=(0, 2, 10),
+            addition_embed_type="text_time",
+            projection_class_embeddings_input_dim=2816,
         )
 
     @staticmethod
@@ -168,12 +220,46 @@ class SchedulerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SDModelConfig:
-    """A model family bundle: SD-1.x, SD-1.x inpainting, SD-2.x."""
+    """A model family bundle: SD-1.x, SD-1.x inpainting, SD-2.x, SDXL base
+    and refiner."""
 
     clip: CLIPTextConfig = dataclasses.field(default_factory=CLIPTextConfig.sd15)
     unet: UNetConfig = dataclasses.field(default_factory=UNetConfig.sd15)
     vae: VAEConfig = dataclasses.field(default_factory=VAEConfig.sd15)
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
+    # SDXL-base's second text tower; None for SD-1.x/2.x and the refiner
+    clip2: Optional[CLIPTextConfig] = None
+    # SDXL: an empty negative prompt gives all-zero uncond text states and
+    # pooled vector instead of encoding "" (diffusers'
+    # force_zeros_for_empty_prompt, the JAX package's default for every
+    # text_time model)
+    force_zeros_for_empty_prompt: bool = True
+    # SDXL-refiner: one projected tower (the bigG, in the ``clip`` slot) and
+    # 5 time_ids ending in the aesthetic score
+    xl_refiner: bool = False
+
+    @property
+    def is_xl(self) -> bool:
+        return self.clip2 is not None
+
+    @property
+    def needs_pooled(self) -> bool:
+        """A pooled text vector and time_ids are UNet inputs."""
+        return self.unet.addition_embed_type == "text_time"
+
+    @property
+    def pooled_dim(self) -> int:
+        src = self.clip2 if self.clip2 is not None else self.clip
+        if src.projection_dim is None:
+            raise ValueError("text_time conditioning needs projection_dim")
+        return src.projection_dim
+
+    @property
+    def num_time_ids(self) -> int:
+        """6 for the base (size, crop, target size), 5 for the refiner
+        (size, crop, aesthetic score)."""
+        return ((self.unet.projection_class_embeddings_input_dim - self.pooled_dim)
+                // self.unet.addition_time_embed_dim)
 
     @staticmethod
     def sd15() -> "SDModelConfig":
@@ -186,6 +272,89 @@ class SDModelConfig:
     @staticmethod
     def sd21(v_prediction: bool = True) -> "SDModelConfig":
         return SDModelConfig(clip=CLIPTextConfig.sd21(), unet=UNetConfig.sd21(v_prediction))
+
+    @staticmethod
+    def sdxl() -> "SDModelConfig":
+        """SDXL-base-1.0: ViT-L and bigG penultimate states concatenated to
+        a 2048-dim context, the bigG's pooled vector, VAE scaling 0.13025."""
+        return SDModelConfig(clip=CLIPTextConfig.sdxl_l(), clip2=CLIPTextConfig.sdxl_bigg(),
+                             unet=UNetConfig.sdxl(), vae=VAEConfig(scaling_factor=0.13025))
+
+    @staticmethod
+    def sdxl_refiner() -> "SDModelConfig":
+        """SDXL-refiner-1.0: the bigG tower alone (1280-dim context), 4
+        stages (384, 768, 1536, 1536) with depth-4 attention in the middle
+        two and the mid block, aesthetic-score micro-conditioning (1280 +
+        5·256 = 2560)."""
+        return SDModelConfig(
+            clip=CLIPTextConfig.sdxl_bigg(),
+            unet=UNetConfig(
+                block_out_channels=(384, 768, 1536, 1536),
+                attention_head_dim=64,
+                cross_attention_dim=1280,
+                sample_size=128,
+                down_block_has_attn=(False, True, True, False),
+                transformer_depth=(4, 4, 4, 4),
+                addition_embed_type="text_time",
+                projection_class_embeddings_input_dim=2560,
+            ),
+            vae=VAEConfig(scaling_factor=0.13025),
+            xl_refiner=True,
+        )
+
+    @staticmethod
+    def tiny_xl() -> "SDModelConfig":
+        """Tiny SDXL-shaped config: two towers, concatenated context,
+        text_time micro-conditioning, depth-2 transformers, no attention in
+        block 0."""
+        clip = CLIPTextConfig.tiny()
+        clip2 = CLIPTextConfig(vocab_size=1000, hidden_size=64, intermediate_size=128,
+                               num_layers=2, num_heads=4, hidden_act="gelu",
+                               projection_dim=64, eos_token_id=1)  # the toy tokenizer's eos
+        return SDModelConfig(
+            clip=clip,
+            clip2=clip2,
+            unet=UNetConfig(
+                block_out_channels=(32, 64),
+                layers_per_block=1,
+                num_attention_heads=4,
+                cross_attention_dim=clip.hidden_size + clip2.hidden_size,
+                norm_num_groups=8,
+                down_block_has_attn=(False, True),
+                transformer_depth=(0, 2),
+                addition_embed_type="text_time",
+                addition_time_embed_dim=8,
+                projection_class_embeddings_input_dim=64 + 6 * 8,
+                sample_size=16,
+            ),
+            vae=VAEConfig.tiny(),
+        )
+
+    @staticmethod
+    def tiny_xl_refiner() -> "SDModelConfig":
+        """Tiny refiner-shaped config: one projected tower, 5 time_ids,
+        attention only in the inner block."""
+        clip = CLIPTextConfig(vocab_size=1000, hidden_size=48, intermediate_size=96,
+                              num_layers=2, num_heads=4, hidden_act="gelu",
+                              projection_dim=48, eos_token_id=1)
+        return SDModelConfig(
+            clip=clip,
+            unet=UNetConfig(
+                block_out_channels=(32, 64),
+                layers_per_block=1,
+                num_attention_heads=4,
+                cross_attention_dim=clip.hidden_size,
+                norm_num_groups=8,
+                down_block_has_attn=(False, True),
+                transformer_depth=(0, 2),
+                addition_embed_type="text_time",
+                addition_time_embed_dim=8,
+                projection_class_embeddings_input_dim=48 + 5 * 8,
+                sample_size=16,
+            ),
+            vae=VAEConfig.tiny(),
+            xl_refiner=True,
+        )
 
     @staticmethod
     def tiny(in_channels: int = 4) -> "SDModelConfig":

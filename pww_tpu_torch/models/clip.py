@@ -1,10 +1,13 @@
-"""CLIP text encoder (SD 1.x text conditioning) as a torch ``nn.Module``.
+"""CLIP text encoder (SD text conditioning) as a torch ``nn.Module``.
 
-Port of :mod:`pww_tpu.models.clip` (final hidden state only). Parameter
+Port of :mod:`pww_tpu.models.clip`: the final hidden state (SD-1.x/2.x), or
+SDXL's penultimate hidden state with the projected pooled vector. Parameter
 names are transformers' ``CLIPTextModel`` names
-(``text_model.encoder.layers.0.self_attn.q_proj.weight``, …). Pre-LN
-transformer with causal self-attention and a quick-GELU MLP; LayerNorms
-compute in f32 and cast back to the compute dtype.
+(``text_model.encoder.layers.0.self_attn.q_proj.weight``, …), and
+``CLIPTextModelWithProjection``'s top-level ``text_projection.weight`` for a
+tower with ``projection_dim``. Pre-LN transformer with causal
+self-attention and a quick-GELU (or GELU) MLP; LayerNorms compute in f32
+and cast back to the compute dtype.
 """
 from __future__ import annotations
 
@@ -92,16 +95,42 @@ class CLIPTextTransformer(nn.Module):
 
 
 class CLIPTextModel(nn.Module):
-    """(B, L) int64 ids → (B, L, hidden_size) last hidden state."""
+    """(B, L) int64 ids → (B, L, hidden_size) last hidden state.
+
+    ``output="penultimate"`` returns the hidden state entering the last
+    layer (transformers' ``hidden_states[-2]``, no final LayerNorm), and
+    ``"penultimate_and_pooled"`` that and ``text_projection`` of the final
+    state at the EOS position: the first ``eos_token_id``, or the largest id
+    where ``eos_token_id`` is None or the legacy 2 of SD config files, which
+    never occurs in a prompt (``pww_tpu/models/clip.py:139-157``)."""
 
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.config = cfg
         self.text_model = CLIPTextTransformer(cfg)
+        if cfg.projection_dim is not None:
+            self.text_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, output: str = "final"):
+        if output not in ("final", "penultimate", "penultimate_and_pooled"):
+            raise ValueError(f"unknown output mode {output!r}")
         tm = self.text_model
         x = tm.embeddings(input_ids)
-        for layer in tm.encoder.layers:
+        layers = tm.encoder.layers
+        for layer in layers[:-1]:
             x = layer(x)
-        return layer_norm_f32(tm.final_layer_norm, x)
+        if output == "penultimate":
+            return x
+        penultimate, x = x, layers[-1](x)
+        final = layer_norm_f32(tm.final_layer_norm, x)
+        if output == "final":
+            return final
+        cfg = self.config
+        if cfg.projection_dim is None:
+            raise ValueError("pooled output requires CLIPTextConfig.projection_dim")
+        if cfg.eos_token_id is not None and cfg.eos_token_id != 2:
+            eos = torch.argmax((input_ids == cfg.eos_token_id).int(), dim=-1)
+        else:
+            eos = torch.argmax(input_ids, dim=-1)
+        pooled = final[torch.arange(final.shape[0], device=final.device), eos]
+        return penultimate, self.text_projection(pooled)

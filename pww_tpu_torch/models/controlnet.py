@@ -72,7 +72,7 @@ class ControlNetModel(nn.Module):
         self.controlnet_cond_embedding = ControlNetConditioningEmbedding(chs[0])
         self.down_blocks = nn.ModuleList(
             DownBlock(chs[max(i - 1, 0)], chs[i], temb_dim, cfg,
-                      cfg.down_block_has_attn[i], i == n - 1)
+                      cfg.down_block_has_attn[i], i == n - 1, cfg.depth_for(i))
             for i in range(n)
         )
         self.mid_block = UNetMidBlock2DCrossAttn(chs[-1], temb_dim, cfg)
@@ -87,7 +87,7 @@ class ControlNetModel(nn.Module):
         """``sample`` (B, C, h, w) latents, ``hint`` (B, 3, 8h, 8w) in [0, 1]."""
         if added_cond is not None:
             raise NotImplementedError("the SDXL (text_time) ControlNet is not ported to "
-                                      "pww_tpu_torch yet (ROADMAP A.16)")
+                                      "pww_tpu_torch yet (ROADMAP A.16a)")
         dtype = self.conv_in.weight.dtype
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(sample.shape[0])

@@ -1,10 +1,13 @@
-"""SD-1.x / SD-2.x UNet2DCondition with first-class paint-with-words bias threading.
+"""SD UNet2DCondition with first-class paint-with-words bias threading.
 
-Port of :mod:`pww_tpu.models.unet` for SD-1.x and SD-2.x, as a torch ``nn.Module``
-with diffusers' ``UNet2DConditionModel`` parameter names, NCHW inside the
-conv stacks. GroupNorm and LayerNorm compute in f32 and cast to the
-compute dtype; GroupNorm epsilon is 1e-5 in the ResNets and 1e-6 in
-Transformer2D; GEGLU uses the exact f32 GELU. With
+Port of :mod:`pww_tpu.models.unet` for SD-1.x, SD-2.x and SDXL base and
+refiner, as a torch ``nn.Module`` with diffusers' ``UNet2DConditionModel``
+parameter names, NCHW inside the conv stacks. SDXL adds a transformer depth
+per stage (``UNetConfig.depth_for``) and the ``text_time`` ``add_embedding``
+of the pooled text and the micro-conditioning ``time_ids``. GroupNorm and
+LayerNorm compute in f32 and cast to the compute dtype; GroupNorm epsilon
+is 1e-5 in the ResNets and 1e-6 in Transformer2D; GEGLU uses the exact f32
+GELU. With
 ``UNetConfig.fused_group_norm`` every GroupNorm site runs kernel K4 (norm2
 takes the time-embedding projection as its pre-add), and with
 ``fused_layer_norm`` every transformer LayerNorm runs K5.
@@ -158,15 +161,17 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2DModel(nn.Module):
-    """GroupNorm → 1x1 proj → transformer block over flattened space → 1x1 proj."""
+    """GroupNorm → 1x1 proj → ``depth`` transformer blocks over flattened
+    space → 1x1 proj."""
 
-    def __init__(self, channels: int, ctx_dim: int, heads: int, cfg: UNetConfig):
+    def __init__(self, channels: int, ctx_dim: int, heads: int, cfg: UNetConfig,
+                 depth: int = 1):
         super().__init__()
         self.fused_norm = cfg.fused_group_norm
         self.norm = nn.GroupNorm(cfg.norm_num_groups, channels, eps=1e-6)
         self.proj_in = nn.Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(channels, ctx_dim, heads, cfg)]
+            BasicTransformerBlock(channels, ctx_dim, heads, cfg) for _ in range(depth)
         )
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
@@ -199,9 +204,10 @@ class Upsample2D(nn.Module):
 
 
 class DownBlock(nn.Module):
-    """CrossAttnDownBlock2D (with attentions) or DownBlock2D."""
+    """CrossAttnDownBlock2D (with attentions, ``depth`` transformer blocks
+    each) or DownBlock2D."""
 
-    def __init__(self, c_in, c_out, temb_dim, cfg: UNetConfig, has_attn, last):
+    def __init__(self, c_in, c_out, temb_dim, cfg: UNetConfig, has_attn, last, depth=1):
         super().__init__()
         nh = cfg.heads_for(c_out)[0]
         self.resnets = nn.ModuleList(
@@ -210,7 +216,7 @@ class DownBlock(nn.Module):
             for i in range(cfg.layers_per_block)
         )
         self.attentions = nn.ModuleList(
-            Transformer2DModel(c_out, cfg.cross_attention_dim, nh, cfg)
+            Transformer2DModel(c_out, cfg.cross_attention_dim, nh, cfg, depth)
             for _ in range(cfg.layers_per_block)
         ) if has_attn else None
         self.downsamplers = None if last else nn.ModuleList([Downsample2D(c_out)])
@@ -238,7 +244,7 @@ class UpBlock(nn.Module):
     """CrossAttnUpBlock2D (with attentions) or UpBlock2D."""
 
     def __init__(self, c_prev, c_out, skip_chs, temb_dim, cfg: UNetConfig,
-                 has_attn, last):
+                 has_attn, last, depth=1):
         super().__init__()
         nh = cfg.heads_for(c_out)[0]
         self.resnets = nn.ModuleList(
@@ -247,7 +253,7 @@ class UpBlock(nn.Module):
             for i in range(cfg.layers_per_block + 1)
         )
         self.attentions = nn.ModuleList(
-            Transformer2DModel(c_out, cfg.cross_attention_dim, nh, cfg)
+            Transformer2DModel(c_out, cfg.cross_attention_dim, nh, cfg, depth)
             for _ in range(cfg.layers_per_block + 1)
         ) if has_attn else None
         self.upsamplers = None if last else nn.ModuleList([Upsample2D(c_out)])
@@ -270,7 +276,8 @@ class UNetMidBlock2DCrossAttn(nn.Module):
              for _ in range(2)]
         )
         self.attentions = nn.ModuleList(
-            [Transformer2DModel(ch, cfg.cross_attention_dim, cfg.heads_for(ch)[0], cfg)]
+            [Transformer2DModel(ch, cfg.cross_attention_dim, cfg.heads_for(ch)[0], cfg,
+                                cfg.depth_for(len(cfg.block_out_channels) - 1))]
         )
 
     def forward(self, x, temb, ctx, pww):
@@ -290,7 +297,7 @@ def skip_channels(cfg: UNetConfig) -> List[int]:
 
 
 class UNet2DConditionModel(nn.Module):
-    """SD-1.x UNet; ``pww`` carries the paint-with-words bias pyramid."""
+    """SD UNet; ``pww`` carries the paint-with-words bias pyramid."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -300,9 +307,15 @@ class UNet2DConditionModel(nn.Module):
         temb_dim = chs[0] * cfg.time_embed_mult
         self.conv_in = nn.Conv2d(cfg.in_channels, chs[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(chs[0], temb_dim)
+        if cfg.addition_embed_type == "text_time":
+            self.add_embedding = TimestepEmbedding(
+                cfg.projection_class_embeddings_input_dim, temb_dim)
+        elif cfg.addition_embed_type is not None:
+            raise ValueError(f"addition_embed_type {cfg.addition_embed_type!r}: the UNet "
+                             "takes text_time (SDXL) only")
         self.down_blocks = nn.ModuleList(
             DownBlock(chs[max(i - 1, 0)], chs[i], temb_dim, cfg,
-                      cfg.down_block_has_attn[i], i == n - 1)
+                      cfg.down_block_has_attn[i], i == n - 1, cfg.depth_for(i))
             for i in range(n)
         )
         self.mid_block = UNetMidBlock2DCrossAttn(chs[-1], temb_dim, cfg)
@@ -312,7 +325,7 @@ class UNet2DConditionModel(nn.Module):
         for i, ch in enumerate(rev):
             pops = [skip_chs.pop() for _ in range(cfg.layers_per_block + 1)]
             ups.append(UpBlock(rev[max(i - 1, 0)], ch, pops, temb_dim, cfg,
-                               cfg.up_block_has_attn[i], i == n - 1))
+                               cfg.up_block_has_attn[i], i == n - 1, cfg.depth_for(n - 1 - i)))
         self.up_blocks = nn.ModuleList(ups)
         self.conv_norm_out = nn.GroupNorm(cfg.norm_num_groups, chs[0], eps=1e-5)
         self.conv_out = nn.Conv2d(chs[0], cfg.out_channels, 3, padding=1)
@@ -323,6 +336,7 @@ class UNet2DConditionModel(nn.Module):
                 down_block_residuals: Optional[Sequence[torch.Tensor]] = None,
                 mid_block_residual: Optional[torch.Tensor] = None,
                 down_intrablock_residuals: Optional[Sequence[torch.Tensor]] = None,
+                added_cond: Optional[dict] = None,
                 ) -> torch.Tensor:
         """(B, C_in, h, w) latents → (B, C_out, h, w) in the compute dtype.
 
@@ -333,12 +347,28 @@ class UNet2DConditionModel(nn.Module):
         (``pww_tpu/models/unet.py:424-432, 585-600``): on an attention
         block after its last transformer, inside its skip; on an
         attention-less one after the whole block, outside every skip.
+
+        ``added_cond`` = {"text_embeds": (B, pooled), "time_ids": (B, 5 or
+        6)}, both f32, is SDXL's micro-conditioning
+        (``pww_tpu/models/unet.py:538-553``): the time ids' sinusoidal
+        embeddings after the pooled text, cast to the compute dtype and
+        through ``add_embedding``, join the timestep embedding.
         """
+        cfg = self.config
         dtype = self.conv_in.weight.dtype
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(sample.shape[0])
-        t_emb = timestep_embedding(timesteps, self.config.block_out_channels[0])
+        t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0])
         temb = self.time_embedding(t_emb.to(dtype))
+        if cfg.addition_embed_type == "text_time":
+            if added_cond is None:
+                raise ValueError('addition_embed_type="text_time" requires added_cond='
+                                 '{"text_embeds": (B, D_pool), "time_ids": (B, 6)}')
+            time_ids = added_cond["time_ids"]
+            add_t = timestep_embedding(time_ids.reshape(-1), cfg.addition_time_embed_dim)
+            add_in = torch.cat([added_cond["text_embeds"].float(),
+                                add_t.reshape(time_ids.shape[0], -1)], dim=-1)
+            temb = temb + self.add_embedding(add_in.to(dtype))
         ctx = encoder_hidden_states.to(dtype)
         x = self.conv_in(sample.to(dtype))
         skips = [x]

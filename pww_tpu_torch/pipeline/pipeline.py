@@ -25,6 +25,15 @@ residuals, scaled and summed in order, join the UNet's skips and mid
 block; a T2I-Adapter (:meth:`PwwPipeline.load_t2i_adapter`) turns its hint
 into features once per call, which the UNet adds in its down blocks.
 
+SDXL (``pww_tpu/pipeline/pipeline.py:571-597, 1828-1858``): the base
+encodes with two towers (penultimate states concatenated, the second
+tower's pooled vector), the refiner with one; the pooled vector and the
+micro-conditioning ``time_ids`` (original size, crop, target size or
+aesthetic score) go to the UNet on both CFG paths. diffusers' ensemble of
+expert denoisers: ``denoising_end`` stops a call at a fraction of the
+trajectory and returns its latents, and ``init_latents`` with
+``denoising_start`` resumes it, on the same or another model.
+
 :meth:`PwwPipeline.from_pretrained` loads a diffusers-layout directory
 (:mod:`~pww_tpu_torch.weights.loader`). Everything else the JAX pipeline's
 ``generate`` takes raises ``NotImplementedError`` here.
@@ -122,12 +131,14 @@ def side_generator(seed: int, stream: int) -> torch.Generator:
 class PwwPipeline:
     """Stable-Diffusion paint-with-words pipeline (txt2img, img2img, inpaint).
 
-    ``params``: {"unet", "clip", "vae"} state dicts with diffusers' key names
+    ``params``: {"unet", "clip", "vae"} (SDXL-base: and "clip2") state dicts
+    with diffusers' key names
     (:meth:`from_pretrained` reads them from a directory;
     :func:`~pww_tpu_torch.weights.bridge.params_from_jax`; or None for
     :func:`~pww_tpu_torch.weights.bridge.synthetic_params` drawn from
     ``seed``). ``device`` defaults to the card; on it the compute dtype is
-    bf16. Latents and scheduler state stay f32 either way.
+    bf16. Latents and scheduler state stay f32 either way. ``tokenizer_2``:
+    SDXL-base's second tokenizer (default: ``tokenizer``).
     """
 
     def __init__(
@@ -140,6 +151,7 @@ class PwwPipeline:
         dtype: torch.dtype = torch.bfloat16,
         seed: int = 0,
         profile: bool = False,  # record per-phase seconds in self.timings
+        tokenizer_2=None,
     ):
         self.config = config or SDModelConfig.sd15()
         self.device = resolve_device(device)
@@ -162,12 +174,14 @@ class PwwPipeline:
                 )
             tokenizer = toy_tokenizer(self.config.clip.vocab_size)
         self.tokenizer = tokenizer
+        self.tokenizer_2 = (tokenizer_2 or tokenizer) if self.config.is_xl else None
         if params is None:
             params = synthetic_params(self.config, seed, self.device, dtype)
         models = build_models(self.config)  # on the meta device
         for part, module in models.items():
             self._place(module, params[part])
         self.unet, self.clip, self.vae = models["unet"], models["clip"], models["vae"]
+        self.clip2 = models.get("clip2")
         self.controlnets: List[torch.nn.Module] = []  # more than one: multi-ControlNet
         self.t2i_adapter: Optional[torch.nn.Module] = None
         self.profile = profile
@@ -177,17 +191,18 @@ class PwwPipeline:
     def from_pretrained(cls, model_path: str, scheduler: Optional[str] = None,
                         **kwargs) -> "PwwPipeline":
         """A pipeline on a diffusers-layout directory (SD-1.x, SD-1.x
-        inpainting, SD-2.x; ``.safetensors`` or ``.bin`` weights and the
-        tokenizer's files). ``scheduler=None`` takes the ``scheduler_type``
-        a top-level ``config.json`` records, else "lms". The weights go to
-        the pipeline's device and dtype (``**kwargs``: the constructor's)."""
+        inpainting, SD-2.x, SDXL base and refiner; ``.safetensors`` or
+        ``.bin`` weights and the tokenizers' files). ``scheduler=None``
+        takes the ``scheduler_type`` a top-level ``config.json`` records,
+        else "lms". The weights go to the pipeline's device and dtype
+        (``**kwargs``: the constructor's)."""
         from ..weights.loader import load_pipeline_checkpoint, recorded_scheduler
 
-        config, params, tokenizer = load_pipeline_checkpoint(model_path)
+        config, params, tokenizer, tokenizer_2 = load_pipeline_checkpoint(model_path)
         if scheduler is None:
             scheduler = recorded_scheduler(model_path)
         return cls(config=config, params=params, tokenizer=tokenizer, scheduler=scheduler,
-                   **kwargs)
+                   tokenizer_2=tokenizer_2, **kwargs)
 
     def _place(self, module: torch.nn.Module, state) -> torch.nn.Module:
         """A module built on the meta device, given ``state`` on this
@@ -205,6 +220,9 @@ class PwwPipeline:
         zero, a net that adds nothing until trained. Returns the pipeline."""
         from ..models.controlnet import ZERO_CONV_PREFIXES
 
+        if self.config.needs_pooled:
+            raise NotImplementedError("the SDXL (text_time) ControlNet is not ported to "
+                                      "pww_tpu_torch yet (ROADMAP A.16a)")
         net = build_models(self.config, parts=("controlnet",))["controlnet"]
         if params is None and source is not None:
             from ..weights.loader import load_controlnet_checkpoint
@@ -266,16 +284,29 @@ class PwwPipeline:
         return down, mid
 
     # -- stages ----------------------------------------------------------------
-    def encode_text(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.clip(ids)
+    def encode_text(self, ids: torch.Tensor, ids2: Optional[torch.Tensor] = None):
+        """Text states (B, 77, D); for SDXL ``(text_states, pooled)``: the
+        refiner's one tower, or the base's two towers' penultimate states
+        concatenated and the second tower's pooled vector (``ids2``, the
+        second tokenizer's, default ``ids``)."""
+        if self.config.xl_refiner:
+            return self.clip(ids, output="penultimate_and_pooled")
+        if self.clip2 is None:
+            return self.clip(ids)
+        h2, pooled = self.clip2(ids if ids2 is None else ids2,
+                                output="penultimate_and_pooled")
+        return torch.cat([self.clip(ids, output="penultimate"), h2], dim=-1), pooled
 
     def encode_inputs(self, prompt: str, color_map: Optional[np.ndarray],
                       color_context: Dict, negative_prompt: str = "",
                       weight_function: Optional[AnyWeightFunction] = None,
                       ) -> EncodedInputs:
+        cfg = self.config
         return encode_text_color_inputs(
             self.encode_text, self.tokenizer, color_map, color_context,
             prompt, negative_prompt, weight_function, device=self.device,
+            tokenizer_2=self.tokenizer_2,
+            zero_empty_negative=cfg.needs_pooled and cfg.force_zeros_for_empty_prompt,
         )
 
     def encode_image(self, image: np.ndarray) -> torch.Tensor:
@@ -286,9 +317,10 @@ class PwwPipeline:
 
     def denoise(self, latents, text_states, pww: PwwState, schedule, guidance_scale,
                 t_start: int = 0, extra: Optional[torch.Tensor] = None, blend=None,
-                seed: int = 0, control=None, adapter=None):
-        """The scheduler's loop from visit ``t_start``; latents (N, C, h, w)
-        f32 in and out.
+                seed: int = 0, control=None, adapter=None, added_cond=None,
+                t_end: Optional[int] = None):
+        """The scheduler's loop from visit ``t_start`` to ``t_end`` (default:
+        the last); latents (N, C, h, w) f32 in and out.
 
         Cond and uncond go through one batched UNet call per visit; a custom
         weight function takes two, the uncond one without any bias (the
@@ -304,6 +336,8 @@ class PwwPipeline:
         on the batched path each net sees the hint twice and the batched PwW
         state, on the split path it runs per half, without any bias on the
         uncond one. ``adapter``: the T2I-Adapter's f32 features, N-batched.
+        ``added_cond``: SDXL's pooled text and time_ids, 2N rows [uncond*N,
+        cond*N], each CFG half taking its own on the split path.
         """
         n = latents.shape[0]
         lat = latents.float()
@@ -318,7 +352,7 @@ class PwwPipeline:
         if not split:  # both CFG halves in one call: hints and features twice
             control = [(net, torch.cat([h, h]), sc) for net, h, sc in control or ()]
             adapter = None if adapter is None else [torch.cat([a, a]) for a in adapter]
-        for i in range(t_start, schedule.num_steps):
+        for i in range(t_start, schedule.num_steps if t_end is None else t_end):
             if blend is not None:
                 mask, init, noise = blend
                 lat = schedule.add_noise(init, noise, i) * (1.0 - mask) + lat * mask
@@ -329,12 +363,14 @@ class PwwPipeline:
                 outs = []
                 for half, p in ((slice(0, n), None), (slice(n, 2 * n),
                                                       cond_pww.with_sigma(sigma))):
+                    ac = None if added_cond is None else {k: v[half]
+                                                          for k, v in added_cond.items()}
                     down = mid = None
                     if control:
                         down, mid = self._control_residuals(control, lat_c, t,
                                                             text_states[half], p)
                     outs.append(self.unet(lat_in, t, text_states[half], p, down, mid,
-                                          adapter).float())
+                                          adapter, ac).float())
                 out_u, out_c = outs
             else:
                 lat2 = torch.cat([lat_c, lat_c])
@@ -344,7 +380,7 @@ class PwwPipeline:
                     down, mid = self._control_residuals(control, lat2, t, text_states, pww_t)
                 if extra is not None:
                     lat2 = torch.cat([lat2, torch.cat([extra, extra])], dim=1)
-                eps2 = self.unet(lat2, t, text_states, pww_t, down, mid, adapter)
+                eps2 = self.unet(lat2, t, text_states, pww_t, down, mid, adapter, added_cond)
                 out_u, out_c = eps2[:n].float(), eps2[n:].float()
             eps_u = schedule.to_epsilon(out_u, lat, i, prediction_type)
             eps_c = schedule.to_epsilon(out_c, lat, i, prediction_type)
@@ -386,6 +422,9 @@ class PwwPipeline:
         weight_function: Optional[AnyWeightFunction] = None,
         negative_prompt: str = "",
         init_image=None,  # img2img when set
+        init_latents=None,  # img2img from scaled (N, h, w, C) latents, no VAE encode
+        denoising_end: Optional[float] = None,  # run the first fraction of the trajectory
+        denoising_start: Optional[float] = None,  # resume init_latents at this fraction
         strength: float = 0.5,
         mask_image=None,  # inpaint when set (with init_image)
         mask_blur: float = 0.0,  # gaussian sigma (px) feathering the mask
@@ -397,6 +436,11 @@ class PwwPipeline:
         controlnet_conditioning_scale=1.0,  # a float, or one per stacked ControlNet
         adapter_image=None,  # T2I-Adapter hint (load_t2i_adapter first)
         adapter_conditioning_scale: float = 1.0,
+        original_size: Optional[Tuple[int, int]] = None,  # SDXL micro-conditioning
+        crops_coords_top_left: Tuple[int, int] = (0, 0),
+        target_size: Optional[Tuple[int, int]] = None,
+        aesthetic_score: float = 6.0,  # SDXL-refiner micro-conditioning
+        negative_aesthetic_score: float = 2.5,
         num_samples: int = 1,
         noise_mode: str = "torch",
         vae_sample_mode: str = "sample",  # "mean" = the posterior mean
@@ -411,8 +455,21 @@ class PwwPipeline:
         ``control_image``: one hint per attached ControlNet (a single one is
         shared by all), RGB in [0, 255] at the processing resolution;
         ``adapter_image``: the T2I-Adapter's hint, RGB or, for a 1-channel
-        adapter, gray (an RGB one is averaged)."""
+        adapter, gray (an RGB one is averaged).
+
+        SDXL: ``original_size`` and ``target_size`` default to the render
+        size; the refiner's uncond half takes ``negative_aesthetic_score``.
+        ``denoising_end=f`` stops after the visits whose timestep is at or
+        above ``round(T - f·T)`` (T train timesteps), and ``init_latents``
+        with ``denoising_start=f`` starts at the first visit below it,
+        without re-noising (diffusers' ensemble of expert denoisers;
+        ``pww_tpu/pipeline/pipeline.py:1523-1611, 1931``). ``init_latents``
+        without ``denoising_start`` re-noises them at ``strength``."""
         if unported:
+            if "callback" in unported and (denoising_end is not None
+                                           or denoising_start is not None):
+                raise ValueError("denoising_end/denoising_start are not supported with "
+                                 "per-step callbacks")
             raise NotImplementedError(
                 f"generate({', '.join(sorted(unported))}=...) is not ported to "
                 "pww_tpu_torch yet"
@@ -455,9 +512,59 @@ class PwwPipeline:
             raise ValueError(f"masked_content={masked_content!r} applies to the legacy "
                              "masked-blend path (4-channel checkpoints); use 'original' "
                              "or 'fill' with a 9-channel inpainting UNet")
+        if init_latents is not None and (init_image is not None or inpaint):
+            raise ValueError("init_latents is exclusive with init_image/mask_image")
+        if denoising_start is not None and init_latents is None:
+            raise ValueError("denoising_start requires init_latents (the partially "
+                             "denoised trajectory to resume)")
+        for frac, name in ((denoising_end, "denoising_end"),
+                           (denoising_start, "denoising_start")):
+            if frac is not None and not 0.0 < frac < 1.0:
+                raise ValueError(f"{name} must be in (0, 1), got {frac}")
+        if legacy_inpaint and denoising_end is not None:
+            raise ValueError("denoising_end is not supported with legacy masked-blend "
+                             "inpainting: the final exact restore assumes the trajectory "
+                             "ran to completion, and a refiner continuation cannot carry "
+                             "the mask")
+        if inpaint and not legacy_inpaint and cfg.needs_pooled:
+            raise NotImplementedError("SDXL 9-channel inpainting is not ported to "
+                                      "pww_tpu_torch yet (ROADMAP A.16b)")
+        if color_map is not None:
+            height, width = enc.height, enc.width
+        elif init_latents is not None:
+            height, width = init_latents.shape[1] * sf, init_latents.shape[2] * sf
+        else:
+            height, width = _image_hw(init_image, default=(512, 512))
+
+        def steps_at_or_above(frac: float) -> int:
+            # the experts' cutoff on the train timesteps (pww_tpu/pipeline/
+            # pipeline.py:1582): visits with t >= round(T - frac·T) are the
+            # first expert's
+            n_train = cfg.scheduler.num_train_timesteps
+            cutoff = int(round(n_train - frac * n_train))
+            return int((schedule.timesteps.cpu() >= cutoff).sum())
+
         t_start, extra, blend = 0, None, None
-        if init_image is None:
-            height, width = (enc.height, enc.width) if color_map is not None else (512, 512)
+        if init_latents is not None:
+            init_lat = torch.as_tensor(init_latents).to(torch.float32)
+            want_shape = (n, height // sf, width // sf, cfg.vae.latent_channels)
+            if tuple(init_lat.shape) != want_shape:
+                raise ValueError(f"init_latents shape {tuple(init_lat.shape)} != {want_shape}")
+            init_lat = init_lat.permute(0, 3, 1, 2).contiguous().to(self.device)
+            if denoising_start is not None:
+                t_start = steps_at_or_above(denoising_start)
+            else:
+                t_start = t_start_from_strength(num_inference_steps, strength,
+                                                cfg.scheduler.steps_offset)
+            if t_start > 0 and schedule.kind in NO_STRENGTH_TRUNCATION:
+                raise ValueError(f"img2img strength truncation is not supported with the "
+                                 f"{schedule.kind} scheduler; use lms/euler/ddim")
+            if denoising_start is not None:  # the same trajectory: no re-noising
+                lat = init_lat
+            else:
+                noise = make_noise(seed, tuple(init_lat.shape), noise_mode, self.device)
+                lat = schedule.add_noise(init_lat, noise, t_start)
+        elif init_image is None:
             shape = (n, cfg.vae.latent_channels, height // sf, width // sf)
             lat = make_noise(seed, shape, noise_mode, self.device)
             lat = regional_seed_latents(lat, enc.regions, noise_mode)
@@ -531,7 +638,7 @@ class PwwPipeline:
             adapter = [f.float() * float(np.float32(adapter_conditioning_scale))
                        for f in self.t2i_adapter(hint.to(self.device))]
 
-        text_states, pww = enc.text_states, enc.pww
+        text_states, pww, pooled = enc.text_states, enc.pww, enc.pooled
         if n > 1:  # rows [uncond*N, cond*N]
             def tile(x):
                 return torch.cat([x[:1].expand(n, *x.shape[1:]),
@@ -542,10 +649,25 @@ class PwwPipeline:
                 pww, weights={k: tile(v) for k, v in pww.weights.items()},
                 weight_orig=tile(pww.weight_orig),
             )
+            pooled = None if pooled is None else tile(pooled)
+        added_cond = None
+        if cfg.needs_pooled:
+            o_h, o_w = original_size or (height, width)
+            c_t, c_l = crops_coords_top_left
+            if cfg.xl_refiner:  # the aesthetic score last, the negative one on uncond
+                rows = [[o_h, o_w, c_t, c_l, negative_aesthetic_score]] * n + \
+                       [[o_h, o_w, c_t, c_l, aesthetic_score]] * n
+            else:
+                t_h, t_w = target_size or (height, width)
+                rows = [[o_h, o_w, c_t, c_l, t_h, t_w]] * (2 * n)
+            added_cond = {"text_embeds": pooled.float(),
+                          "time_ids": torch.tensor(rows, dtype=torch.float32, device=self.device)}
+        t_end = None if denoising_end is None else steps_at_or_above(denoising_end)
         t0 = self._phase("encode", t0)
         lat = self.denoise(lat, text_states, pww, schedule, float(guidance_scale),
                            t_start=t_start, extra=extra, blend=blend, seed=seed,
-                           control=control, adapter=adapter)
+                           control=control, adapter=adapter, added_cond=added_cond,
+                           t_end=t_end)
         t0 = self._phase("denoise", t0)
         if return_latents:
             return lat.permute(0, 2, 3, 1).cpu().numpy()

@@ -11,7 +11,10 @@
   A ControlNet tree (part "controlnet") takes the inverse of
   ``controlnet_key`` (``pww_tpu/weights/loader.py:239-257``), and a
   T2I-Adapter tree (part "t2i_adapter") the inverse of
-  ``pww_tpu/models/t2i_adapter.py``'s ``t2i_adapter_key``.
+  ``pww_tpu/models/t2i_adapter.py``'s ``t2i_adapter_key``. SDXL's second
+  text tower is part "clip2"; a projected tower's ``text_projection``
+  sits at the top level, as in transformers' ``CLIPTextModelWithProjection``
+  (``pww_tpu/weights/loader.py:172-176``).
 * :func:`synthetic_params` fills every float tensor of the port's modules
   with N(0, 0.02), drawn on the device from a seeded ``torch.Generator``.
 """
@@ -74,6 +77,8 @@ def unet_key(path: Tuple[str, ...]) -> str:
 def clip_key(path: Tuple[str, ...]) -> str:
     if path and path[0] == "token_embedding":
         return "text_model.embeddings.token_embedding"
+    if path and path[0] == "text_projection":
+        return "text_projection"
     parts = []
     for m in path:
         mm = re.fullmatch(r"layers_(\d+)", m)
@@ -162,13 +167,14 @@ def _walk(tree, prefix=()):
             yield prefix + (k,), v
 
 
-_KEYS = {"unet": unet_key, "clip": clip_key, "vae": vae_key, "controlnet": controlnet_key,
-         "t2i_adapter": t2i_adapter_key}
+_KEYS = {"unet": unet_key, "clip": clip_key, "clip2": clip_key, "vae": vae_key,
+         "controlnet": controlnet_key, "t2i_adapter": t2i_adapter_key}
 
 
 def params_from_jax(tree) -> StateDicts:
     """{part: flax tree of numpy arrays} → {part: torch state dict}, for the
-    parts "unet", "clip", "vae", "controlnet" and "t2i_adapter" in ``tree``."""
+    parts "unet", "clip", "clip2", "vae", "controlnet" and "t2i_adapter" in
+    ``tree``."""
     out: StateDicts = {}
     for part, sub in tree.items():
         sd = out[part] = {}
@@ -176,7 +182,7 @@ def params_from_jax(tree) -> StateDicts:
             *mods, leaf = path
             mods = tuple(mods)
             arr = np.asarray(arr)
-            if part == "clip" and leaf == "position_embedding":
+            if part in ("clip", "clip2") and leaf == "position_embedding":
                 key, t = "text_model.embeddings.position_embedding.weight", arr
             else:
                 name, t = _leaf(leaf, arr)
@@ -192,11 +198,17 @@ def params_from_jax(tree) -> StateDicts:
 PARTS = ("unet", "clip", "vae")
 
 
-def build_models(config: SDModelConfig, device="meta", parts=PARTS):
-    """The port's modules for ``parts``, uninitialized on ``device``: "unet",
-    "clip", "vae", "controlnet" (for ``config.unet``) and "t2i_adapter" (a
-    full adapter for ``config.unet``'s blocks, 2 residual blocks per stage,
-    an RGB hint)."""
+def pipeline_parts(config: SDModelConfig) -> Tuple[str, ...]:
+    """The parts a pipeline of ``config`` holds: SDXL-base adds "clip2"."""
+    return PARTS + ("clip2",) if config.is_xl else PARTS
+
+
+def build_models(config: SDModelConfig, device="meta", parts=None):
+    """The port's modules for ``parts`` (default :func:`pipeline_parts`),
+    uninitialized on ``device``: "unet", "clip", "clip2" (SDXL-base's
+    second tower), "vae", "controlnet" (for ``config.unet``) and
+    "t2i_adapter" (a full adapter for ``config.unet``'s blocks, 2 residual
+    blocks per stage, an RGB hint)."""
     from ..models.clip import CLIPTextModel
     from ..models.controlnet import ControlNetModel
     from ..models.t2i_adapter import T2IAdapter
@@ -206,11 +218,13 @@ def build_models(config: SDModelConfig, device="meta", parts=PARTS):
     builders = {
         "unet": lambda: UNet2DConditionModel(config.unet),
         "clip": lambda: CLIPTextModel(config.clip),
+        "clip2": lambda: CLIPTextModel(config.clip2),
         "vae": lambda: AutoencoderKL(config.vae),
         "controlnet": lambda: ControlNetModel(config.unet),
         "t2i_adapter": lambda: T2IAdapter(config.unet.block_out_channels,
                                           downscale_factor=config.vae.scale_factor),
     }
+    parts = parts or pipeline_parts(config)
     with torch.device(device):
         return {part: builders[part]() for part in parts}
 
@@ -228,7 +242,7 @@ def synthetic_state(module: torch.nn.Module, generator: torch.Generator,
 
 
 def synthetic_params(config: SDModelConfig, seed: int = 0, device="cuda",
-                     dtype=torch.bfloat16, parts=PARTS) -> StateDicts:
+                     dtype=torch.bfloat16, parts=None) -> StateDicts:
     """N(0, 0.02) in every float tensor of each part, in state-dict order,
     drawn on ``device`` from ``torch.Generator(device).manual_seed(seed)``."""
     g = torch.Generator(device=device).manual_seed(int(seed))

@@ -1,8 +1,11 @@
 """Checkpoint loading: a diffusers-layout SD directory → the port's state dicts.
 
 Port of :mod:`pww_tpu.weights.loader` for the families the port has: SD-1.x
-(4-channel), SD-1.x inpainting (9-channel ``conv_in``) and SD-2.x (head dim
-64, OpenCLIP-H text tower, v-prediction). The port's modules carry
+(4-channel), SD-1.x inpainting (9-channel ``conv_in``), SD-2.x (head dim
+64, OpenCLIP-H text tower, v-prediction) and SDXL: the base's layout adds
+``text_encoder_2/`` (a ``CLIPTextModelWithProjection``) and ``tokenizer_2/``,
+the refiner's has those alone, without ``text_encoder/`` and ``tokenizer/``
+(``pww_tpu/weights/loader.py:381-470, 600-650``). The port's modules carry
 diffusers' and transformers' parameter names, so most keys load unchanged;
 the exceptions, which the JAX package handles in ``fill_params`` and
 ``vae_keys``:
@@ -19,7 +22,10 @@ ControlNet checkpoints (a diffusers ``ControlNetModel`` directory or one
 file) load through :func:`load_controlnet_checkpoint`, T2I-Adapter state
 dicts (bare or ``adapter.``-prefixed keys) through
 :func:`t2i_adapter_state_dict`; :func:`save_controlnet_checkpoint` writes
-the former.
+the former. The SDXL (``text_time``) ControlNet, SDXL 9-channel
+inpainting, single-file LDM checkpoints and the JAX package's
+``params.msgpack`` raise ``NotImplementedError`` naming their ROADMAP items
+(A.16a, A.16b, A.17).
 
 A parameter missing from the checkpoint raises ``KeyError`` naming the
 first few; any other key left over makes the pipeline's
@@ -86,24 +92,37 @@ def _read_json(path: str) -> Optional[dict]:
     return None
 
 
+def _clip_config(d: dict, default_act: str = "quick_gelu") -> CLIPTextConfig:
+    """A text tower's ``config.json``; the projection head only for a
+    ``CLIPTextModelWithProjection``."""
+    with_projection = d.get("architectures", [""])[0] == "CLIPTextModelWithProjection"
+    return CLIPTextConfig(
+        vocab_size=d.get("vocab_size", 49408),
+        hidden_size=d.get("hidden_size", 768),
+        intermediate_size=d.get("intermediate_size", 3072),
+        num_layers=d.get("num_hidden_layers", 12),
+        num_heads=d.get("num_attention_heads", 12),
+        max_position_embeddings=d.get("max_position_embeddings", 77),
+        hidden_act=d.get("hidden_act", default_act),
+        projection_dim=d.get("projection_dim") if with_projection else None,
+        eos_token_id=d.get("eos_token_id", 49407),
+    )
+
+
 def config_from_checkpoint(model_path: str) -> SDModelConfig:
-    """The model config from the directory's ``unet/``, ``text_encoder/`` and
-    ``vae/`` ``config.json`` files, with the JAX package's defaults for what
-    they leave out. Families the port lacks (SDXL, LCM) raise."""
+    """The model config from the directory's ``unet/``, ``text_encoder/``,
+    ``text_encoder_2/`` and ``vae/`` ``config.json`` files and
+    ``model_index.json``, with the JAX package's defaults for what they
+    leave out. A ``text_encoder_2/`` without ``text_encoder/`` is the
+    SDXL-refiner layout (``xl_refiner``, the bigG tower in the ``clip``
+    slot). LCM-distilled UNets raise."""
     unet_cfg = _read_json(os.path.join(model_path, "unet", "config.json")) or {}
-    clip_cfg = _read_json(os.path.join(model_path, "text_encoder", "config.json")) or {}
+    clip_cfg = _read_json(os.path.join(model_path, "text_encoder", "config.json"))
+    clip2_cfg = _read_json(os.path.join(model_path, "text_encoder_2", "config.json"))
     vae_cfg = _read_json(os.path.join(model_path, "vae", "config.json")) or {}
-    if os.path.isdir(os.path.join(model_path, "text_encoder_2")) or \
-            unet_cfg.get("addition_embed_type") is not None:
-        raise NotImplementedError(f"{model_path}: SDXL checkpoints are not ported to "
-                                  "pww_tpu_torch yet (ROADMAP A.16)")
     if unet_cfg.get("time_cond_proj_dim") is not None:
         raise NotImplementedError(f"{model_path}: LCM-distilled UNets are not ported to "
                                   "pww_tpu_torch yet (ROADMAP A.14)")
-    depth = unet_cfg.get("transformer_layers_per_block", 1)
-    if any(d != 1 for d in (depth if isinstance(depth, (list, tuple)) else [depth])):
-        raise NotImplementedError(f"{model_path}: transformer_layers_per_block {depth}; "
-                                  "the port's UNet has one transformer block per site")
 
     # diffusers' "attention_head_dim" holds per-block HEAD COUNTS: an int (8
     # for SD-1.x) or a list ([5, 10, 20, 20] for SD-2.x, where dh = 64)
@@ -113,6 +132,9 @@ def config_from_checkpoint(model_path: str) -> SDModelConfig:
         num_heads, head_dim = 8, blocks[0] // ahd[0]
     else:
         num_heads, head_dim = ahd, None
+    depth = unet_cfg.get("transformer_layers_per_block")
+    if isinstance(depth, int):
+        depth = (depth,) * len(blocks)
     unet = UNetConfig(
         in_channels=unet_cfg.get("in_channels", 4),
         out_channels=unet_cfg.get("out_channels", 4),
@@ -129,16 +151,18 @@ def config_from_checkpoint(model_path: str) -> SDModelConfig:
             for t in unet_cfg.get("down_block_types",
                                   ("CrossAttnDownBlock2D",) * 3 + ("DownBlock2D",))
         ),
+        transformer_depth=None if depth is None else tuple(depth),
+        addition_embed_type=unet_cfg.get("addition_embed_type"),
+        addition_time_embed_dim=unet_cfg.get("addition_time_embed_dim", 256),
+        projection_class_embeddings_input_dim=unet_cfg.get(
+            "projection_class_embeddings_input_dim"),
     )
-    clip = CLIPTextConfig(
-        vocab_size=clip_cfg.get("vocab_size", 49408),
-        hidden_size=clip_cfg.get("hidden_size", 768),
-        intermediate_size=clip_cfg.get("intermediate_size", 3072),
-        num_layers=clip_cfg.get("num_hidden_layers", 12),
-        num_heads=clip_cfg.get("num_attention_heads", 12),
-        max_position_embeddings=clip_cfg.get("max_position_embeddings", 77),
-        hidden_act=clip_cfg.get("hidden_act", "quick_gelu"),
-    )
+    xl_refiner = clip_cfg is None and clip2_cfg is not None
+    if xl_refiner:
+        clip, clip2 = _clip_config(clip2_cfg, "gelu"), None
+    else:
+        clip = _clip_config(clip_cfg or {})
+        clip2 = None if clip2_cfg is None else _clip_config(clip2_cfg, "gelu")
     vae = VAEConfig(
         latent_channels=vae_cfg.get("latent_channels", 4),
         block_out_channels=tuple(vae_cfg.get("block_out_channels", (128, 256, 512, 512))),
@@ -146,13 +170,17 @@ def config_from_checkpoint(model_path: str) -> SDModelConfig:
         norm_num_groups=vae_cfg.get("norm_num_groups", 32),
         scaling_factor=vae_cfg.get("scaling_factor", 0.18215),
     )
-    return SDModelConfig(clip=clip, unet=unet, vae=vae)
+    index = _read_json(os.path.join(model_path, "model_index.json")) or {}
+    return SDModelConfig(
+        clip=clip, unet=unet, vae=vae, clip2=clip2,
+        force_zeros_for_empty_prompt=index.get("force_zeros_for_empty_prompt", True),
+        xl_refiner=xl_refiner)
 
 
 def convert_state_dict(part: str, state: Dict[str, torch.Tensor],
                        expected: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """A checkpoint's state dict → the port's keys and layouts for module
-    ``part`` ("unet", "clip", "vae", "controlnet" or "t2i_adapter"), whose
+    ``part`` ("unet", "clip", "clip2", "vae", "controlnet" or "t2i_adapter"), whose
     state dict (on any device, the meta device too) is ``expected``."""
     out = {}
     for key, t in state.items():
@@ -175,11 +203,16 @@ def convert_state_dict(part: str, state: Dict[str, torch.Tensor],
 
 
 def load_pipeline_checkpoint(model_path: str):
-    """(config, {"unet", "clip", "vae"} state dicts, tokenizer) from a
-    diffusers-layout directory: ``unet/``, ``text_encoder/`` and ``vae/``
-    each with a ``config.json`` and one of :data:`WEIGHT_FILES`, and the
-    tokenizer's ``vocab.json`` / ``merges.txt`` in ``tokenizer/`` or at the
-    top."""
+    """(config, {"unet", "clip", "vae"} state dicts, tokenizer, tokenizer_2)
+    from a diffusers-layout directory: ``unet/``, ``text_encoder/`` and
+    ``vae/`` each with a ``config.json`` and one of :data:`WEIGHT_FILES`, and
+    the tokenizer's ``vocab.json`` / ``merges.txt`` in ``tokenizer/`` or at
+    the top. SDXL-base adds "clip2" from ``text_encoder_2/`` and
+    ``tokenizer_2`` from ``tokenizer_2/`` (the first tokenizer where that is
+    missing); the refiner's one tower and tokenizer come from
+    ``text_encoder_2/`` and ``tokenizer_2/``. A second tokenizer of its own
+    pads with 0, OpenCLIP's "!" (``pww_tpu/weights/loader.py:624-650``).
+    ``tokenizer_2`` is None for a model of one tower."""
     from ..tokenizer.clip_bpe import CLIPTokenizer
 
     if os.path.isfile(model_path):
@@ -190,11 +223,25 @@ def load_pipeline_checkpoint(model_path: str):
                                   "format is not ported to pww_tpu_torch (ROADMAP A.17)")
     config = config_from_checkpoint(model_path)
     params: StateDicts = {}
+    subdirs = {"unet": "unet", "clip": "text_encoder_2" if config.xl_refiner else "text_encoder",
+               "clip2": "text_encoder_2", "vae": "vae"}
     for part, module in build_models(config).items():  # meta device: shapes only
-        subdir = {"unet": "unet", "clip": "text_encoder", "vae": "vae"}[part]
-        state = read_state_dict(_find_weights_file(os.path.join(model_path, subdir)))
+        state = read_state_dict(_find_weights_file(os.path.join(model_path, subdirs[part])))
         params[part] = convert_state_dict(part, state, module.state_dict())
-    return config, params, CLIPTokenizer.from_dir(model_path)
+    t2dir = os.path.join(model_path, "tokenizer_2")
+    if config.xl_refiner and os.path.isdir(t2dir) and \
+            not os.path.isdir(os.path.join(model_path, "tokenizer")):
+        tokenizer = CLIPTokenizer.from_dir(t2dir)
+        tokenizer.pad_token_id = 0
+    else:
+        tokenizer = CLIPTokenizer.from_dir(model_path)
+    tokenizer_2 = None
+    if config.is_xl:
+        tokenizer_2 = tokenizer
+        if os.path.isdir(t2dir):
+            tokenizer_2 = CLIPTokenizer.from_dir(t2dir)
+            tokenizer_2.pad_token_id = 0
+    return config, params, tokenizer, tokenizer_2
 
 
 def load_controlnet_checkpoint(path: str, config: SDModelConfig) -> Dict[str, torch.Tensor]:
@@ -208,7 +255,7 @@ def load_controlnet_checkpoint(path: str, config: SDModelConfig) -> Dict[str, to
         cn_cfg = _read_json(os.path.join(path, "config.json")) or {}
         if cn_cfg.get("addition_embed_type") is not None:
             raise NotImplementedError(f"{path}: SDXL ControlNets are not ported to "
-                                      "pww_tpu_torch yet (ROADMAP A.16)")
+                                      "pww_tpu_torch yet (ROADMAP A.16a)")
         path = _find_weights_file(path)
     state = dict(read_state_dict(path))
     t = state.get(COND_EMBEDDING_OUT)
@@ -247,7 +294,7 @@ def recorded_scheduler(model_path: str) -> str:
 
 def _unet_json(u: UNetConfig, class_name: str) -> dict:
     """A UNet's or a ControlNet's ``config.json``, diffusers' field names."""
-    return {
+    out = {
         "_class_name": class_name,
         "in_channels": u.in_channels, "out_channels": u.out_channels,
         "sample_size": u.sample_size, "block_out_channels": list(u.block_out_channels),
@@ -262,6 +309,13 @@ def _unet_json(u: UNetConfig, class_name: str) -> dict:
         "up_block_types": ["CrossAttnUpBlock2D" if a else "UpBlock2D"
                            for a in u.up_block_has_attn],
     }
+    if u.transformer_depth is not None:
+        out["transformer_layers_per_block"] = list(u.transformer_depth)
+    if u.addition_embed_type is not None:
+        out.update(addition_embed_type=u.addition_embed_type,
+                   addition_time_embed_dim=u.addition_time_embed_dim,
+                   projection_class_embeddings_input_dim=u.projection_class_embeddings_input_dim)
+    return out
 
 
 def _check_format(weights_format: str) -> None:
@@ -283,32 +337,48 @@ def _write_part(d: str, cfg_json: dict, state: Dict[str, torch.Tensor], stem: st
         if (linear_projection and t.dim() == 4
                 and re.search(r"attentions\.\d+\.proj_(in|out)\.weight$", key)):
             t = t[:, :, 0, 0]
-        sd[key] = t.detach().to("cpu").contiguous()
-    if weights_format == "safetensors":
+        sd[key] = t.detach()
+    if weights_format == "safetensors":  # copies one tensor at a time to the host
         safetensors_io.save_file(sd, os.path.join(d, stem + ".safetensors"))
     else:
-        torch.save(sd, os.path.join(d, bin_name))
+        torch.save({k: t.to("cpu").contiguous() for k, t in sd.items()},
+                   os.path.join(d, bin_name))
 
 
-def save_diffusers_checkpoint(path: str, config: SDModelConfig, params: StateDicts,
-                              tokenizer=None, weights_format: str = "safetensors") -> None:
-    """Write ``params`` as a diffusers-layout directory that
-    :func:`load_pipeline_checkpoint` (and the JAX package's loader) reads:
-    the three ``config.json`` files with diffusers' field names, the weights
-    in their own types as ``.safetensors`` or ``.bin``, and the tokenizer's
-    files for a real-BPE ``tokenizer``. An SD-2.x config (a set
-    ``attention_head_dim``) stores ``proj_in`` and ``proj_out`` as Linear
-    weights, as diffusers' ``use_linear_projection`` does."""
-    from ..tokenizer.clip_bpe import save_tokenizer_assets
-
-    _check_format(weights_format)
-    c, v = config.clip, config.vae
-    clip_json = {
-        "architectures": ["CLIPTextModel"], "vocab_size": c.vocab_size,
+def _clip_json(c: CLIPTextConfig) -> dict:
+    """A text tower's ``config.json``, transformers' field names."""
+    out = {
+        "architectures": ["CLIPTextModel" if c.projection_dim is None
+                          else "CLIPTextModelWithProjection"],
+        "vocab_size": c.vocab_size,
         "hidden_size": c.hidden_size, "intermediate_size": c.intermediate_size,
         "num_hidden_layers": c.num_layers, "num_attention_heads": c.num_heads,
         "max_position_embeddings": c.max_position_embeddings, "hidden_act": c.hidden_act,
+        "eos_token_id": c.eos_token_id,
     }
+    if c.projection_dim is not None:
+        out["projection_dim"] = c.projection_dim
+    return out
+
+
+def save_diffusers_checkpoint(path: str, config: SDModelConfig, params: StateDicts,
+                              tokenizer=None, weights_format: str = "safetensors",
+                              tokenizer_2=None) -> None:
+    """Write ``params`` as a diffusers-layout directory that
+    :func:`load_pipeline_checkpoint` (and the JAX package's loader) reads:
+    the ``config.json`` files and ``model_index.json`` with diffusers' field
+    names, the weights in their own types as ``.safetensors`` or ``.bin``,
+    and the tokenizers' files for a real-BPE ``tokenizer`` (and SDXL-base's
+    ``tokenizer_2``, default ``tokenizer``). An SD-2.x or SDXL config (a set
+    ``attention_head_dim``) stores ``proj_in`` and ``proj_out`` as Linear
+    weights, as diffusers' ``use_linear_projection`` does. SDXL-base's
+    second tower goes to ``text_encoder_2/``, and so does the refiner's one
+    tower, with its tokenizer in ``tokenizer_2/``. Each file is written one
+    tensor at a time."""
+    from ..tokenizer.clip_bpe import save_tokenizer_assets
+
+    _check_format(weights_format)
+    v = config.vae
     vae_json = {
         "_class_name": "AutoencoderKL", "latent_channels": v.latent_channels,
         "block_out_channels": list(v.block_out_channels),
@@ -316,20 +386,35 @@ def save_diffusers_checkpoint(path: str, config: SDModelConfig, params: StateDic
         "scaling_factor": v.scaling_factor,
     }
     os.makedirs(path, exist_ok=True)
+    index = {"_class_name": "StableDiffusionPipeline",
+             "unet": ["diffusers", "UNet2DConditionModel"],
+             "text_encoder": ["transformers", "CLIPTextModel"],
+             "vae": ["diffusers", "AutoencoderKL"]}
+    towers = [("clip", "text_encoder", "tokenizer", tokenizer)]
+    if config.xl_refiner:
+        index = {"_class_name": "StableDiffusionXLImg2ImgPipeline",
+                 "unet": index["unet"], "vae": index["vae"],
+                 "text_encoder_2": ["transformers", "CLIPTextModelWithProjection"],
+                 "requires_aesthetics_score": True}
+        towers = [("clip", "text_encoder_2", "tokenizer_2", tokenizer)]
+    elif config.is_xl:
+        index.update(_class_name="StableDiffusionXLPipeline",
+                     text_encoder_2=["transformers", "CLIPTextModelWithProjection"])
+        towers.append(("clip2", "text_encoder_2", "tokenizer_2", tokenizer_2 or tokenizer))
+    if config.needs_pooled:
+        index["force_zeros_for_empty_prompt"] = config.force_zeros_for_empty_prompt
     with open(os.path.join(path, "model_index.json"), "w") as f:
-        json.dump({"_class_name": "StableDiffusionPipeline",
-                   "unet": ["diffusers", "UNet2DConditionModel"],
-                   "text_encoder": ["transformers", "CLIPTextModel"],
-                   "vae": ["diffusers", "AutoencoderKL"]}, f, indent=1)
+        json.dump(index, f, indent=1)
     _write_part(os.path.join(path, "unet"), _unet_json(config.unet, "UNet2DConditionModel"),
                 params["unet"], "diffusion_pytorch_model", "diffusion_pytorch_model.bin",
                 weights_format, linear_projection=config.unet.attention_head_dim is not None)
-    _write_part(os.path.join(path, "text_encoder"), clip_json, params["clip"], "model",
-                "pytorch_model.bin", weights_format)
+    for part, subdir, tok_dir, tok in towers:
+        _write_part(os.path.join(path, subdir), _clip_json(getattr(config, part)),
+                    params[part], "model", "pytorch_model.bin", weights_format)
+        if tok is not None:
+            save_tokenizer_assets(tok, os.path.join(path, tok_dir))
     _write_part(os.path.join(path, "vae"), vae_json, params["vae"], "diffusion_pytorch_model",
                 "diffusion_pytorch_model.bin", weights_format)
-    if tokenizer is not None:
-        save_tokenizer_assets(tokenizer, os.path.join(path, "tokenizer"))
 
 
 def save_controlnet_checkpoint(path: str, config: SDModelConfig, state: Dict[str, torch.Tensor],

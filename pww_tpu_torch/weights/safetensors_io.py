@@ -10,6 +10,7 @@ are read as uint16 and viewed as ``torch.bfloat16``.
 from __future__ import annotations
 
 import json
+import os
 import struct
 from typing import Dict, Mapping
 
@@ -27,29 +28,30 @@ _NAMES = {t: name for name, (_, t) in _DTYPES.items()}
 
 def load_file(path: str) -> Dict[str, torch.Tensor]:
     """Every tensor of a file, as CPU tensors of the stored type (the
-    header's ``__metadata__`` is skipped). The data is read in one pass; the
-    tensors are views of that buffer."""
+    header's ``__metadata__`` is skipped). Each tensor is read into a buffer
+    of its own, so that no copy of the whole file is held at once."""
+    out = {}
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
-        data = np.fromfile(f, dtype=np.uint8)
-    out = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        if info["dtype"] not in _DTYPES:
-            raise ValueError(f"{path}: tensor {name!r} has dtype {info['dtype']}; "
-                             f"this reader takes {sorted(_DTYPES)}")
-        np_type, torch_type = _DTYPES[info["dtype"]]
-        begin, end = info["data_offsets"]
-        shape = tuple(info["shape"])
-        if not 0 <= begin <= end <= data.size or \
-                end - begin != int(np.prod(shape)) * np.dtype(np_type).itemsize:
-            raise ValueError(f"{path}: tensor {name!r} has offsets {begin}..{end} that do "
-                             f"not fit its shape {shape} or the file's {data.size} bytes")
-        arr = data[begin:end].view(np_type).reshape(shape)
-        t = torch.from_numpy(arr)
-        out[name] = t.view(torch.bfloat16) if torch_type is torch.bfloat16 else t
+        size = os.fstat(f.fileno()).st_size - 8 - n
+        for name, info in header.items():
+            if name == "__metadata__":
+                continue
+            if info["dtype"] not in _DTYPES:
+                raise ValueError(f"{path}: tensor {name!r} has dtype {info['dtype']}; "
+                                 f"this reader takes {sorted(_DTYPES)}")
+            np_type, torch_type = _DTYPES[info["dtype"]]
+            begin, end = info["data_offsets"]
+            shape = tuple(info["shape"])
+            count = int(np.prod(shape))
+            if not 0 <= begin <= end <= size or \
+                    end - begin != count * np.dtype(np_type).itemsize:
+                raise ValueError(f"{path}: tensor {name!r} has offsets {begin}..{end} that do "
+                                 f"not fit its shape {shape} or the file's {size} bytes")
+            f.seek(8 + n + begin)
+            t = torch.from_numpy(np.fromfile(f, dtype=np_type, count=count).reshape(shape))
+            out[name] = t.view(torch.bfloat16) if torch_type is torch.bfloat16 else t
     return out
 
 

@@ -160,7 +160,8 @@ def test_loader_matches_the_jax_loader(dirs, family, weights_format):
     for sub in ("unet", "text_encoder", "vae"):
         assert loader._find_weights_file(os.path.join(path, sub)).endswith(weights_format)
     jcfg, jparams, jtok, _ = jax_loader.load_pipeline_checkpoint(path)
-    cfg, params, tok = loader.load_pipeline_checkpoint(path)
+    cfg, params, tok, tok2 = loader.load_pipeline_checkpoint(path)
+    assert tok2 is None
     assert_same_fields(cfg, jcfg)
     written = _configs(family)[1]
     if written.unet.attention_head_dim is not None:  # then the head count is unused;
@@ -195,7 +196,7 @@ def test_config_from_checkpoint_reads_sd21_fields(tmp_path):
 
 
 def test_missing_key_raises_and_position_ids_do_not(dirs, tmp_path):
-    cfg, params, _ = loader.load_pipeline_checkpoint(dirs[("sd1", "bin")])
+    cfg, params, _, _ = loader.load_pipeline_checkpoint(dirs[("sd1", "bin")])
     assert "text_model.embeddings.position_ids" not in params["clip"]
     expected = params["unet"]
     state = dict(expected)

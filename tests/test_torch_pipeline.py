@@ -108,16 +108,16 @@ def test_txt2img_bias_and_seed_change_the_result(pair):
 
 
 def test_unported_options_raise(pair):
-    """What the port does not have yet: latent-space img2img, per-step
-    callbacks, IP-Adapter, jax.random noise, the LCM scheduler and hub
-    downloads (img2img, inpaint and custom weight functions came with the
-    second slice, tests/test_torch_img2img_inpaint.py; the other schedulers
-    and local checkpoint directories are in tests/test_torch_schedulers.py
-    and tests/test_torch_loader.py; ControlNet and the T2I-Adapter in
-    tests/test_torch_controlnet.py and tests/test_torch_t2i_adapter.py)."""
+    """What the port does not have yet: per-step callbacks, IP-Adapter,
+    jax.random noise, the LCM scheduler and hub downloads (img2img, inpaint
+    and custom weight functions came with the second slice,
+    tests/test_torch_img2img_inpaint.py; the other schedulers and local
+    checkpoint directories are in tests/test_torch_schedulers.py and
+    tests/test_torch_loader.py; ControlNet and the T2I-Adapter in
+    tests/test_torch_controlnet.py and tests/test_torch_t2i_adapter.py;
+    latent-space img2img, ``init_latents`` with ``denoising_start``, in
+    tests/test_torch_sdxl.py)."""
     _, tp = pair
-    with pytest.raises(NotImplementedError):
-        tp.generate(init_latents=np.zeros((1, 16, 16, 4), np.float32), **KWARGS)
     with pytest.raises(NotImplementedError):
         tp.generate(callback=lambda i, t, lat: None, **KWARGS)
     with pytest.raises(NotImplementedError):

@@ -39,7 +39,7 @@ def random_jax_params(cfg, seed: int = 0, scale: float = 0.1):
     shell = JaxPipeline.__new__(JaxPipeline)
     shell.config = cfg
     shell.clip = CLIPTextEncoder(cfg.clip, dtype=jnp.float32)
-    shell.clip2 = None
+    shell.clip2 = CLIPTextEncoder(cfg.clip2, dtype=jnp.float32) if cfg.is_xl else None
     shell.unet = UNet2DCondition(cfg.unet, dtype=jnp.float32)
     shell.vae = AutoencoderKL(cfg.vae, dtype=jnp.float32)
     shapes = jax.eval_shape(lambda: shell.init_params(0))
