@@ -16,7 +16,8 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    in every mode, std also at |mean| ≫ std, each case called twice and
    required bit-identical, with its launch plan printed); then K3 at dh 64
    and 160 and ragged L, K1 in every mode and K2 at ragged Lq and at two and
-   four prompt chunks (Lk 154, 308), K1-K3 at SD-2.1 768-v's head-dim-64
+   four prompt chunks (Lk 154, 308), K1-K3 at the serving path's batch-8
+   shapes (CFG rows B 16, B·H 128), K1-K3 at SD-2.1 768-v's head-dim-64
    shapes (SD21_SHAPES); then K4 group_norm and K5 layer_norm at
    every site signature of the inpaint path (the tables K4_SITES and
    K5_SITES), with ``F.group_norm`` and ``F.layer_norm`` as the library
@@ -39,33 +40,49 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    kernels per wrapper call, which must be 1 for K1;
 7. img2img: one full-width ``paint_with_words`` call with an init image at
    strength 0.5 on the same pipeline (N/2 steps, counts checked);
-8. norm sites: a 1-step warm-up of phase 10's pipeline records every K4
+8. serve: on phase 5's pipeline with no per-phase syncs, a
+   ``Batcher(max_batch=8)`` takes 16 concurrent txt2img requests from 16
+   threads (distinct prompts, seeds and color maps on one 512² grid), N
+   LMS steps, CFG 7.5: two ``generate_batch`` calls (two groups of 8),
+   each with K1 = K2 = 15·N and K3 = 10·N, the second launched while the
+   first group's fetch is held back; 16 finite and pairwise distinct
+   images; the first and last request of each group take the denoise
+   inputs (initial latents, text states, PwW weights) of the same request
+   through ``generate`` alone bit for bit, and their images lie within
+   ``SERVE_IMAGE_TOL`` relative L2 of its image; a planted row-order
+   fault (the PwW weights rolled by one request) must break the inputs'
+   equality; s/image, peak GiB, one synchronised group's
+   ms/step; a 5-step profile of 8 requests (K1 one device kernel per
+   call); one ``generate`` with a two-window long prompt (K1 and K2 at Lk
+   154, 15·N each); one ``POST /generate`` to the server's handler on a
+   localhost server, whose PNG must equal ``generate``'s;
+9. norm sites: a 1-step warm-up of phase 11's pipeline records every K4
    and K5 call's signature, which must be the tables of phase 3;
-9. inpaint reference: a reduced-depth 9-channel inpaint with the norm
-   knobs on, card bf16 against CPU f32;
-10. inpaint path: SD-1.5-inpainting at full width (9-channel ``conv_in``,
+10. inpaint reference: a reduced-depth 9-channel inpaint with the norm
+    knobs on, card bf16 against CPU f32;
+11. inpaint path: SD-1.5-inpainting at full width (9-channel ``conv_in``,
     synthetic weights, ``fused_group_norm`` and ``fused_layer_norm`` on in
     the UNet and the VAE) through ``paint_with_words_inpaint``, 512², N
     steps at strength 1.0; the counters must read K4 = 61·N + 2·22 + 30,
     K5 = 48·N, K1 = K2 = 15·N, K3 = 10·N; then its own 5-step profile, in
     which K1 and K4 must be one device kernel per call;
-11. tiny: ``SDModelConfig.tiny()`` on the card (head dims 8 and 16, which
+12. tiny: ``SDModelConfig.tiny()`` on the card (head dims 8 and 16, which
     K1-K3 are not built for), 128 px, 2 steps: no kernel launches;
-12. sd2 reference: a reduced-depth SD-2.1-width txt2img (head dim 64,
+13. sd2 reference: a reduced-depth SD-2.1-width txt2img (head dim 64,
     v-prediction), 256 px, 3 steps, card bf16 against CPU f32, with the LMS
     and the DDIM scheduler; K1-K3 must launch;
-13. sd21 path: a full-width synthetic SD-2.1 768-v diffusers directory
+14. sd21 path: a full-width synthetic SD-2.1 768-v diffusers directory
     (fp16 safetensors, written to a temporary directory and deleted at the
     end) loaded through ``paint_with_words(local_model_path=...)``, 768², N
     LMS steps, counts K1 = K2 = 15·N, K3 = 10·N, K4 = K5 = 0, the loader's
     cache checked; its 5-step profile (K1 one device kernel per call);
-14. schedulers: one 4-step call per scheduler kind and DPM++ 2M Karras on
+15. schedulers: one 4-step call per scheduler kind and DPM++ 2M Karras on
     that pipeline, K1 = K2 = 15 and K3 = 10 launches per visit;
-15. controlnet reference: phase 4's reduced-depth config with one ControlNet
+16. controlnet reference: phase 4's reduced-depth config with one ControlNet
     and one T2I-Adapter of that config (synthetic weights, zero convs
     included), hints drawn from the color map's edges, card bf16 against
     CPU f32;
-16. controlnet path: SD-1.5 at full width plus a full SD-1.5 ControlNet
+17. controlnet path: SD-1.5 at full width plus a full SD-1.5 ControlNet
     written as a diffusers directory (deleted at the end) and attached by
     ``load_controlnet(source=...)``, 512², N LMS steps, CFG 7.5, the color
     map's edges as the hint; counts K1 = K2 = 21·N, K3 = 14·N, K4 = K5 = 0,
@@ -73,12 +90,12 @@ Phases, each printing its own lines; any failure ends the run non-zero:
     calls with two stacked ControlNets (27/27/18 per visit), the T2I-Adapter
     at full width (15/15/10 per visit, unlike the run without it) and a
     custom weight function with one ControlNet (the split path: 0/0/28);
-17. sdxl reference: SDXL base and refiner at their published widths, cut in
+18. sdxl reference: SDXL base and refiner at their published widths, cut in
     depth (layers_per_block 1, transformer depth 2, 2-layer towers), 512²,
     3 LMS steps, card bf16 against CPU f32 (K1/K2/K3 14/14/6 a visit); then
     6 steps cut at 0.5: the base to denoising_end, the refiner from there
     (12/12/6), and the refiner's update from the CPU's base latents;
-18. sdxl path: SDXL-base at diffusers' published shapes written as an fp16
+19. sdxl path: SDXL-base at diffusers' published shapes written as an fp16
     diffusers directory (the free space printed first; deleted once
     loaded), through ``paint_with_words(local_model_path=...)``, 1024², N
     LMS steps, CFG 7.5, K1 = K2 = K3 = 70·N (SDXL_LAUNCHES_PER_VISIT), a
@@ -358,9 +375,9 @@ def phase_kernels():
 
     def xattn_case(q, k, v, label, calls=None):
         """K2 on w with a zero uncond row, coef from the default weight function."""
-        H, lq, lk, dh = q.shape[1], q.shape[2], k.shape[2], q.shape[3]
+        B, H, lq, lk, dh = q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3]
         w = torch.rand((B, lq, lk), generator=g, device="cuda")
-        w[0] = 0.0
+        w[:B // 2] = 0.0  # the uncond rows
         wf = WeightFunction(0.1, "log1p_sigma", "max")
         coef = (wf.sigma_coef(torch.tensor(14.6, device="cuda"))
                 * xk.pww_cross_attention_reduce(q, k, wf)).contiguous()
@@ -383,7 +400,7 @@ def phase_kernels():
                time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)),
                flops=4 * B * H * lq * lk * dh, calls=calls)
 
-    def flash_case(l, dh, label, calls=None, H=H):
+    def flash_case(l, dh, label, calls=None, H=H, B=B):
         q, k, v = randn(B, H, l, dh), randn(B, H, l, dh), randn(B, H, l, dh)
         got = fa.flash_self_attention(q, k, v)
         want = fa.self_attention_plain(q, k, v)
@@ -406,7 +423,7 @@ def phase_kernels():
     def reduce_case(qq, kk, mode, label, calls=None):
         """K1 in one mode against its plain version; two calls on the same
         inputs must give bit-identical r."""
-        H, lq, lk, dh = qq.shape[1], qq.shape[2], kk.shape[2], qq.shape[3]
+        B, H, lq, lk, dh = qq.shape[0], qq.shape[1], qq.shape[2], kk.shape[2], qq.shape[3]
         if plan_of is not None and mode == "max":
             p = plan_of(B, H, lq, lk, dh)
             log(f"[kernels]   K1 plan at Lq{lq} Lk{lk} dh{dh}: {p.warps} warps x {p.tiles} "
@@ -460,6 +477,23 @@ def phase_kernels():
     # call (their calls per 30-step run join loss_ms_per_run)
     # SD-2.1 768-v, then SDXL base and refiner at 1024² (SDXL_SITES): head
     # dim 64 at every site, their calls per 30-step run join loss_ms_per_run
+    # The serving path: 8 requests, CFG rows B = 16 (B·H 128) at SD-1.5's
+    # 512² sites; the full-width long prompt's two windows (Lk 154) at B 2
+    # are the Lk154 cases above
+    for lq, dh in SHAPES:
+        q, k, v = randn(16, H, lq, dh), randn(16, H, LK, dh), randn(16, H, LK, dh)
+        for mode in ("max", "mean", "std"):
+            reduce_case(q, k, mode, f"b8 Lq{lq} dh{dh} {mode}",
+                        calls=5 * STEPS_PER_RUN if mode == "max" else None)
+        xattn_case(q, k, v, f"b8 Lq{lq} dh{dh}", calls=5 * STEPS_PER_RUN)
+        del q, k, v
+        if lq >= 1024:
+            flash_case(lq, dh, f"b8 L{lq} dh{dh}", calls=5 * STEPS_PER_RUN, B=16)
+    for lq, dh in SHAPES[1:]:  # the long prompt's other two sites (Lq 4096: above)
+        q, k, v = randn(B, H, lq, dh), randn(B, H, 2 * LK, dh), randn(B, H, 2 * LK, dh)
+        for mode in ("max", "mean", "std"):
+            reduce_case(q, k, mode, f"Lq{lq} dh{dh} Lk{2 * LK} {mode}")
+        xattn_case(q, k, v, f"Lq{lq} dh{dh} Lk{2 * LK}")
     tables = [("sd21", {(h, lq, 64): 5 for lq, h in SD21_SHAPES})]
     tables += [("xl" if name == "sdxl" else "xlr", table) for name, table in SDXL_SITES.items()]
     for tag, table in tables:
@@ -477,9 +511,10 @@ def phase_kernels():
                 flash_case(lq, dh, f"{tag} L{lq} H{h} dh{dh}", calls=calls, H=h)
     for name, cs in cases.by_kernel.items():
         tagged = {tag: [c for c in cs if c["case"].startswith(tag + " ")]
-                  for tag, _ in tables}
+                  for tag in ["b8"] + [tag for tag, _ in tables]}
         plain = [c for c in cs if not any(c in t for t in tagged.values())]
         log(f"[kernels] {name}: loss_ms_per_run SD-1.5 512² {loss_ms_per_run(plain):.3f}, "
+            f"batch 8 {loss_ms_per_run(tagged['b8']):.3f}, "
             f"SD-2.1 768² {loss_ms_per_run(tagged['sd21']):.3f}, SDXL 1024² "
             f"{loss_ms_per_run(tagged['xl']):.3f}, refiner 1024² "
             f"{loss_ms_per_run(tagged['xlr']):.3f}")
@@ -848,6 +883,339 @@ def phase_img2img(pipe, kw, steps):
     if launches != want or img.shape != (1, 512, 512, 3) or img.std() == 0:
         raise SystemExit(f"[img2img] launches {launches} != {want}, or image "
                          f"{img.shape} std {img.std():.2f}")
+
+
+# Rows of a served group against the same requests through generate alone:
+# relative L2 of the f32 images, a bound on what bf16 rounding of the 16-row
+# products leaves (the reading is about 6e-4). With synthetic weights the
+# text states barely vary across tokens, so a row-order fault moves the
+# output no more than that rounding does; the fault is caught where it is
+# made, in the denoise inputs, which must equal the request's alone bit for
+# bit (the phase plants the fault and shows both).
+SERVE_IMAGE_TOL = 5e-3
+
+
+def serve_requests(steps, tag="", n=8):
+    """``n`` paint-with-words requests on one 512² grid: distinct prompts and
+    seeds, and the cat/dog map with its split and colors moved per request."""
+    import numpy as np
+
+    palette = [(255, 0, 0), (0, 0, 255), (0, 255, 0), (255, 255, 0), (255, 0, 255),
+               (0, 255, 255), (255, 128, 0), (128, 0, 255)]
+    reqs = []
+    for i in range(n):
+        j = i % 8
+        left, right = palette[j], palette[(j + 3) % 8]
+        cut = 128 + 32 * j + 16 * (i // 8)
+        cm = np.zeros((512, 512, 3), np.uint8)
+        cm[:, :cut] = left
+        cm[:, cut:] = right
+        if i % 2:  # the regions side by side the other way round
+            cm = np.ascontiguousarray(cm[:, ::-1])
+        reqs.append(dict(
+            prompt=f"{tag}a cat sitting next to a dog, realistic photo, take {i}",
+            color_map_image=cm, seed=100 + i, num_inference_steps=steps,
+            guidance_scale=7.5,
+            color_context={left: f"cat,{0.3 + 0.05 * j:g}", right: f"dog,{0.6 - 0.05 * j:g}"}))
+    return reqs
+
+
+def rolled_layouts(denoise):
+    """A planted row-order fault around ``denoise``: within each CFG half,
+    request i gets request i-1's PwW weights (its neighbour's layout)."""
+    import dataclasses
+
+    import torch
+
+    def roll(x):
+        return torch.cat([torch.roll(half, 1, 0) for half in x.chunk(2)])
+
+    def faulty(lat, text_states, pww, *args, **kwargs):
+        pww = dataclasses.replace(pww, weights={k: roll(v) for k, v in pww.weights.items()},
+                                  weight_orig=roll(pww.weight_orig))
+        return denoise(lat, text_states, pww, *args, **kwargs)
+
+    return faulty
+
+
+def denoise_inputs_of(seen, row):
+    """One request's row of a captured denoise call: its initial latents,
+    and its uncond and cond text states and PwW weight pyramid (the
+    full-resolution map, 1.3 GB at 16 rows, is left out: every site of a
+    512² call has its pyramid level)."""
+    n = seen["lat"].shape[0]
+    pick = [row, n + row]
+    return {"latents": seen["lat"][row:row + 1], "text": seen["text"][pick],
+            **{f"weights {k}": w[pick] for k, w in seen["weights"].items()}}
+
+
+def phase_serve(pipe, steps):
+    """The serving path on the main pipeline, without per-phase syncs: a
+    Batcher over 16 concurrent requests forms two groups of 8, and the second
+    launches while the first's fetch is held back; rows of both groups
+    against generate alone, in their denoise inputs and their images, and a
+    planted row-order fault that the inputs' check must catch; then a 5-step
+    profile, a two-window long prompt, and one POST /generate."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    import pww_tpu_torch.models.unet as unet_mod
+    from pww_tpu_torch.conditioning.encode import _window_ids
+    from pww_tpu_torch.serving.batcher import Batcher
+
+    problems = []
+    # warm-up on other prompts (cuDNN plans and the allocator at 16 rows);
+    # the served run below encodes its own prompts in one text-encoder call
+    # per group
+    pipe.generate_batch(serve_requests(2, "warm-up "), num_inference_steps=2, output_type="np")
+    reqs = serve_requests(steps, n=16)
+    index = {id(r): i for i, r in enumerate(reqs)}
+    counters = launch_counters()
+    finite = []  # one device flag per group, read after the run: no sync
+    groups = []  # per generate_batch call: (request indices, launches, host s)
+    inputs = []  # per denoise call: its latents, text states and PwW weights
+    second_launched = threading.Event()
+    batch, decode, denoise = pipe.generate_batch, pipe.decode_uint8_device, pipe.denoise
+
+    def counted_batch(requests, **kwargs):
+        before = {c.__name__: c.launches for c in counters}
+        t = time.perf_counter()
+        out = batch(requests, **kwargs)
+        groups.append(([index[id(r)] for r in requests],
+                       {c.__name__: c.launches - before[c.__name__] for c in counters},
+                       time.perf_counter() - t))
+        if len(groups) == 2:
+            second_launched.set()
+        return out
+
+    def checked_decode(lat):
+        finite.append(torch.isfinite(lat).all())
+        return decode(lat)
+
+    def captured_denoise(lat, text_states, pww, *args, **kwargs):
+        inputs.append(dict(lat=lat.clone(), text=text_states, weights=pww.weights))
+        return denoise(lat, text_states, pww, *args, **kwargs)
+
+    pipe.generate_batch, pipe.decode_uint8_device = counted_batch, checked_decode
+    pipe.denoise = captured_denoise
+    pipe.profile = False
+    batcher = Batcher(pipe, max_batch=8, max_wait_ms=2000.0)
+    to_host, held = batcher._to_host, []
+
+    def held_to_host(launch):
+        # the first group's fetch waits until the second group has launched:
+        # a launch that waited on a fetch would stall here and fail the gate
+        if not held:
+            held.append(second_launched.wait(timeout=300))
+        return to_host(launch)
+
+    batcher._to_host = held_to_host
+    futures = [None] * 16
+    gate = threading.Barrier(16)
+
+    def client(i):
+        gate.wait()
+        futures[i] = batcher.submit(reqs[i])
+
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(16)]
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        images = [np.asarray(f.result(timeout=600)) for f in futures]
+        wall = time.perf_counter() - t0
+    finally:
+        batcher.close()
+        del pipe.generate_batch, pipe.decode_uint8_device
+        pipe.profile = True
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stats = dict(batcher.stats)
+    finite = [bool(f) for f in finite]
+    log(f"[serve] Batcher(max_batch=8), no per-phase syncs: 16 concurrent requests, 512², "
+        f"{steps} LMS steps, CFG 7.5: {wall:.3f} s wall, {wall / 16:.4f} s/image, peak "
+        f"{peak:.2f} GiB; stats {stats}; host s per generate_batch call "
+        f"{[round(g[2], 3) for g in groups]}; first fetch held until the second launch: "
+        f"{held}")
+    log(f"[serve] launches: {launches}; per group {[g[1] for g in groups]}")
+    want = {"fused_pww_reduce": 15 * steps, "fused_pww_cross_attention": 15 * steps,
+            "flash_self_attention": 10 * steps, "group_norm": 0, "layer_norm": 0}
+    if stats["batches"] != 2 or stats["batched_requests"] != 16:
+        problems.append(f"not two groups: {stats}")
+    if (len(groups) != 2 or len(inputs) != 2 or any(len(g[0]) != 8 for g in groups)
+            or sorted(groups[0][0] + groups[1][0]) != list(range(16))):
+        problems.append(f"groups {[g[0] for g in groups]}, {len(inputs)} denoise calls")
+    if any(g[1] != want for g in groups) or launches != {k: 2 * v for k, v in want.items()}:
+        problems.append(f"launches {launches}, per group {[g[1] for g in groups]}, "
+                        f"{want} per group wanted")
+    if held != [True]:
+        problems.append("the second group did not launch while the first's fetch was held")
+    if finite != [True, True] or any(im.shape != (512, 512, 3) for im in images):
+        problems.append(f"latents finite {finite}, shapes {[im.shape for im in images]}")
+    same = [(i, j) for i in range(16) for j in range(i + 1, 16)
+            if np.array_equal(images[i], images[j])]
+    if same or any(im.std() == 0 for im in images):
+        problems.append(f"equal images {same} or a constant one")
+    if problems:
+        del pipe.denoise
+        raise SystemExit(f"[serve] {problems}")
+
+    def rel_l2(got, want):
+        got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+        return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+    def differing(got, want):  # the denoise inputs that are not bit-equal
+        return [k for k in want if not torch.equal(got[k], want[k])]
+
+    # rows against the same requests served alone: the same denoise inputs,
+    # bit for bit (cached text states and weights, per-request noise); the
+    # images differ only by the rounding of the 16-row products
+    first = groups[0][0]
+    alone = {}  # request → (its image alone, its denoise inputs alone)
+    try:
+        for g, row in ((0, 0), (0, 7), (1, 0), (1, 7)):
+            i = groups[g][0][row]
+            image = pipe.generate(**reqs[i], output_type="np")[0]
+            alone[i] = image, denoise_inputs_of(inputs[-1], 0)
+            bad = differing(denoise_inputs_of(inputs[g], row), alone[i][1])
+            rel = rel_l2(images[i], image)
+            ok = not bad and rel < SERVE_IMAGE_TOL
+            log(f"[serve] request {i} (group {g + 1}, row {row}) vs generate alone: denoise "
+                f"inputs {'bit-equal' if not bad else f'DIFFER in {bad}'} "
+                f"({len(alone[i][1])} tensors), image relative L2 {rel:.3e} (tol "
+                f"{SERVE_IMAGE_TOL:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                problems.append(f"request {i}: inputs differ in {bad}, image {rel:.3e}")
+        # the fault the check must catch: the first group again, each request
+        # given its neighbour's layout
+        pipe.denoise = rolled_layouts(captured_denoise)
+        faulty = pipe.generate_batch([reqs[i] for i in first], num_inference_steps=steps,
+                                     output_type="np")
+    finally:
+        del pipe.denoise
+    for row in (0, 7):
+        i = first[row]
+        bad = differing(denoise_inputs_of(inputs[-1], row), alone[i][1])
+        rel = rel_l2(faulty[row], alone[i][0])
+        log(f"[serve] planted fault, layouts rolled by one: request {i} vs generate alone: "
+            f"denoise inputs differ in {len(bad)} of {len(alone[i][1])} tensors "
+            f"({'caught' if bad else 'NOT caught'}), image relative L2 {rel:.3e}")
+        if not bad:
+            problems.append(f"planted fault not caught for request {i}")
+    if problems:
+        raise SystemExit(f"[serve] {problems}")
+    # the per-phase split of one group's call, synchronised (the encode hits
+    # the text cache the served run filled)
+    pipe.generate_batch([reqs[i] for i in first], num_inference_steps=steps, output_type="np")
+    tm = pipe.timings
+    log(f"[serve] one generate_batch of group 1, synchronised per phase: encode "
+        f"{tm['encode']:.3f} s (cached), denoise {tm['denoise']:.3f} s "
+        f"({tm['denoise'] / steps * 1e3:.1f} ms/step), decode {tm['decode']:.3f} s")
+    profiled = phase_profile(
+        lambda n: pipe.generate_batch(reqs[:8], num_inference_steps=n, output_type="np"),
+        "serve")
+    if profiled["K1 pww_reduce"][1] != 1:
+        raise SystemExit("[profile serve] K1 is not one device kernel per call")
+    phase_long_prompt(pipe, reqs[0], steps, unet_mod, _window_ids)
+    phase_http(pipe, reqs[1], steps)
+    return launches, profiled
+
+
+def phase_long_prompt(pipe, req, steps, unet_mod, window_ids):
+    """One full-width generate with a two-window prompt: K1 and K2 at Lk 154."""
+    import torch
+
+    prompt = req["prompt"]
+    while len(window_ids(pipe.tokenizer, prompt, 77)) < 2:
+        prompt += ", soft light on the fur"
+    seen = {"fused_pww_reduce": set(), "fused_pww_cross_attention": set()}
+    originals = {n: getattr(unet_mod, n) for n in seen}
+
+    def recorded(name):
+        def call(q, k, *args):
+            seen[name].add(k.shape[2])
+            return originals[name](q, k, *args)
+        return call
+
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    for n in seen:
+        setattr(unet_mod, n, recorded(n))
+    try:
+        img = pipe.generate(**dict(req, prompt=prompt), long_prompts=True, output_type="np")
+        torch.cuda.synchronize()
+    finally:
+        for n, fn in originals.items():
+            setattr(unet_mod, n, fn)
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"[long prompt] {len(window_ids(pipe.tokenizer, prompt, 77))} windows, "
+        f"{steps} steps: text keys {seen}, launches {launches}, image mean "
+        f"{img.mean():.2f} std {img.std():.2f}")
+    want = {"fused_pww_reduce": 15 * steps, "fused_pww_cross_attention": 15 * steps,
+            "flash_self_attention": 10 * steps, "group_norm": 0, "layer_norm": 0}
+    if (launches != want or seen != {n: {154} for n in seen} or img.std() == 0):
+        raise SystemExit(f"[long prompt] launches {launches} != {want}, text keys {seen}, "
+                         f"or a constant image")
+
+
+def phase_http(pipe, req, steps):
+    """One POST /generate to the server's handler on a localhost server; the
+    PNG must equal the same request through generate."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    from PIL import Image
+
+    from pww_tpu_torch.serving.batcher import Batcher
+    from pww_tpu_torch.serving.server import make_handler
+
+    buf = io.BytesIO()
+    Image.fromarray(req["color_map_image"]).save(buf, format="PNG")
+    body = {"prompt": req["prompt"], "seed": req["seed"], "steps": steps,
+            "guidance_scale": req["guidance_scale"],
+            "color_context": {str(k): v for k, v in req["color_context"].items()},
+            "color_map_png_b64": base64.b64encode(buf.getvalue()).decode()}
+    batcher = Batcher(pipe, max_batch=8, max_wait_ms=25.0)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(batcher))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        post = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/generate",
+            data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(post, timeout=600) as r:
+            out = json.loads(r.read())
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{server.server_address[1]}/metrics", timeout=60) as r:
+            metrics = json.loads(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+        batcher.close()
+    got = np.asarray(Image.open(io.BytesIO(base64.b64decode(out["image_png_b64"]))))
+    want = pipe.generate(**req, output_type="np")[0]
+    same = got.shape == want.shape and np.array_equal(got, want)
+    log(f"[http] POST /generate 512², {steps} steps: {wall:.3f} s round trip, latency_s "
+        f"{out['latency_s']}, PNG {got.shape} {'equals' if same else 'DIFFERS from'} "
+        f"generate; /metrics {metrics}")
+    if not same:
+        raise SystemExit("[http] the served image differs from generate's")
 
 
 def inpaint_pipeline():
@@ -1843,6 +2211,7 @@ def main():
     if profiled["K1 pww_reduce"][1] != 1:
         raise SystemExit("[profile main] K1 is not one device kernel per call")
     phase_img2img(pipe, kw, args.steps)
+    blaunches, bprofiled = phase_serve(pipe, args.steps)
     del pipe, kw
     import torch
 
@@ -1889,6 +2258,8 @@ def main():
             controlnet_path_device_ms_per_call=cprofiled.get(group, (None,))[0],
             sdxl_path_launches=xlaunches[counter],
             sdxl_path_device_ms_per_call=xprofiled.get(group, (None,))[0],
+            batch8_path_launches=blaunches[counter],
+            batch8_path_device_ms_per_call=bprofiled.get(group, (None,))[0],
             ensemble_launches=({part: n[path_kernels.index(counter)]
                                 for part, n in ensemble.items()}
                                if counter in path_kernels else None),

@@ -102,7 +102,12 @@ class CLIPTextModel(nn.Module):
     ``"penultimate_and_pooled"`` that and ``text_projection`` of the final
     state at the EOS position: the first ``eos_token_id``, or the largest id
     where ``eos_token_id`` is None or the legacy 2 of SD config files, which
-    never occurs in a prompt (``pww_tpu/models/clip.py:139-157``)."""
+    never occurs in a prompt (``pww_tpu/models/clip.py:139-157``).
+
+    ``skip_layers=k`` (A1111's "CLIP skip" k + 1, diffusers' ``clip_skip``):
+    ``output="final"`` is the final LayerNorm of ``hidden_states[-(k+1)]``,
+    the penultimate modes take ``hidden_states[-(k+2)]``; the pooled vector
+    always comes from the full tower (``pww_tpu/models/clip.py:81-121``)."""
 
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
@@ -111,21 +116,29 @@ class CLIPTextModel(nn.Module):
         if cfg.projection_dim is not None:
             self.text_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
 
-    def forward(self, input_ids: torch.Tensor, output: str = "final"):
+    def forward(self, input_ids: torch.Tensor, output: str = "final", skip_layers: int = 0):
         if output not in ("final", "penultimate", "penultimate_and_pooled"):
             raise ValueError(f"unknown output mode {output!r}")
+        cfg = self.config
+        if not 0 <= skip_layers < cfg.num_layers:
+            raise ValueError(f"skip_layers={skip_layers} out of range for "
+                             f"{cfg.num_layers}-layer tower")
         tm = self.text_model
         x = tm.embeddings(input_ids)
         layers = tm.encoder.layers
-        for layer in layers[:-1]:
+        cut = cfg.num_layers - 1 - skip_layers  # the last layer whose output is kept
+        if output == "final":
+            for layer in layers[:cut + 1]:
+                x = layer(x)
+            return layer_norm_f32(tm.final_layer_norm, x)
+        for layer in layers[:cut]:
             x = layer(x)
         if output == "penultimate":
             return x
-        penultimate, x = x, layers[-1](x)
+        penultimate = x
+        for layer in layers[cut:]:  # the pooled vector takes the full tower
+            x = layer(x)
         final = layer_norm_f32(tm.final_layer_norm, x)
-        if output == "final":
-            return final
-        cfg = self.config
         if cfg.projection_dim is None:
             raise ValueError("pooled output requires CLIPTextConfig.projection_dim")
         if cfg.eos_token_id is not None and cfg.eos_token_id != 2:

@@ -35,24 +35,43 @@ trajectory and returns its latents, and ``init_latents`` with
 ``denoising_start`` resumes it, on the same or another model.
 
 :meth:`PwwPipeline.from_pretrained` loads a diffusers-layout directory
-(:mod:`~pww_tpu_torch.weights.loader`). Everything else the JAX pipeline's
-``generate`` takes raises ``NotImplementedError`` here.
+(:mod:`~pww_tpu_torch.weights.loader`).
+
+Serving (``pww_tpu/pipeline/pipeline.py:1213-1355, 2237-2709``):
+:meth:`PwwPipeline.generate_batch` runs N independent requests (own prompt,
+seed, color map, init image and mask) as one batched denoise, rows
+[uncond_0..uncond_{N-1}, cond_0..cond_{N-1}], each request's noise drawn
+from its own seed, so that row i is request i served alone up to the
+batch's rounding; the encode prologue is cached (an LRU of 32 encodes and a
+text cache of 256 encoder outputs, both under ``_encode_lock``), and a
+group's uncached prompt pairs go through the text encoder in one call.
+Prompt options: A1111 weighting, long prompts (n·77 text keys), CLIP skip.
+``generate(callback=...)`` calls back every ``callback_steps`` visits, and
+``output_type="device"`` returns the un-fetched uint8 images on the card.
+Everything else the JAX pipeline's ``generate`` takes raises
+``NotImplementedError`` here (when on, for the options :data:`UNPORTED`
+lists with their ROADMAP items).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+import warnings
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..conditioning.encode import EncodedInputs, encode_text_color_inputs
+from ..conditioning.encode import (EncodedInputs, padded_ids, cache_text,
+                                   encode_text_color_inputs)
 from ..conditioning.seeding import make_noise, regional_seed_latents
 from ..config import SDModelConfig
 from ..models.vae import sample_from_moments
 from ..ops.resize import resize_linear_antialias, resize_nearest
-from ..ops.weight_functions import AnyWeightFunction, CustomWeightFunction
+from ..ops.weight_functions import (AnyWeightFunction, CustomWeightFunction,
+                                   as_weight_function)
 from ..schedulers.schedules import make_scheduler, t_start_from_strength
 from ..types import PwwState
 from ..weights.bridge import StateDicts, build_models, synthetic_params, synthetic_state
@@ -62,6 +81,40 @@ from .inpaint import (blur_mask, expand_crop_region, fill_masked_region, paste_r
 # kinds whose visits do not map 1:1 to steps (pndm, heun), or whose multistep
 # tables assume a history that a truncated img2img start does not have
 NO_STRENGTH_TRUNCATION = ("pndm", "heun", "unipc", "dpmpp_2m", "dpmpp_2m_sde")
+
+# The JAX pipeline's options that the port does not have yet: the value that
+# leaves each off, and the ROADMAP item that ports it. Off, they are
+# accepted (a serving request carries them all); on, they raise.
+UNPORTED = {
+    "cache_interval": (1, "A.14 (DeepCache)"),
+    "tome_ratio": (0.0, "A.14 (ToMe)"),
+    "freeu": (None, "A.14 (FreeU)"),
+    "sag_scale": (0.0, "A.14 (SAG)"),
+    "prompt_editing": (False, "A.14 (prompt editing)"),
+    "ip_adapter_image": (None, "A.15 (IP-Adapter)"),
+    "ip_adapter_scale": (None, "A.15 (IP-Adapter)"),
+}
+
+
+def refuse_unported(where: str, options: Dict) -> None:
+    """``NotImplementedError`` for an option the port lacks, unless it is
+    off; an option the table does not know always raises."""
+    for name, value in sorted(options.items()):
+        if name in UNPORTED:
+            off, item = UNPORTED[name]
+            if (value is not None) if off is None else (value != off):
+                raise NotImplementedError(f"{where}({name}=...) is not ported to "
+                                          f"pww_tpu_torch yet (ROADMAP {item})")
+        else:
+            raise NotImplementedError(f"{where}({name}=...) is not ported to "
+                                      "pww_tpu_torch yet")
+
+
+def check_noise_mode(noise_mode: str) -> None:
+    if noise_mode != "torch":
+        raise NotImplementedError(
+            f"noise_mode={noise_mode!r}: the port draws the reference's torch noise "
+            "only (noise_mode='torch'; ROADMAP A.10)")
 
 
 def resolve_device(device) -> torch.device:
@@ -119,6 +172,23 @@ def _load_hint(img, channels: int, proc_hw: Tuple[int, int], name: str) -> np.nd
     return arr
 
 
+def micro_time_ids(refiner: bool, original: Sequence[Tuple[int, int]],
+                   crop: Sequence[Tuple[int, int]], target: Sequence[Tuple[int, int]],
+                   aesthetic_score: float, negative_aesthetic_score: float,
+                   device) -> torch.Tensor:
+    """SDXL's micro-conditioning for 2N CFG rows [uncond*N, cond*N], from each
+    request's (original, crop top-left, target) sizes: the base's rows are
+    [h, w, top, left, target h, target w]; the refiner's [h, w, top, left,
+    score], the negative score on the uncond half
+    (``pww_tpu/pipeline/pipeline.py:1831-1853, 2444-2474``)."""
+    if refiner:
+        rows = ([[*o, *c, negative_aesthetic_score] for o, c in zip(original, crop)]
+                + [[*o, *c, aesthetic_score] for o, c in zip(original, crop)])
+    else:
+        rows = [[*o, *c, *t] for o, c, t in zip(original, crop, target)] * 2
+    return torch.tensor(rows, dtype=torch.float32, device=device)
+
+
 def side_generator(seed: int, stream: int) -> torch.Generator:
     """A CPU generator for the draws beside the latent noise (1: the VAE
     posterior sample, 2: masked-content "latent_noise", 3: the stochastic
@@ -126,6 +196,33 @@ def side_generator(seed: int, stream: int) -> torch.Generator:
     numbers with ``make_noise(seed)``."""
     state = np.random.SeedSequence((int(seed), stream)).generate_state(1)[0]
     return torch.Generator(device="cpu").manual_seed(int(state))
+
+
+def check_masked_content(masked_content: str, mask_blur: float, inpaint: bool) -> None:
+    if masked_content not in ("original", "fill", "latent_noise", "latent_nothing"):
+        raise ValueError("masked_content must be one of original/fill/latent_noise/"
+                         f"latent_nothing, got {masked_content!r}")
+    if (masked_content != "original" or mask_blur) and not inpaint:
+        raise ValueError("mask_blur/masked_content require mask_image (inpainting)")
+
+
+def truncation_checked(t_start: int, schedule) -> int:
+    """``t_start``, where the scheduler kind can start there."""
+    if t_start > 0 and schedule.kind in NO_STRENGTH_TRUNCATION:
+        raise ValueError(f"img2img strength truncation is not supported with the "
+                         f"{schedule.kind} scheduler; use lms/euler/ddim")
+    return t_start
+
+
+def _to_output(images: np.ndarray, output_type: str, single: bool):
+    """(N, H, W, 3) uint8 → the array (``"np"``), or PIL images (one where
+    ``single``)."""
+    if output_type == "np":
+        return images
+    from PIL import Image
+
+    pil = [Image.fromarray(im) for im in images]
+    return pil[0] if single else pil
 
 
 class PwwPipeline:
@@ -186,6 +283,11 @@ class PwwPipeline:
         self.t2i_adapter: Optional[torch.nn.Module] = None
         self.profile = profile
         self.timings: Dict[str, float] = {}
+        # encode caches (pww_tpu/pipeline/pipeline.py:1213-1355): one lock
+        # guards both and the warnings capture, which swaps process-wide filters
+        self._encode_cache: Dict = {}  # LRU of 32 encodes, with their warnings
+        self._text_cache: Dict = {}  # the text encoder's output, 256 entries
+        self._encode_lock = threading.Lock()
 
     @classmethod
     def from_pretrained(cls, model_path: str, scheduler: Optional[str] = None,
@@ -284,30 +386,107 @@ class PwwPipeline:
         return down, mid
 
     # -- stages ----------------------------------------------------------------
-    def encode_text(self, ids: torch.Tensor, ids2: Optional[torch.Tensor] = None):
+    def encode_text(self, ids: torch.Tensor, ids2: Optional[torch.Tensor] = None,
+                    clip_skip: int = 0):
         """Text states (B, 77, D); for SDXL ``(text_states, pooled)``: the
         refiner's one tower, or the base's two towers' penultimate states
         concatenated and the second tower's pooled vector (``ids2``, the
-        second tokenizer's, default ``ids``)."""
+        second tokenizer's, default ``ids``). ``clip_skip=k``: the states k
+        layers early in every tower (the pooled vector from the full one)."""
         if self.config.xl_refiner:
-            return self.clip(ids, output="penultimate_and_pooled")
+            return self.clip(ids, output="penultimate_and_pooled", skip_layers=clip_skip)
         if self.clip2 is None:
-            return self.clip(ids)
+            return self.clip(ids, skip_layers=clip_skip)
         h2, pooled = self.clip2(ids if ids2 is None else ids2,
-                                output="penultimate_and_pooled")
-        return torch.cat([self.clip(ids, output="penultimate"), h2], dim=-1), pooled
+                                output="penultimate_and_pooled", skip_layers=clip_skip)
+        h1 = self.clip(ids, output="penultimate", skip_layers=clip_skip)
+        return torch.cat([h1, h2], dim=-1), pooled
+
+    def invalidate_encode_caches(self) -> None:
+        """Drop the cached encodes and text states after an encoder weight
+        change. Takes ``_encode_lock``, so that an encode running on another
+        thread inserts its stale entry before the clear, not after it."""
+        with self._encode_lock:
+            self._text_cache.clear()
+            self._encode_cache.clear()
+
+    @staticmethod
+    def _encode_cache_key(prompt, color_map, color_context, negative_prompt,
+                          weight_function, prompt_weighting, clip_skip, long_prompts):
+        """A hashable key for one encode, or None (no caching). The weight
+        function takes part as the object: a frozen ``WeightFunction`` by
+        value, a callable by identity, kept alive inside the key."""
+        try:
+            cm_key = None
+            if color_map is not None:
+                arr = np.ascontiguousarray(color_map)
+                cm_key = (arr.shape, str(arr.dtype), hashlib.sha1(arr.tobytes()).hexdigest())
+            ctx_key = tuple(sorted((repr(k), str(v)) for k, v in (color_context or {}).items()))
+            key = (prompt, negative_prompt, cm_key, ctx_key, weight_function,
+                   bool(prompt_weighting), int(clip_skip), bool(long_prompts))
+            hash(key)
+            return key
+        except Exception:  # unhashable inputs: no caching
+            return None
 
     def encode_inputs(self, prompt: str, color_map: Optional[np.ndarray],
                       color_context: Dict, negative_prompt: str = "",
                       weight_function: Optional[AnyWeightFunction] = None,
-                      ) -> EncodedInputs:
+                      prompt_weighting: bool = False, clip_skip: int = 0,
+                      long_prompts: bool = False) -> EncodedInputs:
+        """The encode prologue through an LRU cache of 32 entries; a hit
+        replays the warnings the encode gave (the reference warns on every
+        call). The result is treated as immutable downstream."""
+        key = self._encode_cache_key(prompt, color_map, color_context, negative_prompt,
+                                     weight_function, prompt_weighting, clip_skip,
+                                     long_prompts)
+        with self._encode_lock:
+            if key is not None and key in self._encode_cache:
+                enc, warns = self._encode_cache.pop(key)
+                self._encode_cache[key] = (enc, warns)  # most recent last
+            else:
+                with warnings.catch_warnings(record=True) as rec:
+                    warnings.simplefilter("always")
+                    enc = self._encode_inputs_uncached(
+                        prompt, color_map, color_context, negative_prompt, weight_function,
+                        prompt_weighting, clip_skip, long_prompts)
+                warns = [(str(r.message), r.category) for r in rec]
+                if key is not None:
+                    if len(self._encode_cache) >= 32:
+                        self._encode_cache.pop(next(iter(self._encode_cache)))
+                    self._encode_cache[key] = (enc, warns)
+        for msg, cat in warns:
+            warnings.warn(msg, cat, stacklevel=2)
+        return enc
+
+    def _encode_inputs_uncached(self, prompt, color_map, color_context, negative_prompt="",
+                                weight_function=None, prompt_weighting=False, clip_skip=0,
+                                long_prompts=False) -> EncodedInputs:
         cfg = self.config
         return encode_text_color_inputs(
             self.encode_text, self.tokenizer, color_map, color_context,
             prompt, negative_prompt, weight_function, device=self.device,
             tokenizer_2=self.tokenizer_2,
             zero_empty_negative=cfg.needs_pooled and cfg.force_zeros_for_empty_prompt,
+            text_cache=self._text_cache, prompt_weighting=prompt_weighting,
+            clip_skip=clip_skip, long_prompts=long_prompts,
+            dual_split_dim=cfg.clip.hidden_size if cfg.is_xl else None,
         )
+
+    @staticmethod
+    def _tile_cfg(enc: EncodedInputs, n: int):
+        """The (2, ...) CFG pair → (2N, ...) rows [uncond*N, cond*N]:
+        (text states, PwW state, pooled vector)."""
+        if n == 1:
+            return enc.text_states, enc.pww, enc.pooled
+
+        def tile(x):
+            return torch.cat([x[:1].expand(n, *x.shape[1:]), x[1:].expand(n, *x.shape[1:])])
+
+        pww = dataclasses.replace(
+            enc.pww, weights={k: tile(v) for k, v in enc.pww.weights.items()},
+            weight_orig=tile(enc.pww.weight_orig))
+        return tile(enc.text_states), pww, None if enc.pooled is None else tile(enc.pooled)
 
     def encode_image(self, image: np.ndarray) -> torch.Tensor:
         """(B, H, W, 3) f32 in [-1, 1] → (B, 2·latent, h, w) f32 moments."""
@@ -317,8 +496,9 @@ class PwwPipeline:
 
     def denoise(self, latents, text_states, pww: PwwState, schedule, guidance_scale,
                 t_start: int = 0, extra: Optional[torch.Tensor] = None, blend=None,
-                seed: int = 0, control=None, adapter=None, added_cond=None,
-                t_end: Optional[int] = None):
+                seeds: Sequence[int] = (0,), control=None, adapter=None, added_cond=None,
+                t_end: Optional[int] = None, callback: Optional[Callable] = None,
+                callback_steps: int = 1):
         """The scheduler's loop from visit ``t_start`` to ``t_end`` (default:
         the last); latents (N, C, h, w) f32 in and out.
 
@@ -330,7 +510,15 @@ class PwwPipeline:
         before each UNet call the unmasked latents are reset to the init's
         trajectory at that step, and restored exactly at the end. The UNet's
         output is converted to ε per CFG half (v-prediction), and the
-        stochastic kinds draw their step noise from ``side_generator(seed, 3)``.
+        stochastic kinds draw their step noise from ``side_generator(seed, 3)``
+        of each seed in ``seeds``, which split the N rows evenly (one seed
+        for ``num_samples``, one a request for ``generate_batch``).
+
+        ``callback(visit, float(timestep), latents)`` runs after every
+        ``callback_steps`` visits counted from ``t_start`` and after the
+        last, with the loop's (N, h, w, C) f32 latents on the device, before
+        the legacy blend's final restore (``pww_tpu/pipeline/pipeline.py:
+        2110-2130``).
 
         ``control``: (ControlNet, (N, 3, H, W) hint, scale) per attached net;
         on the batched path each net sees the hint twice and the batched PwW
@@ -348,11 +536,14 @@ class PwwPipeline:
                 weight_orig=None if pww.weight_orig is None else pww.weight_orig[n:])
         prediction_type = self.config.unet.prediction_type
         state = schedule.init_state(lat.shape, self.device)
-        step_noise = side_generator(seed, 3) if schedule.needs_noise else None
+        step_noise = ([side_generator(s, 3) for s in seeds] if schedule.needs_noise
+                      else None)
+        noise_shape = (n // len(seeds),) + tuple(lat.shape[1:])
+        t_stop = schedule.num_steps if t_end is None else t_end
         if not split:  # both CFG halves in one call: hints and features twice
             control = [(net, torch.cat([h, h]), sc) for net, h, sc in control or ()]
             adapter = None if adapter is None else [torch.cat([a, a]) for a in adapter]
-        for i in range(t_start, schedule.num_steps if t_end is None else t_end):
+        for i in range(t_start, t_stop):
             if blend is not None:
                 mask, init, noise = blend
                 lat = schedule.add_noise(init, noise, i) * (1.0 - mask) + lat * mask
@@ -387,19 +578,28 @@ class PwwPipeline:
             eps = eps_u + guidance_scale * (eps_c - eps_u)
             noise = None
             if step_noise is not None:
-                noise = torch.randn(lat.shape, generator=step_noise).to(self.device)
+                noise = torch.cat([torch.randn(noise_shape, generator=g)
+                                   for g in step_noise]).to(self.device)
             lat, state = schedule.step(eps, i, lat, state, noise)
+            if callback is not None and ((i + 1 - t_start) % callback_steps == 0
+                                         or i + 1 == t_stop):
+                callback(i, float(schedule.timesteps[i]), lat.permute(0, 2, 3, 1).contiguous())
         if blend is not None:
             mask, init, _ = blend
             lat = init * (1.0 - mask) + lat * mask
         return lat
 
-    def decode_uint8(self, latents: torch.Tensor) -> np.ndarray:
-        """Latents (N, C, h, w) → (N, H, W, 3) uint8 (reference `_pil_from_latents`)."""
+    def decode_uint8_device(self, latents: torch.Tensor) -> torch.Tensor:
+        """Latents (N, C, h, w) → contiguous (N, H, W, 3) uint8 on the
+        pipeline's device (reference `_pil_from_latents`)."""
         img = self.vae.decode(latents / self.config.vae.scaling_factor)
         img = torch.clamp(img.float() / 2 + 0.5, 0.0, 1.0)
         img = torch.round(img * 255.0).to(torch.uint8)
-        return img.permute(0, 2, 3, 1).cpu().numpy()
+        return img.permute(0, 2, 3, 1).contiguous()
+
+    def decode_uint8(self, latents: torch.Tensor) -> np.ndarray:
+        """Latents (N, C, h, w) → (N, H, W, 3) uint8 on the host."""
+        return self.decode_uint8_device(latents).cpu().numpy()
 
     def _phase(self, name, t0):
         if self.profile:
@@ -436,11 +636,16 @@ class PwwPipeline:
         controlnet_conditioning_scale=1.0,  # a float, or one per stacked ControlNet
         adapter_image=None,  # T2I-Adapter hint (load_t2i_adapter first)
         adapter_conditioning_scale: float = 1.0,
+        callback: Optional[Callable] = None,  # callback(visit, timestep, latents)
+        callback_steps: int = 1,
         original_size: Optional[Tuple[int, int]] = None,  # SDXL micro-conditioning
         crops_coords_top_left: Tuple[int, int] = (0, 0),
         target_size: Optional[Tuple[int, int]] = None,
         aesthetic_score: float = 6.0,  # SDXL-refiner micro-conditioning
         negative_aesthetic_score: float = 2.5,
+        prompt_weighting: bool = False,  # A1111 (word:1.2) emphasis syntax
+        clip_skip: int = 0,  # text states k layers early (A1111 CLIP skip k + 1)
+        long_prompts: bool = False,  # >77-token windowed prompts (A1111)
         num_samples: int = 1,
         noise_mode: str = "torch",
         vae_sample_mode: str = "sample",  # "mean" = the posterior mean
@@ -449,13 +654,21 @@ class PwwPipeline:
         **unported,
     ):
         """txt2img, img2img and inpaint with paint-with-words. Returns PIL
-        image(s), a (N, H, W, 3) uint8 array (``output_type="np"``), or with
-        ``return_latents`` the final (N, h, w, 4) f32 latents (NHWC).
+        image(s), a (N, H, W, 3) uint8 array (``output_type="np"``), the
+        un-fetched (N, H, W, 3) uint8 tensor on the pipeline's device
+        (``output_type="device"``), or with ``return_latents`` the final
+        (N, h, w, 4) f32 latents (NHWC).
 
         ``control_image``: one hint per attached ControlNet (a single one is
         shared by all), RGB in [0, 255] at the processing resolution;
         ``adapter_image``: the T2I-Adapter's hint, RGB or, for a 1-channel
         adapter, gray (an RGB one is averaged).
+
+        ``callback(visit, float(timestep), latents)`` runs every
+        ``callback_steps`` visits and after the last, with the (N, h, w, C)
+        f32 latents on the device. ``prompt_weighting``, ``long_prompts``
+        and ``clip_skip``: see :func:`~pww_tpu_torch.conditioning.encode.
+        encode_text_color_inputs`.
 
         SDXL: ``original_size`` and ``target_size`` default to the render
         size; the refiner's uncond half takes ``negative_aesthetic_score``.
@@ -465,17 +678,25 @@ class PwwPipeline:
         without re-noising (diffusers' ensemble of expert denoisers;
         ``pww_tpu/pipeline/pipeline.py:1523-1611, 1931``). ``init_latents``
         without ``denoising_start`` re-noises them at ``strength``."""
-        if unported:
-            if "callback" in unported and (denoising_end is not None
-                                           or denoising_start is not None):
+        if callback is not None:
+            if denoising_end is not None or denoising_start is not None:
                 raise ValueError("denoising_end/denoising_start are not supported with "
                                  "per-step callbacks")
-            raise NotImplementedError(
-                f"generate({', '.join(sorted(unported))}=...) is not ported to "
-                "pww_tpu_torch yet"
-            )
-        if output_type not in ("pil", "np"):
-            raise ValueError(f"output_type must be 'pil' or 'np', got {output_type!r}")
+            if unported.get("cache_interval", 1) > 1:
+                raise ValueError("cache_interval > 1 is not supported with per-step "
+                                 "callbacks")
+            if int(callback_steps) < 1:
+                raise ValueError(f"callback_steps must be >= 1, got {callback_steps}")
+        refuse_unported("generate", unported)
+        if output_type not in ("pil", "np", "device"):
+            raise ValueError(f"output_type must be 'pil', 'np' or 'device', got "
+                             f"{output_type!r}")
+        if output_type == "device" and (return_latents or callback is not None
+                                        or inpaint_full_res):
+            raise ValueError('output_type="device" returns the decoded images as they '
+                             "are: no return_latents/callback/inpaint_full_res (those "
+                             "need host post-processing)")
+        check_noise_mode(noise_mode)
         cfg = self.config
         t0 = time.perf_counter()
         color_map = _to_numpy_image(color_map_image)
@@ -492,7 +713,9 @@ class PwwPipeline:
                 float(mask_blur), int(inpaint_full_res_padding))
             mask_blur = 0.0  # the crop's mask is feathered already
         enc = self.encode_inputs(prompt, color_map, color_context or {},
-                                 negative_prompt, weight_function)
+                                 negative_prompt, weight_function,
+                                 prompt_weighting=prompt_weighting, clip_skip=clip_skip,
+                                 long_prompts=long_prompts)
         sf = cfg.vae.scale_factor
         n = num_samples
         schedule = self.scheduler.set_timesteps(num_inference_steps, self.device)
@@ -500,11 +723,7 @@ class PwwPipeline:
         inpaint = mask_image is not None
         if inpaint and init_image is None:
             raise ValueError("inpainting requires init_image alongside mask_image")
-        if masked_content not in ("original", "fill", "latent_noise", "latent_nothing"):
-            raise ValueError("masked_content must be one of original/fill/latent_noise/"
-                             f"latent_nothing, got {masked_content!r}")
-        if (masked_content != "original" or mask_blur) and not inpaint:
-            raise ValueError("mask_blur/masked_content require mask_image (inpainting)")
+        check_masked_content(masked_content, mask_blur, inpaint)
         # a 4-channel UNet inpaints by the legacy masked blend, a 9-channel
         # one by its mask and masked-image input channels
         legacy_inpaint = inpaint and cfg.unet.in_channels == cfg.vae.latent_channels
@@ -552,13 +771,9 @@ class PwwPipeline:
                 raise ValueError(f"init_latents shape {tuple(init_lat.shape)} != {want_shape}")
             init_lat = init_lat.permute(0, 3, 1, 2).contiguous().to(self.device)
             if denoising_start is not None:
-                t_start = steps_at_or_above(denoising_start)
+                t_start = truncation_checked(steps_at_or_above(denoising_start), schedule)
             else:
-                t_start = t_start_from_strength(num_inference_steps, strength,
-                                                cfg.scheduler.steps_offset)
-            if t_start > 0 and schedule.kind in NO_STRENGTH_TRUNCATION:
-                raise ValueError(f"img2img strength truncation is not supported with the "
-                                 f"{schedule.kind} scheduler; use lms/euler/ddim")
+                t_start = self._t_start(num_inference_steps, strength, schedule)
             if denoising_start is not None:  # the same trajectory: no re-noising
                 lat = init_lat
             else:
@@ -570,50 +785,10 @@ class PwwPipeline:
             lat = regional_seed_latents(lat, enc.regions, noise_mode)
             lat = lat * schedule.init_noise_sigma
         else:
-            init = preprocess_image(init_image)  # (1, H', W', 3) in [-1, 1]
-            proc_mask = None
-            if inpaint:
-                proc_mask = self._prepare_pixel_mask(mask_image, init, mask_blur)
-                if masked_content == "fill":
-                    init = fill_masked_region(init[0], proc_mask >= 0.5)[None]
-            t_start = t_start_from_strength(num_inference_steps, strength,
-                                            cfg.scheduler.steps_offset)
-            if t_start > 0 and schedule.kind in NO_STRENGTH_TRUNCATION:
-                raise ValueError(f"img2img strength truncation is not supported with the "
-                                 f"{schedule.kind} scheduler; use lms/euler/ddim")
-            moments = self.encode_image(init)
-            if vae_sample_mode == "mean":
-                init_lat = moments[:, :cfg.vae.latent_channels]
-            elif vae_sample_mode == "sample":
-                init_lat = sample_from_moments(moments, side_generator(seed, 1))
-            else:
-                raise ValueError(f"vae_sample_mode must be 'sample' or 'mean', got "
-                                 f"{vae_sample_mode!r}")
-            init_lat = (init_lat * cfg.vae.scaling_factor).repeat(n, 1, 1, 1)
-            if legacy_inpaint:
-                m_lat = resize_linear_antialias(torch.from_numpy(proc_mask).to(self.device),
-                                                init.shape[1] // sf, init.shape[2] // sf)
-                m_lat = torch.clamp(m_lat, 0.0, 1.0)[None, None].expand(n, 1, -1, -1)
-                hole = (m_lat >= 0.5).float()
-                if masked_content == "latent_noise":
-                    fresh = torch.randn(init_lat.shape, generator=side_generator(seed, 2))
-                    init_lat = init_lat * (1.0 - hole) + fresh.to(self.device) * hole
-                elif masked_content == "latent_nothing":
-                    init_lat = init_lat * (1.0 - hole)
-            noise = make_noise(seed, tuple(init_lat.shape), noise_mode, self.device)
-            # the 9-channel path noises at the strength's step even at strength
-            # 1.0, as the reference's inpaint does (inpaint.py:180-198)
-            lat = schedule.add_noise(init_lat, noise, t_start)
-            if legacy_inpaint:
-                blend = (m_lat, init_lat, noise)
-            elif inpaint:
-                extra = self._prepare_inpaint_channels(init, proc_mask, n)
-                if cfg.unet.in_channels != cfg.vae.latent_channels + extra.shape[1]:
-                    raise ValueError(
-                        f"UNet expects {cfg.unet.in_channels} input channels but "
-                        f"latents+mask+masked_image = "
-                        f"{cfg.vae.latent_channels + extra.shape[1]}; pass an "
-                        "inpainting checkpoint (9-channel UNet)")
+            t_start = self._t_start(num_inference_steps, strength, schedule)
+            lat, extra, blend = self._image_latents(
+                preprocess_image(init_image), mask_image, mask_blur, masked_content, seed, n,
+                schedule, t_start, noise_mode, vae_sample_mode, legacy_inpaint)
 
         proc_hw = (lat.shape[2] * sf, lat.shape[3] * sf)
         control = None
@@ -638,52 +813,278 @@ class PwwPipeline:
             adapter = [f.float() * float(np.float32(adapter_conditioning_scale))
                        for f in self.t2i_adapter(hint.to(self.device))]
 
-        text_states, pww, pooled = enc.text_states, enc.pww, enc.pooled
-        if n > 1:  # rows [uncond*N, cond*N]
-            def tile(x):
-                return torch.cat([x[:1].expand(n, *x.shape[1:]),
-                                  x[1:].expand(n, *x.shape[1:])])
-
-            text_states = tile(text_states)
-            pww = dataclasses.replace(
-                pww, weights={k: tile(v) for k, v in pww.weights.items()},
-                weight_orig=tile(pww.weight_orig),
-            )
-            pooled = None if pooled is None else tile(pooled)
+        text_states, pww, pooled = self._tile_cfg(enc, n)  # rows [uncond*N, cond*N]
         added_cond = None
         if cfg.needs_pooled:
-            o_h, o_w = original_size or (height, width)
-            c_t, c_l = crops_coords_top_left
-            if cfg.xl_refiner:  # the aesthetic score last, the negative one on uncond
-                rows = [[o_h, o_w, c_t, c_l, negative_aesthetic_score]] * n + \
-                       [[o_h, o_w, c_t, c_l, aesthetic_score]] * n
-            else:
-                t_h, t_w = target_size or (height, width)
-                rows = [[o_h, o_w, c_t, c_l, t_h, t_w]] * (2 * n)
-            added_cond = {"text_embeds": pooled.float(),
-                          "time_ids": torch.tensor(rows, dtype=torch.float32, device=self.device)}
+            time_ids = micro_time_ids(
+                cfg.xl_refiner, [tuple(original_size or (height, width))] * n,
+                [tuple(crops_coords_top_left)] * n, [tuple(target_size or (height, width))] * n,
+                aesthetic_score, negative_aesthetic_score, self.device)
+            added_cond = {"text_embeds": pooled.float(), "time_ids": time_ids}
         t_end = None if denoising_end is None else steps_at_or_above(denoising_end)
         t0 = self._phase("encode", t0)
         lat = self.denoise(lat, text_states, pww, schedule, float(guidance_scale),
-                           t_start=t_start, extra=extra, blend=blend, seed=seed,
+                           t_start=t_start, extra=extra, blend=blend, seeds=[seed],
                            control=control, adapter=adapter, added_cond=added_cond,
-                           t_end=t_end)
+                           t_end=t_end, callback=callback, callback_steps=int(callback_steps))
         t0 = self._phase("denoise", t0)
         if return_latents:
             return lat.permute(0, 2, 3, 1).cpu().numpy()
+        if output_type == "device":
+            images = self.decode_uint8_device(lat)
+            self._phase("decode", t0)
+            return images
         images = self.decode_uint8(lat)
         if ifr_state is not None:
             full, m_full, region = ifr_state
             images = np.stack([paste_region(full, im, region, m_full) for im in images])
         self._phase("decode", t0)
-        if output_type == "np":
-            return images
-        from PIL import Image
-
-        pil = [Image.fromarray(im) for im in images]
-        return pil[0] if n == 1 else pil
+        return _to_output(images, output_type, single=n == 1)
 
     __call__ = generate
+
+    # -- serving -------------------------------------------------------------------
+    def _prewarm_text_cache(self, requests: Sequence[Dict]) -> None:
+        """One text-encoder call for a ``generate_batch`` group: the group's
+        uncached (prompt, negative) pairs as one (2K, 77) batch, K padded to
+        the next power of two with ("", "") pairs whose outputs are
+        dropped, seeding the text cache so that the per-request encodes hit
+        it (``pww_tpu/pipeline/pipeline.py:2237``). The single-tower plain
+        path only: weighted, long, clip-skip and dual-tower requests take
+        their own encode. Fewer than two pairs: nothing to share."""
+        if self.clip2 is not None or self.config.xl_refiner:
+            return
+        pairs = [(str(r.get("prompt", "")), str(r.get("negative_prompt", "")))
+                 for r in requests
+                 if not (r.get("prompt_weighting") or r.get("long_prompts")
+                         or int(r.get("clip_skip", 0)))]
+        with self._encode_lock:
+            todo = [p for p in dict.fromkeys(pairs)
+                    if (p[0], p[1], False, 0, False) not in self._text_cache]
+            if len(todo) < 2:
+                return
+            k = 1 << (len(todo) - 1).bit_length()
+            rows = []
+            for p, neg in todo + [("", "")] * (k - len(todo)):
+                rows += [padded_ids(self.tokenizer, neg), padded_ids(self.tokenizer, p)]
+            states = self.encode_text(torch.tensor(rows, dtype=torch.int64,
+                                                   device=self.device))
+            for i, (p, neg) in enumerate(todo):
+                cache_text(self._text_cache, (p, neg, False, 0, False),
+                           (states[2 * i:2 * i + 2], None))
+
+    @torch.inference_mode()
+    def generate_batch(
+        self,
+        requests: Sequence[Dict],
+        num_inference_steps: int = 30,
+        guidance_scale: float = 7.5,
+        weight_function: Optional[AnyWeightFunction] = None,
+        noise_mode: str = "torch",
+        output_type: str = "pil",
+        strength: float = 0.5,  # img2img noise level, shared: it sets t_start
+        **unported,
+    ):
+        """N independent paint-with-words requests as one batched denoise
+        (``pww_tpu/pipeline/pipeline.py:2297-2709``).
+
+        Each request dict: ``prompt``, ``color_map_image``, ``color_context``,
+        ``seed``, optional ``negative_prompt``, ``prompt_weighting``,
+        ``clip_skip`` and ``long_prompts``; img2img and inpaint requests add
+        ``init_image`` (and ``mask_image``, ``mask_blur``, ``masked_content``).
+        The requests share resolution, text length, color-map grid, mode,
+        steps, guidance, the weight function and ``strength``; anything else
+        raises ``ValueError``. Rows are [uncond_0..uncond_{N-1},
+        cond_0..cond_{N-1}] for the text states, the weight pyramids, the
+        pooled vectors and ``time_ids``. Each request's latent noise,
+        regional seeds, posterior sample, "latent_noise" fill and
+        stochastic-scheduler step noise come from its own seed, as
+        :meth:`generate` draws them, so that row i is request i served
+        alone up to the batch's rounding. A custom weight function takes
+        the split CFG path. SDXL rows get ``time_ids`` of their own size,
+        with no crop, and the refiner's aesthetic scores 6.0 / 2.5.
+
+        Returns PIL images, a (N, H, W, 3) uint8 array (``"np"``), or the
+        un-fetched uint8 tensor on the pipeline's device (``"device"``).
+        """
+        refuse_unported("generate_batch", unported)
+        check_noise_mode(noise_mode)
+        if output_type not in ("pil", "np", "device"):
+            raise ValueError(f"output_type must be 'pil', 'np' or 'device', got "
+                             f"{output_type!r}")
+        cfg = self.config
+        t0 = time.perf_counter()
+        wf = as_weight_function(weight_function)
+        self._prewarm_text_cache(requests)
+        encs = [self.encode_inputs(
+            r.get("prompt", ""), _to_numpy_image(r.get("color_map_image")),
+            r.get("color_context") or {}, r.get("negative_prompt", ""), wf,
+            prompt_weighting=bool(r.get("prompt_weighting", False)),
+            clip_skip=int(r.get("clip_skip", 0)),
+            long_prompts=bool(r.get("long_prompts", False))) for r in requests]
+
+        # one mode for the whole batch: txt2img, img2img or inpaint
+        has_init = [r.get("init_image") is not None for r in requests]
+        has_mask = [r.get("mask_image") is not None for r in requests]
+        if any(has_init) and not all(has_init):
+            raise ValueError("all requests in a batch must agree on img2img (init_image)")
+        if any(has_mask):
+            if not all(has_mask):
+                raise ValueError("all requests in a batch must agree on inpainting "
+                                 "(mask_image)")
+            if not all(has_init):
+                raise ValueError("inpainting requires init_image alongside mask_image")
+        img2img = len(requests) > 0 and all(has_init)
+        inpaint = img2img and all(has_mask)
+        legacy_inpaint = inpaint and cfg.unet.in_channels == cfg.vae.latent_channels
+        for r in requests:
+            mc = r.get("masked_content", "original")
+            check_masked_content(mc, r.get("mask_blur"), inpaint)
+            if mc in ("latent_noise", "latent_nothing") and inpaint and not legacy_inpaint:
+                raise ValueError(f"masked_content={mc!r} applies to the legacy "
+                                 "masked-blend path (standard 4-channel checkpoints)")
+        if inpaint and not legacy_inpaint and cfg.needs_pooled:
+            raise NotImplementedError("SDXL 9-channel inpainting is not ported to "
+                                      "pww_tpu_torch yet (ROADMAP A.16b)")
+
+        # img2img runs at the init image's size floored to a multiple of 32,
+        # as generate does; txt2img at the color map's
+        dims = []
+        for r, e in zip(requests, encs):
+            if r.get("init_image") is not None:
+                ih, iw = _image_hw(r["init_image"], default=(512, 512))
+                dims.append((ih - ih % 32, iw - iw % 32))
+            else:
+                dims.append((e.height, e.width))
+        h0, w0 = dims[0]
+        if any(d != (h0, w0) for d in dims[1:]):
+            raise ValueError("all requests in a batch must share resolution")
+        if any(e.text_states.shape[1] != encs[0].text_states.shape[1] for e in encs[1:]):
+            raise ValueError("all requests in a batch must share the text length "
+                             "(long_prompts window counts differ)")
+        if any(e.pww.weights.keys() != encs[0].pww.weights.keys() for e in encs[1:]):
+            raise ValueError("all requests in a batch must share the color-map grid "
+                             "(the PwW weight pyramids have different spatial keys)")
+
+        n = len(requests)
+
+        def rows(xs):  # [uncond_0..uncond_{n-1}, cond_0..cond_{n-1}]
+            return torch.cat([x[:1] for x in xs] + [x[1:] for x in xs])
+
+        text_states = rows([e.text_states for e in encs])
+        pww = PwwState(
+            weights={k: rows([e.pww.weights[k] for e in encs]) for k in encs[0].pww.weights},
+            weight_orig=rows([e.pww.weight_orig for e in encs]),
+            sigma=torch.zeros((), dtype=torch.float32, device=self.device), weight_fn=wf)
+        added_cond = None
+        if cfg.needs_pooled:
+            # each request's own size: the color map's, else the raw init
+            # image's (pww_tpu/pipeline/pipeline.py:2444-2470)
+            sizes = [_image_hw(r["init_image"], default=(512, 512))
+                     if r.get("init_image") is not None and r.get("color_map_image") is None
+                     else (e.height, e.width) for r, e in zip(requests, encs)]
+            added_cond = {"text_embeds": rows([e.pooled for e in encs]).float(),
+                          "time_ids": micro_time_ids(cfg.xl_refiner, sizes, [(0, 0)] * n,
+                                                     sizes, 6.0, 2.5, self.device)}
+
+        schedule = self.scheduler.set_timesteps(num_inference_steps, self.device)
+        sf = cfg.vae.scale_factor
+        seeds = [int(r.get("seed", 0)) for r in requests]
+        t_start, extra, blend = 0, None, None
+        if img2img:
+            t_start = self._t_start(num_inference_steps, strength, schedule)
+            parts = []
+            for r, seed in zip(requests, seeds):
+                init = preprocess_image(r["init_image"])
+                if init.shape[1:3] != (h0, w0):
+                    raise ValueError(f"all requests in a batch must share resolution (init "
+                                     f"image gives {init.shape[1]}x{init.shape[2]}, batch "
+                                     f"is {h0}x{w0})")
+                parts.append(self._image_latents(
+                    init, r.get("mask_image"), float(r.get("mask_blur", 0.0)),
+                    r.get("masked_content", "original"), seed, 1, schedule, t_start,
+                    noise_mode, "sample", legacy_inpaint))
+            lat = torch.cat([p[0] for p in parts])
+            if inpaint and not legacy_inpaint:
+                extra = torch.cat([p[1] for p in parts])
+            elif legacy_inpaint:
+                blend = tuple(torch.cat(xs) for xs in zip(*(p[2] for p in parts)))
+        else:
+            shape = (1, cfg.vae.latent_channels, h0 // sf, w0 // sf)
+            lat = torch.cat([regional_seed_latents(make_noise(seed, shape, noise_mode,
+                                                              self.device), e.regions,
+                                                   noise_mode)
+                             for seed, e in zip(seeds, encs)])
+            lat = lat * schedule.init_noise_sigma
+        t0 = self._phase("encode", t0)
+        lat = self.denoise(lat, text_states, pww, schedule, float(guidance_scale),
+                           t_start=t_start, extra=extra, blend=blend, seeds=seeds,
+                           added_cond=added_cond)
+        t0 = self._phase("denoise", t0)
+        images = self.decode_uint8_device(lat)
+        if output_type != "device":
+            images = _to_output(images.cpu().numpy(), output_type, single=False)
+        self._phase("decode", t0)
+        return images
+
+    def _t_start(self, steps: int, strength: float, schedule) -> int:
+        """The first visit of an img2img run at ``strength``."""
+        return truncation_checked(
+            t_start_from_strength(steps, strength, self.config.scheduler.steps_offset),
+            schedule)
+
+    def _image_latents(self, init: np.ndarray, mask_image, mask_blur: float,
+                       masked_content: str, seed: int, n: int, schedule, t_start: int,
+                       noise_mode: str, vae_sample_mode: str, legacy_inpaint: bool):
+        """img2img and inpaint: the preprocessed init image's (1, H, W, 3)
+        latents, ``n`` times, re-noised at visit ``t_start`` →
+        (latents, 9-channel inpaint's extra channels or None, the legacy
+        blend or None). ``generate`` and ``generate_batch`` (one request at a
+        time) share it, so that a batched row starts where the request
+        served alone starts."""
+        cfg = self.config
+        sf = cfg.vae.scale_factor
+        inpaint = mask_image is not None
+        proc_mask = None
+        if inpaint:
+            proc_mask = self._prepare_pixel_mask(mask_image, init, mask_blur)
+            if masked_content == "fill":
+                init = fill_masked_region(init[0], proc_mask >= 0.5)[None]
+        moments = self.encode_image(init)
+        if vae_sample_mode == "mean":
+            init_lat = moments[:, :cfg.vae.latent_channels]
+        elif vae_sample_mode == "sample":
+            init_lat = sample_from_moments(moments, side_generator(seed, 1))
+        else:
+            raise ValueError(f"vae_sample_mode must be 'sample' or 'mean', got "
+                             f"{vae_sample_mode!r}")
+        init_lat = (init_lat * cfg.vae.scaling_factor).repeat(n, 1, 1, 1)
+        extra = blend = None
+        if legacy_inpaint:
+            m_lat = resize_linear_antialias(torch.from_numpy(proc_mask).to(self.device),
+                                            init.shape[1] // sf, init.shape[2] // sf)
+            m_lat = torch.clamp(m_lat, 0.0, 1.0)[None, None].expand(n, 1, -1, -1)
+            hole = (m_lat >= 0.5).float()
+            if masked_content == "latent_noise":
+                fresh = torch.randn(init_lat.shape, generator=side_generator(seed, 2))
+                init_lat = init_lat * (1.0 - hole) + fresh.to(self.device) * hole
+            elif masked_content == "latent_nothing":
+                init_lat = init_lat * (1.0 - hole)
+        noise = make_noise(seed, tuple(init_lat.shape), noise_mode, self.device)
+        # the 9-channel path noises at the strength's step even at strength
+        # 1.0, as the reference's inpaint does (inpaint.py:180-198)
+        lat = schedule.add_noise(init_lat, noise, t_start)
+        if legacy_inpaint:
+            blend = (m_lat, init_lat, noise)
+        elif inpaint:
+            extra = self._prepare_inpaint_channels(init, proc_mask, n)
+            if cfg.unet.in_channels != cfg.vae.latent_channels + extra.shape[1]:
+                raise ValueError(
+                    f"UNet expects {cfg.unet.in_channels} input channels but "
+                    f"latents+mask+masked_image = "
+                    f"{cfg.vae.latent_channels + extra.shape[1]}; pass an "
+                    "inpainting checkpoint (9-channel UNet)")
+        return lat, extra, blend
 
     def _control_inputs(self, control_image, scale, proc_hw, n: int):
         """[(ControlNet, (n, 3, H, W) f32 hint on the device, scale)] for the

@@ -108,8 +108,9 @@ def test_txt2img_bias_and_seed_change_the_result(pair):
 
 
 def test_unported_options_raise(pair):
-    """What the port does not have yet: per-step callbacks, IP-Adapter,
-    jax.random noise, the LCM scheduler and hub downloads (img2img, inpaint
+    """What the port does not have yet: IP-Adapter, jax.random noise, the
+    LCM scheduler and hub downloads (per-step callbacks came with the
+    serving slice, tests/test_torch_batch.py; img2img, inpaint
     and custom weight functions came with the second slice,
     tests/test_torch_img2img_inpaint.py; the other schedulers and local
     checkpoint directories are in tests/test_torch_schedulers.py and
@@ -118,8 +119,6 @@ def test_unported_options_raise(pair):
     latent-space img2img, ``init_latents`` with ``denoising_start``, in
     tests/test_torch_sdxl.py)."""
     _, tp = pair
-    with pytest.raises(NotImplementedError):
-        tp.generate(callback=lambda i, t, lat: None, **KWARGS)
     with pytest.raises(NotImplementedError):
         paint_with_words(preloaded_utils=tp, device="cpu",
                          ip_adapter_image=np.zeros((8, 8, 3), np.uint8))
