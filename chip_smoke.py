@@ -17,8 +17,11 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    required bit-identical, with its launch plan printed); then K3 at dh 64
    and 160 and ragged L, K1 in every mode and K2 at ragged Lq and at two and
    four prompt chunks (Lk 154, 308), K1-K3 at the serving path's batch-8
-   shapes (CFG rows B 16, B·H 128), K1-K3 at SD-2.1 768-v's head-dim-64
-   shapes (SD21_SHAPES); then K4 group_norm and K5 layer_norm at
+   shapes (CFG rows B 16, B·H 128), K3 at ToMe's merged L 2048 and K1-K3
+   at the hires fix's 1024² second pass (Lq 16384, dh 40; K3's plain
+   version on two of the 16 (sample, head) pairs), K1-K3 at SD-2.1
+   768-v's head-dim-64 shapes (SD21_SHAPES); then K4 group_norm and K5
+   layer_norm at
    every site signature of the inpaint path (the tables K4_SITES and
    K5_SITES), with ``F.group_norm`` and ``F.layer_norm`` as the library
    yardstick where no pre-add or SiLU, K4 off the path at a streamed span
@@ -56,6 +59,22 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    call); one ``generate`` with a two-window long prompt (K1 and K2 at Lk
    154, 15·N each); one ``POST /generate`` to the server's handler on a
    localhost server, whose PNG must equal ``generate``'s;
+8a. extras reference: each sampling extra on phase 4's reduced-depth
+   config, card bf16 against CPU f32 (``EXTRAS_REF_TOL``): DeepCache 2,
+   FreeU, prompt editing, SAG (with the mask keys that differ at the first
+   visit), the hires fix 256 → 512 px, ToMe 0.5 at 512 px (with the
+   tokens merged on one device only at the first site), and LCM 4-step on
+   a UNet with a 256-wide ``cond_proj``;
+8b. extras: on phase 5's pipeline, the same map, prompt and seed, N steps
+   each: plain, DeepCache ``cache_interval=5`` (full visits K1/K2/K3
+   15/15/10, shallow 5/5/5), ToMe 0.5 (K3 at L 2048 at the 64² sites,
+   counted by length), FreeU, SAG 0.75 (30/30/20 a visit), LCM 4 steps on
+   a copy of the UNet with LCM-Dreamshaper-v7's ``time_cond_proj_dim``
+   256, prompt editing ``[cat:fox:0.5]`` (two prompts encoded), and
+   ``generate_hires`` 512² → 1024² at strength 0.7 (16/16/15 a 1024²
+   visit); each gated on finite final latents that differ from the plain
+   run's and on its launches, with s/image, ms/visit and peak GiB; then
+   5-step profiles of DeepCache and ToMe;
 9. norm sites: a 1-step warm-up of phase 11's pipeline records every K4
    and K5 call's signature, which must be the tables of phase 3;
 10. inpaint reference: a reduced-depth 9-channel inpaint with the norm
@@ -362,6 +381,7 @@ def phase_kernels():
     from pww_tpu_torch.ops import cross_attention_kernel as xk
     from pww_tpu_torch.ops import flash_attention as fa
     from pww_tpu_torch.ops.weight_functions import WeightFunction
+    from pww_tpu_torch.schedulers.schedules import t_start_from_strength
 
     g = torch.Generator(device="cuda").manual_seed(0)
     bf16, B, H, LK = torch.bfloat16, 2, 8, 77
@@ -400,10 +420,17 @@ def phase_kernels():
                time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)),
                flops=4 * B * H * lq * lk * dh, calls=calls)
 
-    def flash_case(l, dh, label, calls=None, H=H, B=B):
+    def flash_case(l, dh, label, calls=None, H=H, B=B, plain_pairs=None):
+        """``plain_pairs``: the (sample, head) pairs, flat, that the plain
+        version checks and is timed on (all by default)."""
         q, k, v = randn(B, H, l, dh), randn(B, H, l, dh), randn(B, H, l, dh)
         got = fa.flash_self_attention(q, k, v)
-        want = fa.self_attention_plain(q, k, v)
+        pq, pk, pv = q, k, v
+        if plain_pairs is not None:
+            pick = list(plain_pairs)
+            pq, pk, pv = (x.reshape(B * H, 1, l, dh)[pick] for x in (q, k, v))
+            got = got.reshape(B * H, 1, l, dh)[pick]
+        want = fa.self_attention_plain(pq, pk, pv)
         # As K2: P rounded to bf16 for the P·V product, about 2^-9 of each
         # term, 2-3e-3 of the output in relative L2, so 1e-2 there; a wrong
         # scale (dh 48 for 40) or a dropped key tile would move it by about
@@ -411,11 +438,11 @@ def phase_kernels():
         record("flash_self_attention", label, got, want,
                2**-6 * want.float().abs().max().item(), 1e-2,
                time_ms(lambda: fa.flash_self_attention(q, k, v)),
-               time_ms(lambda: fa.self_attention_plain(q, k, v), reps=3),
+               time_ms(lambda: fa.self_attention_plain(pq, pk, pv), reps=3),
                bound(4 * q.numel() * 2, 4 * B * H * l * l * dh),
                time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
                flops=4 * B * H * l * l * dh, calls=calls)
-        del q, k, v, got, want
+        del q, k, v, pq, pk, pv, got, want
         torch.cuda.empty_cache()
 
     plan_of = getattr(xk, "pww_reduce_plan", None)  # absent in a parent tree
@@ -494,6 +521,25 @@ def phase_kernels():
         for mode in ("max", "mean", "std"):
             reduce_case(q, k, mode, f"Lq{lq} dh{dh} Lk{2 * LK} {mode}")
         xattn_case(q, k, v, f"Lq{lq} dh{dh} Lk{2 * LK}")
+    # the sampling extras: ToMe 0.5 merges the 512² L 4096 sites to L 2048
+    # before K3; the hires fix's second pass at 1024² runs K1 and K2 at Lq
+    # 16384 and K3 at L 16384 (B·H 16, dh 40), 5 sites a visit, 21 visits
+    # at strength 0.7 (its L 1024 dh 160 and Lq 256 dh 160 sites are the
+    # cases above). Plain K3 at L 16384 would hold 16·16384² f32 scores
+    # (17.2 GB): the kernel runs on all 16 (sample, head) pairs, its plain
+    # version on pairs 0 and 15, the kernel treating each pair on its own
+    flash_case(2048, 40, "tome L2048 dh40", calls=5 * STEPS_PER_RUN)
+    hires_calls = 5 * (STEPS_PER_RUN - t_start_from_strength(STEPS_PER_RUN, 0.7))
+    q, k, v = randn(B, H, 16384, 40), randn(B, H, LK, 40), randn(B, H, LK, 40)
+    for mode in ("max", "mean", "std"):
+        reduce_case(q, k, mode, f"hires Lq16384 dh40 {mode}",
+                    calls=hires_calls if mode == "max" else None)
+    reduce_case(randn(B, H, 16384, 40, mean=4.0), randn(B, H, LK, 40, mean=4.0), "std",
+                "hires Lq16384 dh40 std large-mean")
+    xattn_case(q, k, v, "hires Lq16384 dh40", calls=hires_calls)
+    del q, k, v
+    flash_case(16384, 40, "hires L16384 dh40 (plain on pairs 0 and 15)", calls=hires_calls,
+               plain_pairs=(0, B * H - 1))
     tables = [("sd21", {(h, lq, 64): 5 for lq, h in SD21_SHAPES})]
     tables += [("xl" if name == "sdxl" else "xlr", table) for name, table in SDXL_SITES.items()]
     for tag, table in tables:
@@ -511,10 +557,12 @@ def phase_kernels():
                 flash_case(lq, dh, f"{tag} L{lq} H{h} dh{dh}", calls=calls, H=h)
     for name, cs in cases.by_kernel.items():
         tagged = {tag: [c for c in cs if c["case"].startswith(tag + " ")]
-                  for tag in ["b8"] + [tag for tag, _ in tables]}
+                  for tag in ["b8", "tome", "hires"] + [tag for tag, _ in tables]}
         plain = [c for c in cs if not any(c in t for t in tagged.values())]
         log(f"[kernels] {name}: loss_ms_per_run SD-1.5 512² {loss_ms_per_run(plain):.3f}, "
-            f"batch 8 {loss_ms_per_run(tagged['b8']):.3f}, "
+            f"batch 8 {loss_ms_per_run(tagged['b8']):.3f}, ToMe 0.5 "
+            f"{loss_ms_per_run(tagged['tome']):.3f}, hires 1024² second pass "
+            f"{loss_ms_per_run(tagged['hires']):.3f}, "
             f"SD-2.1 768² {loss_ms_per_run(tagged['sd21']):.3f}, SDXL 1024² "
             f"{loss_ms_per_run(tagged['xl']):.3f}, refiner 1024² "
             f"{loss_ms_per_run(tagged['xlr']):.3f}")
@@ -801,6 +849,11 @@ def phase_profile(run, tag, steps=5):
     for c in counters.values():
         c.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the trace starts a little after the profiler does: late in the
+        # script the first few device kernels of the call went unrecorded
+        # (a K4 among them) until the call waited 0.2 s for it
+        torch.cuda.synchronize()
+        time.sleep(0.2)
         t0 = time.perf_counter()
         run(steps)
         torch.cuda.synchronize()
@@ -1216,6 +1269,370 @@ def phase_http(pipe, req, steps):
         f"generate; /metrics {metrics}")
     if not same:
         raise SystemExit("[http] the served image differs from generate's")
+
+
+# -- the sampling extras (ROADMAP A.14) ------------------------------------------------
+
+# Launches of K1 / K2 / K3 per UNet visit at SD-1.5's 512² (15 / 15 / 10), of
+# DeepCache's shallow visit (down block 0 and the last up block: 5 / 5 / 5),
+# of SAG's visit (the batched pass and the uncond pass on the degraded
+# latents: 30 / 30 / 20), and of a visit at 1024², the hires fix's second
+# pass (the 16² mid block reaches Lq 256 for K1 / K2, and the 32² sites L
+# 1024 for K3: 16 / 16 / 15)
+VISIT = (15, 15, 10)
+SHALLOW_VISIT = (5, 5, 5)
+SAG_VISIT = (30, 30, 20)
+HIRES_VISIT = (16, 16, 15)
+LCM_COND_DIM = 256  # SimianLuo/LCM_Dreamshaper_v7 unet/config.json time_cond_proj_dim
+
+
+def deepcache_launches(steps, interval):
+    full = -(-steps // interval)
+    return tuple(f * full + s * (steps - full) for f, s in zip(VISIT, SHALLOW_VISIT))
+
+
+class KernelShapes:
+    """Counts K1 / K2 / K3 calls by sequence length while active: wraps the
+    UNet module's names for the three wrappers (the wrappers count their
+    own launches as before)."""
+
+    NAMES = ("fused_pww_reduce", "fused_pww_cross_attention", "flash_self_attention")
+
+    def __init__(self):
+        import collections
+
+        import pww_tpu_torch.models.unet as unet_mod
+
+        self.mod, self.seen = unet_mod, collections.Counter()
+        self.originals = {n: getattr(unet_mod, n) for n in self.NAMES}
+
+    def __enter__(self):
+        def wrap(name, fn):
+            def call(q, *args):
+                self.seen[name, q.shape[2]] += 1
+                return fn(q, *args)
+            return call
+
+        for n, fn in self.originals.items():
+            setattr(self.mod, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.originals.items():
+            setattr(self.mod, n, fn)
+
+    def of(self, name):
+        return {l: c for (n, l), c in sorted(self.seen.items()) if n == name}
+
+
+def rel_l2(got, want):
+    import numpy as np
+
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def reduced_sd15(seed=1, **unet_kw):
+    """phase_reference's reduced-depth SD-1.5-width config (UNet (320, 640),
+    one layer a block, the tiny text tower and VAE) and its weights, std 0.1,
+    on the card in f32 and on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from pww_tpu_torch.config import CLIPTextConfig, SDModelConfig, UNetConfig, VAEConfig
+    from pww_tpu_torch.weights.bridge import synthetic_params
+
+    clip = CLIPTextConfig.tiny()
+    unet = UNetConfig(block_out_channels=(320, 640), layers_per_block=1,
+                      down_block_has_attn=(True, False), cross_attention_dim=clip.hidden_size)
+    cfg = SDModelConfig(clip=clip, unet=dataclasses.replace(unet, **unet_kw),
+                        vae=VAEConfig.tiny())
+    # std 0.1 rather than 0.02, so that three steps move the latents well
+    # away from the initial noise and the comparison sees the UNet's output
+    params = synthetic_params(cfg, seed=seed, device="cuda", dtype=torch.float32)
+    params = {p: {k: v * 5.0 for k, v in sd.items()} for p, sd in params.items()}
+    cpu = {p: {k: v.cpu() for k, v in sd.items()} for p, sd in params.items()}
+    return cfg, params, cpu
+
+
+def cat_dog_map(size):
+    import numpy as np
+
+    cm = np.zeros((size, size, 3), np.uint8)
+    cm[:, :size // 2] = (255, 0, 0)
+    cm[:, size // 2:] = (0, 0, 255)
+    return cm
+
+
+# Card bf16 against CPU f32 on the reduced config, relative L2 of the final
+# latents (images for the hires fix): 5e-2 as phase_reference, where the
+# extra changes only the arithmetic. ToMe 1e-1: the card's matching runs on
+# the bf16 block input, so a src token whose two best similarities lie
+# within bf16 rounding can merge into another dst than on the CPU (the
+# phase counts those tokens at the first site); SAG 1e-1: a key whose
+# attention received lies within rounding of the 1.0 cut flips its mask
+# bit, which moves the blur over a 2×2 latent patch (the phase counts the
+# flipped keys at the first visit).
+EXTRAS_REF_TOL = {"DeepCache 2": 5e-2, "ToMe 0.5": 1e-1, "FreeU": 5e-2, "SAG 0.75": 1e-1,
+                  "prompt editing": 5e-2, "LCM 4-step": 5e-2, "hires latent": 5e-2}
+
+
+def phase_extras_reference():
+    """Each extra on the reduced-depth config, card bf16 against CPU f32:
+    256 px, 3 LMS steps (ToMe at 512 px, whose 64² sites merge to L 2048 and
+    take K3; the hires fix 256 → 512 px); K1-K3 must launch on the card."""
+    import numpy as np
+    import torch
+
+    import pww_tpu_torch.models.unet as unet_mod
+    from pww_tpu_torch.pipeline.pipeline import PwwPipeline, sag_mask
+
+    results, failed = {}, []
+    counters = launch_counters()[:3]
+
+    def compare(name, gpu_pipe, cpu_pipe, call):
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        gpu = call(gpu_pipe)
+        launched = tuple(c.launches for c in counters)
+        t1 = time.perf_counter()
+        ref = call(cpu_pipe)
+        t2 = time.perf_counter()
+        rel, tol = rel_l2(gpu, ref), EXTRAS_REF_TOL[name]
+        ok = bool(np.isfinite(np.asarray(gpu, np.float32)).all()) and rel < tol and min(launched)
+        results[name] = rel
+        log(f"[extras reference] {name}: card bf16 vs CPU f32 relative L2 {rel:.3e} (tol "
+            f"{tol:g}), K1/K2/K3 launches {launched}, card {t1 - t0:.1f} s, CPU "
+            f"{t2 - t1:.1f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
+
+    cfg, params, cpu = reduced_sd15()
+    gpu_pipe = PwwPipeline(cfg, params=params, device="cuda", dtype=torch.bfloat16)
+    cpu_pipe = PwwPipeline(cfg, params=cpu, device="cpu", dtype=torch.float32)
+    del params, cpu
+    kw = dict(prompt="a cat sitting next to a dog", color_map_image=cat_dog_map(256),
+              color_context={(255, 0, 0): "cat,0.5", (0, 0, 255): "dog,0.5"},
+              num_inference_steps=3, seed=0, return_latents=True)
+    compare("DeepCache 2", gpu_pipe, cpu_pipe, lambda p: p.generate(**kw, cache_interval=2))
+    compare("FreeU", gpu_pipe, cpu_pipe, lambda p: p.generate(**kw, freeu=True))
+    compare("prompt editing", gpu_pipe, cpu_pipe, lambda p: p.generate(
+        **dict(kw, prompt="a [cat:fox:0.5] sitting next to a dog"), prompt_editing=True))
+
+    masks = {}  # SAG: each run's mask at the first visit
+    real_sag = PwwPipeline._sag_degraded_eps
+
+    def sag_spy(self, lat, eps_u, probs_u, *args):
+        masks.setdefault(self.device.type, sag_mask(probs_u).cpu())
+        return real_sag(self, lat, eps_u, probs_u, *args)
+
+    PwwPipeline._sag_degraded_eps = sag_spy
+    try:
+        compare("SAG 0.75", gpu_pipe, cpu_pipe, lambda p: p.generate(**kw, sag_scale=0.75))
+    finally:
+        PwwPipeline._sag_degraded_eps = real_sag
+    flipped = int((masks["cuda"] != masks["cpu"]).sum())
+    log(f"[extras reference] SAG: {flipped} of {masks['cpu'].numel()} mask keys differ "
+        f"between the card and the CPU at the first visit ({int(masks['cpu'].sum())} set "
+        "on the CPU)")
+    compare("hires latent", gpu_pipe, cpu_pipe, lambda p: p.generate_hires(
+        **{k: v for k, v in kw.items() if k != "return_latents"}, hires_strength=0.7,
+        output_type="np"))
+
+    metrics = {}  # ToMe: the first merge's block input on each device
+    real_merge = unet_mod.build_token_merge
+
+    def merge_spy(metric, h, w, ratio):
+        metrics.setdefault(metric.device.type, (metric.float().cpu(), h, w, ratio))
+        return real_merge(metric, h, w, ratio)
+
+    unet_mod.build_token_merge = merge_spy
+    try:
+        compare("ToMe 0.5", gpu_pipe, cpu_pipe, lambda p: p.generate(
+            **dict(kw, color_map_image=cat_dog_map(512)), tome_ratio=0.5))
+    finally:
+        unet_mod.build_token_merge = real_merge
+    merged = {}
+    for dev, (m, h, w, ratio) in metrics.items():
+        _, unmerge, l_m = real_merge(m, h, w, ratio)
+        slots = unmerge(torch.arange(l_m, dtype=torch.float32)[None, :, None]
+                        .expand(m.shape[0], -1, -1).contiguous())[..., 0]
+        n_unm = l_m - (h // 2) * (w // 2)
+        merged[dev] = slots >= n_unm  # dst tokens and the src tokens merged into them
+    differ = int((merged["cuda"] != merged["cpu"]).sum())
+    log(f"[extras reference] ToMe: at the first site (L {h * w} → {l_m}), {differ} of "
+        f"{merged['cpu'].numel()} tokens merged on one device and not on the other")
+    del gpu_pipe, cpu_pipe
+
+    lcfg, params, cpu = reduced_sd15(seed=2, time_cond_proj_dim=LCM_COND_DIM)
+    gpu_pipe = PwwPipeline(lcfg, params=params, scheduler="lcm", device="cuda",
+                           dtype=torch.bfloat16)
+    cpu_pipe = PwwPipeline(lcfg, params=cpu, scheduler="lcm", device="cpu", dtype=torch.float32)
+    del params, cpu
+    compare("LCM 4-step", gpu_pipe, cpu_pipe, lambda p: p.generate(
+        **dict(kw, num_inference_steps=4), guidance_scale=8.0))
+    del gpu_pipe, cpu_pipe
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"[extras reference] card runs disagree with the CPU: {failed}")
+    return results
+
+
+def phase_extras(pipe, kw, steps):
+    """Each extra at SD-1.5 width, 512², on the main pipeline (the LCM run
+    on a copy of its UNet with a cond_proj of LCM-Dreamshaper-v7's width),
+    the main path's map, prompt and seed: finite latents, the K1/K2/K3
+    launches of the table above, an image unlike the plain one; s/image,
+    ms/step and peak GiB; then 5-step profiles of DeepCache and ToMe.
+    Returns ({run: launches}, {run: profile})."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.pipeline.pipeline import PwwPipeline
+    from pww_tpu_torch.schedulers.schedules import t_start_from_strength
+
+    gkw = dict(prompt=kw["input_prompt"], color_map_image=kw["color_map_image"],
+               color_context=kw["color_context"], guidance_scale=7.5, seed=0,
+               output_type="np")
+    counters = launch_counters()
+    finite, visits, finals = [], [], []
+    decode, denoise = pipe.decode_uint8_device, pipe.denoise
+
+    def checked_decode(lat):
+        finite.append(bool(torch.isfinite(lat).all()))
+        finals.append(lat.float().clone())
+        return decode(lat)
+
+    def counted_denoise(*args, **kwargs):
+        before = [c.launches for c in counters[:3]]
+        out = denoise(*args, **kwargs)
+        visits.append(tuple(c.launches - b for c, b in zip(counters[:3], before)))
+        return out
+
+    # the LCM UNet: the main UNet's weights (shared, not copied) and a
+    # cond_proj drawn from a seed
+    g = torch.Generator(device=pipe.device).manual_seed(3)
+    cond = (torch.randn((pipe.config.unet.block_out_channels[0], LCM_COND_DIM), generator=g,
+                        device=pipe.device) * 0.02).to(pipe.dtype)
+    lcm_cfg = dataclasses.replace(pipe.config, unet=dataclasses.replace(
+        pipe.config.unet, time_cond_proj_dim=LCM_COND_DIM))
+    lcm = PwwPipeline(lcm_cfg, params={
+        "unet": {**pipe.unet.state_dict(), "time_embedding.cond_proj.weight": cond},
+        "clip": pipe.clip.state_dict(), "vae": pipe.vae.state_dict()},
+        tokenizer=pipe.tokenizer, scheduler="lcm", device=pipe.device, dtype=pipe.dtype,
+        profile=True)
+    hires_run = steps - t_start_from_strength(steps, 0.7)
+    edit_prompt = gkw["prompt"].replace("a cat", "a [cat:fox:0.5]", 1)
+    runs = {  # name → (pipeline, call, K1/K2/K3 launches wanted, its last pass's visits)
+        "plain": (pipe, lambda n: pipe.generate(**gkw, num_inference_steps=n),
+                  tuple(v * steps for v in VISIT), steps),
+        "deepcache": (pipe, lambda n: pipe.generate(**gkw, num_inference_steps=n,
+                                                    cache_interval=5),
+                      deepcache_launches(steps, 5), steps),
+        "tome": (pipe, lambda n: pipe.generate(**gkw, num_inference_steps=n, tome_ratio=0.5),
+                 tuple(v * steps for v in VISIT), steps),
+        "freeu": (pipe, lambda n: pipe.generate(**gkw, num_inference_steps=n, freeu=True),
+                  tuple(v * steps for v in VISIT), steps),
+        "sag": (pipe, lambda n: pipe.generate(**gkw, num_inference_steps=n, sag_scale=0.75),
+                tuple(v * steps for v in SAG_VISIT), steps),
+        "lcm": (lcm, lambda n: lcm.generate(**dict(gkw, guidance_scale=8.0),
+                                            num_inference_steps=min(n, 4)),
+                tuple(v * 4 for v in VISIT), 4),
+        "prompt_editing": (pipe, lambda n: pipe.generate(**dict(gkw, prompt=edit_prompt),
+                                                         num_inference_steps=n,
+                                                         prompt_editing=True),
+                           tuple(v * steps for v in VISIT), steps),
+        "hires": (pipe, lambda n: pipe.generate_hires(
+            **{k: v for k, v in gkw.items() if k != "output_type"}, num_inference_steps=n,
+            hires_strength=0.7, output_type="np"),
+            tuple(a * steps + b * hires_run for a, b in zip(VISIT, HIRES_VISIT)), hires_run),
+    }
+    launches, images, problems, shapes, encodes = {}, {}, [], {}, {}
+
+    def against_plain(name):
+        """Relative L2 of a run's final latents against the plain run's, and
+        whether its uint8 image differs (None where the shapes differ)."""
+        if name == "plain" or images[name][1].shape != images["plain"][1].shape:
+            return None
+        lat, ref = images[name][1], images["plain"][1]
+        return (float((lat - ref).norm() / ref.norm()),
+                not np.array_equal(images[name][0], images["plain"][0]))
+    for p in (pipe, lcm):
+        p.decode_uint8_device, p.denoise = checked_decode, counted_denoise
+    encode = PwwPipeline.encode_inputs
+    try:
+        for name, (p, call, want, last_visits) in runs.items():
+            call(2)  # warm-up: cuDNN plans and the allocator at this run's shapes
+            for c in counters:
+                c.launches = 0
+            finite.clear()
+            visits.clear()
+            finals.clear()
+            seen_prompts = []
+
+            def counted_encode(self, prompt, *args, **kwargs):
+                seen_prompts.append(prompt)
+                return encode(self, prompt, *args, **kwargs)
+
+            PwwPipeline.encode_inputs = counted_encode
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()  # weights and the encode cache
+            with KernelShapes() as ks:
+                t0 = time.perf_counter()
+                img = call(steps)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            PwwPipeline.encode_inputs = encode
+            got = {c.__name__: c.launches for c in counters}
+            launches[name] = got
+            images[name] = img, finals[-1]
+            shapes[name] = {n: ks.of(n) for n in KernelShapes.NAMES}
+            encodes[name] = sorted(set(seen_prompts))
+            peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+            denoise_s = p.timings["denoise"]
+            log(f"[extras] {name}: {wall:.3f} s/image, denoise {denoise_s:.3f} s over the "
+                f"last pass's {last_visits} visits ({denoise_s / last_visits * 1e3:.1f} "
+                f"ms/visit), peak {peak:.2f} GiB above the {held / 2**30:.2f} GiB held before "
+                f"it, image {img.shape} mean {img.mean():.2f} std "
+                f"{img.std():.2f}; final latents against plain's: {against_plain(name)}; "
+                f"launches {got}, K1/K2/K3 per denoise call {visits}; calls by sequence "
+                f"length {shapes[name]}; prompts encoded {len(encodes[name])}")
+            k = (got["fused_pww_reduce"], got["fused_pww_cross_attention"],
+                 got["flash_self_attention"])
+            if k != want or got["group_norm"] or got["layer_norm"]:
+                problems.append(f"{name}: launches {k} != {want}")
+            if not finite or not all(finite):
+                problems.append(f"{name}: latents finite {finite}")
+            if name != "plain" and torch.equal(finals[-1], images["plain"][1]):
+                problems.append(f"{name}: its final latents equal the plain ones")
+    finally:
+        PwwPipeline.encode_inputs = encode
+        for p in (pipe, lcm):
+            del p.decode_uint8_device, p.denoise
+    l4096 = 64 * 64
+    tome_k3 = shapes["tome"]["flash_self_attention"]
+    if tome_k3 != {1024: 5 * steps, l4096 // 2: 5 * steps}:
+        problems.append(f"tome: K3 by length {tome_k3}, want 5·{steps} at L 2048 and L 1024")
+    hires = shapes["hires"]
+    if (hires["fused_pww_reduce"].get(128 * 128) != 5 * hires_run
+            or hires["flash_self_attention"].get(128 * 128) != 5 * hires_run
+            or images["hires"][0].shape != (1, 1024, 1024, 3)):
+        problems.append(f"hires: second pass {hires}, image {images['hires'][0].shape}")
+    if len(encodes["prompt_editing"]) != 2:
+        problems.append(f"prompt editing: encodes {encodes['prompt_editing']}")
+    if problems:
+        raise SystemExit(f"[extras] {problems}")
+    profiled = {}
+    for name in ("deepcache", "tome"):
+        profiled[name] = phase_profile(runs[name][1], f"extras {name}")
+    del lcm
+    torch.cuda.empty_cache()
+    return launches, profiled
 
 
 def inpaint_pipeline():
@@ -2212,6 +2629,8 @@ def main():
         raise SystemExit("[profile main] K1 is not one device kernel per call")
     phase_img2img(pipe, kw, args.steps)
     blaunches, bprofiled = phase_serve(pipe, args.steps)
+    phase_extras_reference()
+    elaunches, eprofiled = phase_extras(pipe, kw, args.steps)
     del pipe, kw
     import torch
 
@@ -2260,6 +2679,9 @@ def main():
             sdxl_path_device_ms_per_call=xprofiled.get(group, (None,))[0],
             batch8_path_launches=blaunches[counter],
             batch8_path_device_ms_per_call=bprofiled.get(group, (None,))[0],
+            extras_path_launches={run: n[counter] for run, n in elaunches.items()},
+            extras_path_device_ms_per_call={
+                run: p.get(group, (None,))[0] for run, p in eprofiled.items()},
             ensemble_launches=({part: n[path_kernels.index(counter)]
                                 for part, n in ensemble.items()}
                                if counter in path_kernels else None),

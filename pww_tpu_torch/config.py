@@ -3,7 +3,9 @@
 Mirrors :mod:`pww_tpu.config` for SD-1.x (txt2img, img2img, inpaint),
 SD-2.x (head dim 64, OpenCLIP-H text tower, v-prediction) and SDXL base and
 refiner (dual or single projected text tower, transformer depth per stage,
-``text_time`` micro-conditioning). The knobs that only shaped TPU code (conv lowering, head-dim lane
+``text_time`` micro-conditioning) and LCM-distilled UNets
+(``time_cond_proj_dim``). ToMe, FreeU and SAG are per-call options of the
+UNet's forward here, not config fields as in the JAX package. The knobs that only shaped TPU code (conv lowering, head-dim lane
 padding, cross-attention grid-order variants, Mosaic block sizes) are not
 carried over; the kernel dispatch thresholds and the norm-kernel switches
 are.
@@ -90,6 +92,13 @@ class UNetConfig:
     addition_embed_type: Optional[str] = None
     addition_time_embed_dim: int = 256
     projection_class_embeddings_input_dim: Optional[int] = None
+    # LCM-distilled UNets: width of the Fourier guidance-scale embedding that
+    # ``time_embedding.cond_proj`` adds to the timestep embedding (diffusers'
+    # ``time_cond_proj_dim``; 256 for LCM-Dreamshaper-v7); None = none
+    time_cond_proj_dim: Optional[int] = None
+    # ToMe (a per-call ``tome_ratio``) merges only at the self-attention
+    # sites of at least this many tokens (tomesd's max_downsample=1 at 512²)
+    tome_min_tokens: int = 4096
     # Kernel dispatch (pww_tpu/models/unet.py:177-211): self-attention with
     # L >= flash_min_seq runs the flash kernel; PwW cross-attention with
     # Lq >= fused_cross_min_seq runs the reduce + fused cross-attention pair.
@@ -216,6 +225,12 @@ class SchedulerConfig:
     # Karras et al. (2022) ρ=7 sigma spacing (lms/euler/euler_ancestral/heun,
     # and the trajectories of dpmpp_2m, dpmpp_2m_sde and unipc).
     use_karras_sigmas: bool = False
+    # LCM: timesteps come from the teacher's original_inference_steps-point
+    # DDIM grid; the boundary scalings c_skip and c_out are taken at
+    # timestep_scaling·t with the constant sigma_data
+    original_inference_steps: int = 50
+    timestep_scaling: float = 10.0
+    sigma_data: float = 0.5
 
 
 @dataclasses.dataclass(frozen=True)

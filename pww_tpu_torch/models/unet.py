@@ -18,12 +18,16 @@ Attention dispatch (``pww_tpu/models/unet.py:177-211``), per site:
     structured weight function → K1 reduce, then K2 fused cross-attention;
   * everything else → dense :func:`pww_attention`, and so is any head dim
     the kernels are not built for (``HEAD_DIMS``), the reference's own
-    route for shapes its kernels do not take.
+    route for shapes its kernels do not take;
+  * SAG's site, when a call asks for its probabilities → dense f32.
+
+The sampling extras are arguments of :meth:`UNet2DConditionModel.forward`:
+ToMe, FreeU, SAG's probabilities and DeepCache's collect and use passes.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +40,7 @@ from ..ops.cross_attention_kernel import (HEAD_DIMS, fused_pww_cross_attention,
 from ..ops.flash_attention import flash_self_attention
 from ..ops.group_norm import group_norm_site
 from ..ops.layer_norm import layer_norm_site
+from ..ops.tome import build_token_merge
 from ..ops.weight_functions import CustomWeightFunction
 from ..types import PwwState
 
@@ -53,12 +58,20 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
 
 
 class TimestepEmbedding(nn.Module):
-    def __init__(self, in_dim: int, dim: int):
+    """``cond_dim``: an LCM-distilled UNet's guidance-scale condition, whose
+    bias-free projection ``cond_proj`` joins the sinusoidal embedding before
+    ``linear_1`` (diffusers' ``TimestepEmbedding.cond_proj``,
+    ``pww_tpu/models/unet.py:44-62``)."""
+
+    def __init__(self, in_dim: int, dim: int, cond_dim: Optional[int] = None):
         super().__init__()
+        self.cond_proj = None if cond_dim is None else nn.Linear(cond_dim, in_dim, bias=False)
         self.linear_1 = nn.Linear(in_dim, dim)
         self.linear_2 = nn.Linear(dim, dim)
 
-    def forward(self, t_emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, t_emb: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if cond is not None:
+            t_emb = t_emb + self.cond_proj(cond)
         return self.linear_2(F.silu(self.linear_1(t_emb)))
 
 
@@ -118,7 +131,12 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                pww: Optional[PwwState] = None) -> torch.Tensor:
+                pww: Optional[PwwState] = None,
+                sag_probs: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        """``sag_probs`` (self-attention only): a list that takes this site's
+        f32 attention probabilities (B, H, L, L) for SAG; the site's output
+        then comes from those probabilities in f32 too, as in
+        ``pww_tpu/models/unet.py:163-176``, on every path."""
         cfg = self.cfg
         is_self = context is None
         ctx = x if is_self else context
@@ -129,7 +147,12 @@ class Attention(nn.Module):
         if pww is not None and not is_self:
             bias_w = pww.bias_for(lq)
             weight_fn, sigma = pww.weight_fn, pww.sigma
-        if is_self and cfg.flash_attention and lq >= cfg.flash_min_seq and dh in HEAD_DIMS:
+        if is_self and sag_probs is not None:
+            s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * dh ** -0.5
+            probs = torch.softmax(s, dim=-1)
+            sag_probs.append(probs)
+            out = torch.matmul(probs, v.float()).to(v.dtype)
+        elif is_self and cfg.flash_attention and lq >= cfg.flash_min_seq and dh in HEAD_DIMS:
             out = flash_self_attention(q, k, v)
         elif (bias_w is not None and cfg.fused_cross_attention
               and lq >= cfg.fused_cross_min_seq and dh in HEAD_DIMS
@@ -153,9 +176,17 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
         self.fused_norm = cfg.fused_layer_norm
 
-    def forward(self, x, context, pww):
+    def forward(self, x, context, pww, grid=None, tome_ratio: float = 0.0, sag_probs=None):
+        """``tome_ratio`` > 0 with the token ``grid`` (h, w): ToMe around
+        ``attn1``, the block input as the similarity metric
+        (``pww_tpu/models/unet.py:264-275``)."""
         fused = self.fused_norm
-        x = x + self.attn1(layer_norm_site(self.norm1, x, fused=fused))
+        h = layer_norm_site(self.norm1, x, fused=fused)
+        if tome_ratio > 0.0 and grid is not None:
+            merge, unmerge, _ = build_token_merge(x, grid[0], grid[1], tome_ratio)
+            x = x + unmerge(self.attn1(merge(h)))
+        else:
+            x = x + self.attn1(h, sag_probs=sag_probs)
         x = x + self.attn2(layer_norm_site(self.norm2, x, fused=fused), context, pww)
         return x + self.ff(layer_norm_site(self.norm3, x, fused=fused))
 
@@ -168,6 +199,7 @@ class Transformer2DModel(nn.Module):
                  depth: int = 1):
         super().__init__()
         self.fused_norm = cfg.fused_group_norm
+        self.tome_min_tokens = cfg.tome_min_tokens
         self.norm = nn.GroupNorm(cfg.norm_num_groups, channels, eps=1e-6)
         self.proj_in = nn.Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList(
@@ -175,12 +207,15 @@ class Transformer2DModel(nn.Module):
         )
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
-    def forward(self, x, context, pww):
+    def forward(self, x, context, pww, tome_ratio: float = 0.0, sag_probs=None):
+        """ToMe only at sites of at least ``tome_min_tokens`` tokens (tomesd's
+        max_downsample=1); ``sag_probs`` goes to block 0's ``attn1``."""
         b, c, h, w = x.shape
         z = self.proj_in(group_norm_site(self.norm, x, fused=self.fused_norm))
         z = z.permute(0, 2, 3, 1).reshape(b, h * w, c).contiguous()
-        for blk in self.transformer_blocks:
-            z = blk(z, context, pww)
+        tome = tome_ratio if h * w >= self.tome_min_tokens else 0.0
+        for i, blk in enumerate(self.transformer_blocks):
+            z = blk(z, context, pww, (h, w), tome, sag_probs if i == 0 else None)
         z = z.reshape(b, h, w, c).permute(0, 3, 1, 2)
         return self.proj_out(z) + x
 
@@ -222,19 +257,22 @@ class DownBlock(nn.Module):
         self.downsamplers = None if last else nn.ModuleList([Downsample2D(c_out)])
 
     def forward(self, x, temb, ctx, pww, skips: List[torch.Tensor],
-                intrablock: Optional[torch.Tensor] = None):
+                intrablock: Optional[torch.Tensor] = None, tome_ratio: float = 0.0,
+                downsample: bool = True):
         """``intrablock``: a T2I-Adapter feature, added after the last
         transformer, so that it joins that skip and the downsampler's input
         (diffusers' CrossAttnDownBlock2D ``additional_residuals``). An
-        attention-less block takes its feature in the UNet, after the block."""
+        attention-less block takes its feature in the UNet, after the block.
+        ``downsample=False`` stops before the downsampler and its skip (the
+        JAX package's ``_down_block``, which DeepCache's shallow pass runs)."""
         for i, resnet in enumerate(self.resnets):
             x = resnet(x, temb)
             if self.attentions is not None:
-                x = self.attentions[i](x, ctx, pww)
+                x = self.attentions[i](x, ctx, pww, tome_ratio)
                 if intrablock is not None and i == len(self.resnets) - 1:
                     x = x + intrablock.to(x.dtype)
             skips.append(x)
-        if self.downsamplers is not None:
+        if self.downsamplers is not None and downsample:
             x = self.downsamplers[0](x)
             skips.append(x)
         return x
@@ -258,11 +296,20 @@ class UpBlock(nn.Module):
         ) if has_attn else None
         self.upsamplers = None if last else nn.ModuleList([Upsample2D(c_out)])
 
-    def forward(self, x, temb, ctx, pww, skips: List[torch.Tensor]):
+    def forward(self, x, temb, ctx, pww, skips: List[torch.Tensor], tome_ratio: float = 0.0,
+                freeu: Optional[Tuple[float, float]] = None):
+        """``freeu`` = (b, s): FreeU before each resnet, the backbone's first
+        half of the channels times b and the skip's low frequencies times s
+        (``pww_tpu/models/unet.py:441-450``)."""
         for i, resnet in enumerate(self.resnets):
-            x = resnet(torch.cat([x, skips.pop()], dim=1), temb)
+            skip = skips.pop()
+            if freeu is not None:
+                half = x.shape[1] // 2
+                x = torch.cat([x[:, :half] * freeu[0], x[:, half:]], dim=1)
+                skip = fourier_filter(skip, 1, freeu[1])
+            x = resnet(torch.cat([x, skip], dim=1), temb)
             if self.attentions is not None:
-                x = self.attentions[i](x, ctx, pww)
+                x = self.attentions[i](x, ctx, pww, tome_ratio)
         if self.upsamplers is not None:
             x = self.upsamplers[0](x)
         return x
@@ -280,10 +327,28 @@ class UNetMidBlock2DCrossAttn(nn.Module):
                                 cfg.depth_for(len(cfg.block_out_channels) - 1))]
         )
 
-    def forward(self, x, temb, ctx, pww):
+    def forward(self, x, temb, ctx, pww, tome_ratio: float = 0.0, sag_probs=None):
         x = self.resnets[0](x, temb)
-        x = self.attentions[0](x, ctx, pww)
+        x = self.attentions[0](x, ctx, pww, tome_ratio, sag_probs)
         return self.resnets[1](x, temb)
+
+
+def fourier_filter(x: torch.Tensor, threshold: int, scale: float) -> torch.Tensor:
+    """FreeU's skip filter (Si et al. 2023, ``Fourier_filter``): the
+    frequencies inside the centred ``threshold`` box of the shifted 2-D
+    spectrum of the last two axes times ``scale``, in f32, cast back
+    (``pww_tpu/models/unet.py:368-385``, there over NHWC's spatial axes)."""
+    dims = (-2, -1)
+    xf = torch.fft.fftshift(torch.fft.fftn(x.float(), dim=dims), dim=dims)
+    h, w = x.shape[-2], x.shape[-1]
+    rows = torch.arange(h, device=x.device) - h // 2
+    cols = torch.arange(w, device=x.device) - w // 2
+    box = (((rows >= -threshold) & (rows < threshold))[:, None]
+           & ((cols >= -threshold) & (cols < threshold))[None, :])
+    ones = torch.ones((h, w), dtype=torch.float32, device=x.device)
+    xf = xf * torch.where(box, ones * scale, ones)
+    xf = torch.fft.ifftshift(xf, dim=dims)
+    return torch.fft.ifftn(xf, dim=dims).real.to(x.dtype)
 
 
 def skip_channels(cfg: UNetConfig) -> List[int]:
@@ -306,7 +371,7 @@ class UNet2DConditionModel(nn.Module):
         n = len(chs)
         temb_dim = chs[0] * cfg.time_embed_mult
         self.conv_in = nn.Conv2d(cfg.in_channels, chs[0], 3, padding=1)
-        self.time_embedding = TimestepEmbedding(chs[0], temb_dim)
+        self.time_embedding = TimestepEmbedding(chs[0], temb_dim, cfg.time_cond_proj_dim)
         if cfg.addition_embed_type == "text_time":
             self.add_embedding = TimestepEmbedding(
                 cfg.projection_class_embeddings_input_dim, temb_dim)
@@ -337,7 +402,13 @@ class UNet2DConditionModel(nn.Module):
                 mid_block_residual: Optional[torch.Tensor] = None,
                 down_intrablock_residuals: Optional[Sequence[torch.Tensor]] = None,
                 added_cond: Optional[dict] = None,
-                ) -> torch.Tensor:
+                *,
+                tome_ratio: float = 0.0,
+                freeu: Optional[Tuple[float, float, float, float]] = None,
+                sag_probs: Optional[List[torch.Tensor]] = None,
+                cache_mode: Optional[str] = None,
+                cached_feature: Optional[torch.Tensor] = None,
+                ):
         """(B, C_in, h, w) latents → (B, C_out, h, w) in the compute dtype.
 
         ``down_block_residuals`` (one per skip, the ``conv_in`` skip first)
@@ -352,14 +423,36 @@ class UNet2DConditionModel(nn.Module):
         6)}, both f32, is SDXL's micro-conditioning
         (``pww_tpu/models/unet.py:538-553``): the time ids' sinusoidal
         embeddings after the pooled text, cast to the compute dtype and
-        through ``add_embedding``, join the timestep embedding.
+        through ``add_embedding``, join the timestep embedding. An
+        LCM-distilled UNet (``time_cond_proj_dim``) takes the embedded
+        guidance scale as ``added_cond["timestep_cond"]`` (B, dim).
+
+        The sampling extras, per call (the JAX package builds a module per
+        setting, ``pww_tpu/pipeline/pipeline.py:1161-1190``): ``tome_ratio``
+        merges tokens around every ``attn1`` of at least
+        ``config.tome_min_tokens`` tokens; ``freeu`` = (b1, b2, s1, s2)
+        re-weights up blocks 0 and 1; ``sag_probs`` takes the mid block's
+        first self-attention probabilities (SAG). DeepCache
+        (``pww_tpu/models/unet.py:490-512, 565-581, 638-648``):
+        ``cache_mode="collect"`` returns ``(out, feature)``, the feature the
+        output of up block n−2 after its upsampler (the last up block's
+        input); ``cache_mode="use"`` runs only ``conv_in``, down block 0
+        (without its downsampler), the last up block on ``cached_feature``
+        and the head.
         """
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(sample.shape[0])
         t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0])
-        temb = self.time_embedding(t_emb.to(dtype))
+        t_cond = None
+        if cfg.time_cond_proj_dim is not None:
+            if added_cond is None or "timestep_cond" not in added_cond:
+                raise ValueError('time_cond_proj_dim is set: pass added_cond='
+                                 '{"timestep_cond": (B, time_cond_proj_dim)} '
+                                 "(the embedded guidance scale)")
+            t_cond = added_cond["timestep_cond"].to(dtype)
+        temb = self.time_embedding(t_emb.to(dtype), t_cond)
         if cfg.addition_embed_type == "text_time":
             if added_cond is None:
                 raise ValueError('addition_embed_type="text_time" requires added_cond='
@@ -372,9 +465,27 @@ class UNet2DConditionModel(nn.Module):
         ctx = encoder_hidden_states.to(dtype)
         x = self.conv_in(sample.to(dtype))
         skips = [x]
+        n = len(self.up_blocks)
+
+        def up_freeu(i):
+            if freeu is None or i >= 2:
+                return None
+            return (freeu[0], freeu[2]) if i == 0 else (freeu[1], freeu[3])
+
+        if cache_mode == "use":
+            if down_block_residuals is not None or mid_block_residual is not None:
+                raise ValueError("DeepCache shallow pass + ControlNet residuals "
+                                 "is not supported")
+            if cached_feature is None:
+                raise ValueError('cache_mode="use" requires cached_feature')
+            self.down_blocks[0](x, temb, ctx, pww, skips, tome_ratio=tome_ratio,
+                                downsample=False)
+            x = self.up_blocks[n - 1](cached_feature.to(dtype), temb, ctx, pww, skips,
+                                      tome_ratio, up_freeu(n - 1))
+            return self._head(x)
         for i, blk in enumerate(self.down_blocks):
             intra = None if down_intrablock_residuals is None else down_intrablock_residuals[i]
-            x = blk(x, temb, ctx, pww, skips, intra)
+            x = blk(x, temb, ctx, pww, skips, intra, tome_ratio)
             if intra is not None and blk.attentions is None:
                 x = x + intra.to(x.dtype)
         if down_block_residuals is not None:
@@ -382,10 +493,17 @@ class UNet2DConditionModel(nn.Module):
                 raise ValueError(f"{len(down_block_residuals)} down-block residuals for "
                                  f"{len(skips)} skips")
             skips = [s + r for s, r in zip(skips, down_block_residuals)]
-        x = self.mid_block(x, temb, ctx, pww)
+        x = self.mid_block(x, temb, ctx, pww, tome_ratio, sag_probs)
         if mid_block_residual is not None:
             x = x + mid_block_residual
-        for blk in self.up_blocks:
-            x = blk(x, temb, ctx, pww, skips)
+        feature = None
+        for i, blk in enumerate(self.up_blocks):
+            x = blk(x, temb, ctx, pww, skips, tome_ratio, up_freeu(i))
+            if i == n - 2:
+                feature = x
+        out = self._head(x)
+        return (out, feature) if cache_mode == "collect" else out
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv_out(group_norm_site(self.conv_norm_out, x, silu=True,
                                              fused=self.config.fused_group_norm))

@@ -48,6 +48,18 @@ group's uncached prompt pairs go through the text encoder in one call.
 Prompt options: A1111 weighting, long prompts (n·77 text keys), CLIP skip.
 ``generate(callback=...)`` calls back every ``callback_steps`` visits, and
 ``output_type="device"`` returns the un-fetched uint8 images on the card.
+
+The sampling extras (``pww_tpu/pipeline/pipeline.py:165-414, 1497-2236``),
+per call of ``generate`` and ``generate_batch``: DeepCache
+(``cache_interval``: a full UNet visit every ``cache_interval`` visits, the
+shallow pass on the cached deep feature between them), ToMe
+(``tome_ratio``), FreeU (``freeu``), Self-Attention Guidance
+(``sag_scale``: a second, uncond-only UNet pass per visit on latents
+blurred where the mid block's self-attention looks most), LCM-distilled
+UNets (the guidance scale embedded as a UNet input, the external CFG scale
+1.0) with the ``lcm`` scheduler; in ``generate`` alone, A1111 prompt
+editing (``prompt_editing``: the conditioning switches at the schedule's
+steps), and :meth:`PwwPipeline.generate_hires`, the two-pass hires fix.
 Everything else the JAX pipeline's ``generate`` takes raises
 ``NotImplementedError`` here (when on, for the options :data:`UNPORTED`
 lists with their ROADMAP items).
@@ -56,6 +68,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 import threading
 import time
 import warnings
@@ -69,6 +82,7 @@ from ..conditioning.encode import (EncodedInputs, padded_ids, cache_text,
 from ..conditioning.seeding import make_noise, regional_seed_latents
 from ..config import SDModelConfig
 from ..models.vae import sample_from_moments
+from ..ops.blur import gaussian_blur
 from ..ops.resize import resize_linear_antialias, resize_nearest
 from ..ops.weight_functions import (AnyWeightFunction, CustomWeightFunction,
                                    as_weight_function)
@@ -86,11 +100,6 @@ NO_STRENGTH_TRUNCATION = ("pndm", "heun", "unipc", "dpmpp_2m", "dpmpp_2m_sde")
 # leaves each off, and the ROADMAP item that ports it. Off, they are
 # accepted (a serving request carries them all); on, they raise.
 UNPORTED = {
-    "cache_interval": (1, "A.14 (DeepCache)"),
-    "tome_ratio": (0.0, "A.14 (ToMe)"),
-    "freeu": (None, "A.14 (FreeU)"),
-    "sag_scale": (0.0, "A.14 (SAG)"),
-    "prompt_editing": (False, "A.14 (prompt editing)"),
     "ip_adapter_image": (None, "A.15 (IP-Adapter)"),
     "ip_adapter_scale": (None, "A.15 (IP-Adapter)"),
 }
@@ -108,6 +117,43 @@ def refuse_unported(where: str, options: Dict) -> None:
         else:
             raise NotImplementedError(f"{where}({name}=...) is not ported to "
                                       "pww_tpu_torch yet")
+
+
+def guidance_scale_embedding(w: float, dim: int, device="cpu") -> torch.Tensor:
+    """The guidance scale's Fourier embedding for an LCM-distilled UNet
+    (diffusers' ``get_guidance_scale_embedding``,
+    ``pww_tpu/pipeline/pipeline.py:2817-2832``): (w − 1)·1000 at log-spaced
+    frequencies, the sin block then the cos block, zero-padded to an odd
+    ``dim``; (dim,) f32."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32)
+                      / (half - 1))
+    args = torch.tensor(np.float32((w - 1.0) * 1000.0)) * freqs
+    emb = torch.cat([torch.sin(args), torch.cos(args)])
+    if dim % 2 == 1:
+        emb = torch.cat([emb, emb.new_zeros(1)])
+    return emb.to(device)
+
+
+def freeu_params(freeu, is_xl: bool) -> Optional[Tuple[float, float, float, float]]:
+    """``freeu=True``: the FreeU README's defaults for the family (SD-1.x /
+    2.x 1.5, 1.6, 0.9, 0.2; SDXL 1.3, 1.4, 0.9, 0.2); a tuple: (b1, b2, s1,
+    s2); None: off (``pww_tpu/pipeline/pipeline.py:1171-1180``)."""
+    if freeu is True:
+        return (1.3, 1.4, 0.9, 0.2) if is_xl else (1.5, 1.6, 0.9, 0.2)
+    if freeu is None:
+        return None
+    freeu = tuple(float(v) for v in freeu)
+    if len(freeu) != 4:
+        raise ValueError("freeu must be (b1, b2, s1, s2) or True")
+    return freeu
+
+
+def sag_mask(probs: torch.Tensor) -> torch.Tensor:
+    """SAG's salient keys (diffusers' ``sag_masking``): (N, H, L, L)
+    attention probabilities → (N, L), true where a key receives more than
+    1.0 of attention summed over the queries, averaged over the heads."""
+    return probs.mean(dim=1).sum(dim=1) > 1.0
 
 
 def check_noise_mode(noise_mode: str) -> None:
@@ -498,7 +544,8 @@ class PwwPipeline:
                 t_start: int = 0, extra: Optional[torch.Tensor] = None, blend=None,
                 seeds: Sequence[int] = (0,), control=None, adapter=None, added_cond=None,
                 t_end: Optional[int] = None, callback: Optional[Callable] = None,
-                callback_steps: int = 1):
+                callback_steps: int = 1, cache_interval: int = 1, tome_ratio: float = 0.0,
+                freeu=None, sag_scale: float = 0.0, conds: Optional[Dict] = None):
         """The scheduler's loop from visit ``t_start`` to ``t_end`` (default:
         the last); latents (N, C, h, w) f32 in and out.
 
@@ -524,17 +571,56 @@ class PwwPipeline:
         on the batched path each net sees the hint twice and the batched PwW
         state, on the split path it runs per half, without any bias on the
         uncond one. ``adapter``: the T2I-Adapter's f32 features, N-batched.
-        ``added_cond``: SDXL's pooled text and time_ids, 2N rows [uncond*N,
-        cond*N], each CFG half taking its own on the split path.
+        ``added_cond``: SDXL's pooled text and time_ids and an LCM UNet's
+        ``timestep_cond``, 2N rows [uncond*N, cond*N], each CFG half taking
+        its own on the split path.
+
+        The extras (``pww_tpu/pipeline/pipeline.py:165-414``):
+        ``cache_interval`` > 1 is DeepCache, a full visit (which caches the
+        deep feature) every ``cache_interval`` visits counted from
+        ``t_start`` and the shallow pass between; ``tome_ratio`` and
+        ``freeu`` go to every UNet call; ``sag_scale`` > 0 is SAG: the uncond
+        rows' mid-block self-attention marks the keys that receive more
+        than their share (summed over queries, averaged over heads, > 1),
+        the uncond x0 is blurred there (9 taps, σ 1), re-noised with the
+        uncond ε, and one more uncond-only pass on it pushes the guided ε
+        away by ``sag_scale``·(ε_u − ε_degraded). ``conds``: prompt editing,
+        {visit: (text_states, pww, added_cond)} for every visit, replacing
+        the three arguments.
         """
+        split = isinstance(pww.weight_fn, CustomWeightFunction)
+        sag = sag_scale > 0
+        if blend is not None and sag:
+            raise ValueError("sag_scale is not supported with legacy masked-blend inpainting")
+        if blend is not None and cache_interval > 1:
+            raise ValueError("cache_interval > 1 is not supported with legacy masked-blend "
+                             "inpainting")
+        if sag:
+            if split:
+                raise ValueError("sag_scale requires the batched CFG path (no custom weight "
+                                 "functions)")
+            if control or adapter is not None:
+                raise ValueError("sag_scale is not supported with ControlNet or T2I-Adapter")
+            if extra is not None:
+                raise ValueError("sag_scale is not supported with inpainting (9-channel UNets)")
+            if cache_interval > 1:
+                raise ValueError("sag_scale is not supported with DeepCache")
+            if callback is not None:
+                raise ValueError("sag_scale is not supported with per-step callbacks")
+        if cache_interval > 1:
+            if control:
+                raise ValueError("cache_interval > 1 is not supported with ControlNet")
+            if adapter is not None:
+                raise ValueError("cache_interval > 1 is not supported with a T2I-Adapter (the "
+                                 "deep-trunk features the cache reuses include the adapter "
+                                 "residuals of the cached step)")
+            if split:
+                raise ValueError("cache_interval > 1 requires the batched CFG path; custom "
+                                 "weight functions run split CFG and cannot deep-cache")
         n = latents.shape[0]
         lat = latents.float()
-        split = isinstance(pww.weight_fn, CustomWeightFunction)
-        if split:
-            cond_pww = dataclasses.replace(
-                pww, weights={k: v[n:] for k, v in pww.weights.items()},
-                weight_orig=None if pww.weight_orig is None else pww.weight_orig[n:])
         prediction_type = self.config.unet.prediction_type
+        extras = dict(tome_ratio=float(tome_ratio), freeu=freeu)
         state = schedule.init_state(lat.shape, self.device)
         step_noise = ([side_generator(s, 3) for s in seeds] if schedule.needs_noise
                       else None)
@@ -543,17 +629,24 @@ class PwwPipeline:
         if not split:  # both CFG halves in one call: hints and features twice
             control = [(net, torch.cat([h, h]), sc) for net, h, sc in control or ()]
             adapter = None if adapter is None else [torch.cat([a, a]) for a in adapter]
+        feature = None  # DeepCache's deep feature, from the last full visit
         for i in range(t_start, t_stop):
+            if conds is not None:
+                text_states, pww, added_cond = conds[i]
             if blend is not None:
                 mask, init, noise = blend
                 lat = schedule.add_noise(init, noise, i) * (1.0 - mask) + lat * mask
             lat_c = schedule.scale_model_input(lat, i).to(self.dtype)
             t, sigma = schedule.timesteps[i], schedule.sigma(i)
+            pww_t = pww.with_sigma(sigma)
+            probs = [] if sag else None
             if split:
+                cond_pww = dataclasses.replace(
+                    pww_t, weights={k: v[n:] for k, v in pww_t.weights.items()},
+                    weight_orig=None if pww_t.weight_orig is None else pww_t.weight_orig[n:])
                 lat_in = lat_c if extra is None else torch.cat([lat_c, extra], dim=1)
                 outs = []
-                for half, p in ((slice(0, n), None), (slice(n, 2 * n),
-                                                      cond_pww.with_sigma(sigma))):
+                for half, p in ((slice(0, n), None), (slice(n, 2 * n), cond_pww)):
                     ac = None if added_cond is None else {k: v[half]
                                                           for k, v in added_cond.items()}
                     down = mid = None
@@ -561,21 +654,30 @@ class PwwPipeline:
                         down, mid = self._control_residuals(control, lat_c, t,
                                                             text_states[half], p)
                     outs.append(self.unet(lat_in, t, text_states[half], p, down, mid,
-                                          adapter, ac).float())
+                                          adapter, ac, **extras).float())
                 out_u, out_c = outs
             else:
                 lat2 = torch.cat([lat_c, lat_c])
-                pww_t = pww.with_sigma(sigma)
                 down = mid = None
                 if control:
                     down, mid = self._control_residuals(control, lat2, t, text_states, pww_t)
                 if extra is not None:
                     lat2 = torch.cat([lat2, torch.cat([extra, extra])], dim=1)
-                eps2 = self.unet(lat2, t, text_states, pww_t, down, mid, adapter, added_cond)
+                args = (lat2, t, text_states, pww_t, down, mid, adapter, added_cond)
+                if cache_interval > 1 and (i - t_start) % cache_interval == 0:
+                    eps2, feature = self.unet(*args, cache_mode="collect", **extras)
+                elif cache_interval > 1:
+                    eps2 = self.unet(*args, cache_mode="use", cached_feature=feature, **extras)
+                else:
+                    eps2 = self.unet(*args, sag_probs=probs, **extras)
                 out_u, out_c = eps2[:n].float(), eps2[n:].float()
             eps_u = schedule.to_epsilon(out_u, lat, i, prediction_type)
             eps_c = schedule.to_epsilon(out_c, lat, i, prediction_type)
             eps = eps_u + guidance_scale * (eps_c - eps_u)
+            if sag:
+                eps = eps + sag_scale * (eps_u - self._sag_degraded_eps(
+                    lat, eps_u, probs[0][:n], i, schedule, t, text_states[:n], pww_t,
+                    added_cond, extras))
             noise = None
             if step_noise is not None:
                 noise = torch.cat([torch.randn(noise_shape, generator=g)
@@ -588,6 +690,28 @@ class PwwPipeline:
             mask, init, _ = blend
             lat = init * (1.0 - mask) + lat * mask
         return lat
+
+    def _sag_degraded_eps(self, lat, eps_u, probs_u, i, schedule, t, text_u, pww_t,
+                          added_cond, extras):
+        """SAG's uncond ε on the degraded latents
+        (``pww_tpu/pipeline/pipeline.py:263-294``): ``probs_u`` (N, H, L, L)
+        are the uncond rows' mid-block probabilities."""
+        n, _, h_lat, w_lat = lat.shape
+        down = 2 ** (len(self.config.unet.block_out_channels) - 1)
+        # an integer upscale, where torch's and jax.image.resize's nearest agree
+        mask = resize_nearest(sag_mask(probs_u).reshape(n, 1, h_lat // down, w_lat // down)
+                              .float(), h_lat, w_lat)
+        x0_u = schedule.pred_x0(eps_u, lat, i)
+        degraded = gaussian_blur(x0_u, 9, 1.0) * mask + x0_u * (1.0 - mask)
+        deg_lat = schedule.add_noise(degraded, eps_u, i)
+        deg_in = schedule.scale_model_input(deg_lat, i).to(self.dtype)
+        pww_u = dataclasses.replace(
+            pww_t, weights={k: v[:n] for k, v in pww_t.weights.items()},
+            weight_orig=None if pww_t.weight_orig is None else pww_t.weight_orig[:n])
+        ac = None if added_cond is None else {k: v[:n] for k, v in added_cond.items()}
+        out = self.unet(deg_in, t, text_u, pww_u, None, None, None, ac, sag_probs=[],
+                        **extras).float()
+        return schedule.to_epsilon(out, deg_lat, i, self.config.unet.prediction_type)
 
     def decode_uint8_device(self, latents: torch.Tensor) -> torch.Tensor:
         """Latents (N, C, h, w) → contiguous (N, H, W, 3) uint8 on the
@@ -651,6 +775,11 @@ class PwwPipeline:
         vae_sample_mode: str = "sample",  # "mean" = the posterior mean
         output_type: str = "pil",
         return_latents: bool = False,
+        cache_interval: int = 1,  # DeepCache: a full UNet visit every k visits
+        tome_ratio: float = 0.0,  # ToMe: the share of tokens merged at 64² sites
+        freeu=None,  # FreeU: True (the family's defaults) or (b1, b2, s1, s2)
+        sag_scale: float = 0.0,  # Self-Attention Guidance strength (0 = off)
+        prompt_editing: bool = False,  # A1111 [from:to:when] and [a|b] schedules
         **unported,
     ):
         """txt2img, img2img and inpaint with paint-with-words. Returns PIL
@@ -677,12 +806,23 @@ class PwwPipeline:
         with ``denoising_start=f`` starts at the first visit below it,
         without re-noising (diffusers' ensemble of expert denoisers;
         ``pww_tpu/pipeline/pipeline.py:1523-1611, 1931``). ``init_latents``
-        without ``denoising_start`` re-noises them at ``strength``."""
+        without ``denoising_start`` re-noises them at ``strength``.
+
+        The extras: ``cache_interval``, ``tome_ratio``, ``freeu`` and
+        ``sag_scale`` as :meth:`denoise` takes them; an LCM-distilled UNet
+        takes ``guidance_scale`` as its embedded input and combines CFG at
+        1.0. ``prompt_editing``: a prompt or negative prompt with A1111
+        ``[from:to:when]`` / ``[a|b]`` constructs is encoded once per
+        distinct rendering, and each visit takes its step's conditioning
+        (the first rendering sets the size, the regions and the seeding)."""
+        cfg = self.config
+        freeu = freeu_params(freeu, cfg.is_xl)
+        tome_ratio = float(tome_ratio)
         if callback is not None:
             if denoising_end is not None or denoising_start is not None:
                 raise ValueError("denoising_end/denoising_start are not supported with "
                                  "per-step callbacks")
-            if unported.get("cache_interval", 1) > 1:
+            if cache_interval > 1:
                 raise ValueError("cache_interval > 1 is not supported with per-step "
                                  "callbacks")
             if int(callback_steps) < 1:
@@ -697,7 +837,6 @@ class PwwPipeline:
                              "are: no return_latents/callback/inpaint_full_res (those "
                              "need host post-processing)")
         check_noise_mode(noise_mode)
-        cfg = self.config
         t0 = time.perf_counter()
         color_map = _to_numpy_image(color_map_image)
         ifr_state = None
@@ -712,6 +851,14 @@ class PwwPipeline:
                 init_image, mask_image, color_map, control_image, adapter_image,
                 float(mask_blur), int(inpaint_full_res_padding))
             mask_blur = 0.0  # the crop's mask is feathered already
+        edit_sched = None
+        if prompt_editing:
+            from ..conditioning.prompt_editing import combined_schedule, has_editing
+
+            if has_editing(prompt) or has_editing(negative_prompt):
+                edit_sched = combined_schedule(prompt, negative_prompt, num_inference_steps)
+                # the first rendering sets everything outside the loop
+                prompt, negative_prompt = edit_sched[0][1], edit_sched[0][2]
         enc = self.encode_inputs(prompt, color_map, color_context or {},
                                  negative_prompt, weight_function,
                                  prompt_weighting=prompt_weighting, clip_skip=clip_skip,
@@ -821,12 +968,36 @@ class PwwPipeline:
                 [tuple(crops_coords_top_left)] * n, [tuple(target_size or (height, width))] * n,
                 aesthetic_score, negative_aesthetic_score, self.device)
             added_cond = {"text_embeds": pooled.float(), "time_ids": time_ids}
+        added_cond, guidance_scale = self._lcm_guidance(added_cond, guidance_scale, n)
         t_end = None if denoising_end is None else steps_at_or_above(denoising_end)
+        if edit_sched is not None and len(edit_sched) == 1:
+            edit_sched = None  # a constant schedule: the plain path
+        conds = None
+        if edit_sched is not None:
+            if cache_interval > 1:
+                raise ValueError("prompt_editing is not supported with DeepCache "
+                                 "(cache_interval > 1): the cached trunk would go stale "
+                                 "at a switch point")
+            if sag_scale > 0:
+                raise ValueError("prompt_editing is not supported with sag_scale")
+            if denoising_end is not None or denoising_start is not None:
+                raise ValueError("prompt_editing is not supported with "
+                                 "denoising_end/denoising_start")
+            if output_type == "device":
+                raise ValueError('output_type="device" is not supported with '
+                                 "prompt_editing")
+            conds = self._edit_conds(
+                edit_sched, schedule, t_start, n, added_cond,
+                dict(color_map=color_map, color_context=color_context or {},
+                     weight_function=weight_function, prompt_weighting=prompt_weighting,
+                     clip_skip=clip_skip, long_prompts=long_prompts))
         t0 = self._phase("encode", t0)
         lat = self.denoise(lat, text_states, pww, schedule, float(guidance_scale),
                            t_start=t_start, extra=extra, blend=blend, seeds=[seed],
                            control=control, adapter=adapter, added_cond=added_cond,
-                           t_end=t_end, callback=callback, callback_steps=int(callback_steps))
+                           t_end=t_end, callback=callback, callback_steps=int(callback_steps),
+                           cache_interval=int(cache_interval), tome_ratio=tome_ratio,
+                           freeu=freeu, sag_scale=float(sag_scale), conds=conds)
         t0 = self._phase("denoise", t0)
         if return_latents:
             return lat.permute(0, 2, 3, 1).cpu().numpy()
@@ -842,6 +1013,103 @@ class PwwPipeline:
         return _to_output(images, output_type, single=n == 1)
 
     __call__ = generate
+
+    def _lcm_guidance(self, added_cond: Optional[Dict], guidance_scale: float, n: int):
+        """An LCM-distilled UNet (``time_cond_proj_dim``) takes the embedded
+        guidance scale on all 2N rows, and the external CFG combine runs at
+        1.0 (``pww_tpu/pipeline/pipeline.py:1858-1867``); other UNets: as
+        given."""
+        dim = self.config.unet.time_cond_proj_dim
+        if dim is None:
+            return added_cond, guidance_scale
+        w_emb = guidance_scale_embedding(float(guidance_scale), dim, self.device)
+        added_cond = dict(added_cond or {})
+        added_cond["timestep_cond"] = w_emb[None].expand(2 * n, -1)
+        return added_cond, 1.0
+
+    def _edit_conds(self, edit_sched, schedule, t_start: int, n: int,
+                    added_cond: Optional[Dict], encode_kw: Dict) -> Dict:
+        """Prompt editing: {visit: (text_states, pww, added_cond)} for the
+        visits from ``t_start``, each distinct (prompt, negative) rendering
+        encoded once and tiled as the base prompt is; the schedule's ends
+        are sampler steps, mapped to visits (pndm and heun visit some steps
+        twice) (``pww_tpu/pipeline/pipeline.py:1962-2000, 2048-2098``)."""
+        memo: Dict = {}
+        bounds = []
+        for end, pos, neg in edit_sched:
+            vend = schedule.visit_of_step(end)
+            if vend <= t_start:  # rows wholly before t_start never run
+                continue
+            if (pos, neg) not in memo:
+                enc = self.encode_inputs(pos, encode_kw["color_map"],
+                                         encode_kw["color_context"], neg,
+                                         encode_kw["weight_function"],
+                                         prompt_weighting=encode_kw["prompt_weighting"],
+                                         clip_skip=encode_kw["clip_skip"],
+                                         long_prompts=encode_kw["long_prompts"])
+                ts, pww, pooled = self._tile_cfg(enc, n)
+                ac = added_cond
+                if added_cond is not None and pooled is not None:
+                    ac = dict(added_cond, text_embeds=pooled.float())
+                memo[pos, neg] = (ts, pww, ac)
+            bounds.append((vend, memo[pos, neg]))
+        conds, seg = {}, 0
+        for i in range(t_start, schedule.num_steps):
+            while bounds[seg][0] <= i:
+                seg += 1
+            conds[i] = bounds[seg][1]
+        return conds
+
+    def generate_hires(self, prompt: str = "", color_map_image=None,
+                       color_context: Optional[Dict] = None, hires_scale: float = 2.0,
+                       hires_strength: float = 0.7, hires_steps: Optional[int] = None,
+                       upscale_mode: str = "latent", output_type: str = "pil", **kwargs):
+        """The two-pass hires fix (A1111; ``pww_tpu/pipeline/pipeline.py:
+        2145-2235``): generate at the color map's size, upscale by
+        ``hires_scale`` to the UNet's lattice (the VAE factor times
+        2^(blocks − 1)), then refine by img2img at ``hires_strength`` with
+        ``hires_steps`` (default: the first pass's steps), on the color map
+        NEAREST-resized so that the regions keep their places.
+        ``upscale_mode="latent"`` resizes the scaled latents bilinearly
+        (``jax.image.resize``'s "linear"); ``"image"`` decodes, resizes the
+        pixels with PIL's Lanczos and encodes again (``num_samples`` 1).
+        ``**kwargs``: :meth:`generate`'s, for both passes."""
+        from PIL import Image
+
+        cfg = self.config
+        cm = _to_numpy_image(color_map_image)
+        if cm is None:
+            raise ValueError("generate_hires requires color_map_image")
+        if upscale_mode not in ("latent", "image"):
+            raise ValueError('upscale_mode must be "latent" or "image"')
+        for key, alt in (("strength", "hires_strength"), ("init_image", None),
+                         ("init_latents", None), ("return_latents", None)):
+            if key in kwargs:
+                hint = f" — use {alt} instead" if alt else ""
+                raise ValueError(f"generate_hires manages {key!r} itself (the second pass "
+                                 f"is an img2img refinement){hint}")
+        h0, w0 = cm.shape[:2]
+        mult = cfg.vae.scale_factor * 2 ** (len(cfg.unet.block_out_channels) - 1)
+        h2 = max(mult, int(round(h0 * hires_scale / mult)) * mult)
+        w2 = max(mult, int(round(w0 * hires_scale / mult)) * mult)
+        cm2 = np.asarray(Image.fromarray(cm).resize((w2, h2), Image.NEAREST))
+        steps = kwargs.pop("num_inference_steps", 30)
+        steps2 = hires_steps or steps
+        first = dict(prompt=prompt, color_map_image=cm, color_context=color_context,
+                     num_inference_steps=steps, **kwargs)
+        second = dict(prompt=prompt, color_map_image=cm2, color_context=color_context,
+                      strength=hires_strength, num_inference_steps=steps2,
+                      output_type=output_type, **kwargs)
+        if upscale_mode == "latent":
+            base = torch.from_numpy(self.generate(return_latents=True, **first))
+            sf = cfg.vae.scale_factor
+            up = resize_linear_antialias(base.permute(0, 3, 1, 2), h2 // sf, w2 // sf)
+            return self.generate(init_latents=up.permute(0, 2, 3, 1).numpy(), **second)
+        if kwargs.get("num_samples", 1) != 1:
+            raise ValueError('upscale_mode="image" supports num_samples=1; use "latent"')
+        base = self.generate(output_type="np", **first)
+        up_img = Image.fromarray(base[0]).resize((w2, h2), Image.LANCZOS)
+        return self.generate(init_image=up_img, **second)
 
     # -- serving -------------------------------------------------------------------
     def _prewarm_text_cache(self, requests: Sequence[Dict]) -> None:
@@ -883,6 +1151,10 @@ class PwwPipeline:
         noise_mode: str = "torch",
         output_type: str = "pil",
         strength: float = 0.5,  # img2img noise level, shared: it sets t_start
+        cache_interval: int = 1,
+        tome_ratio: float = 0.0,
+        freeu=None,  # FreeU: True (the family's defaults) or (b1, b2, s1, s2)
+        sag_scale: float = 0.0,
         **unported,
     ):
         """N independent paint-with-words requests as one batched denoise
@@ -902,12 +1174,17 @@ class PwwPipeline:
         :meth:`generate` draws them, so that row i is request i served
         alone up to the batch's rounding. A custom weight function takes
         the split CFG path. SDXL rows get ``time_ids`` of their own size,
-        with no crop, and the refiner's aesthetic scores 6.0 / 2.5.
+        with no crop, and the refiner's aesthetic scores 6.0 / 2.5. The
+        extras ``cache_interval``, ``tome_ratio``, ``freeu`` and
+        ``sag_scale`` apply to the whole batch, as in :meth:`generate`, and
+        an LCM-distilled UNet takes the embedded guidance scale.
 
         Returns PIL images, a (N, H, W, 3) uint8 array (``"np"``), or the
         un-fetched uint8 tensor on the pipeline's device (``"device"``).
         """
         refuse_unported("generate_batch", unported)
+        freeu = freeu_params(freeu, self.config.is_xl)
+        tome_ratio = float(tome_ratio)
         check_noise_mode(noise_mode)
         if output_type not in ("pil", "np", "device"):
             raise ValueError(f"output_type must be 'pil', 'np' or 'device', got "
@@ -1016,10 +1293,12 @@ class PwwPipeline:
                                                    noise_mode)
                              for seed, e in zip(seeds, encs)])
             lat = lat * schedule.init_noise_sigma
+        added_cond, guidance_scale = self._lcm_guidance(added_cond, guidance_scale, n)
         t0 = self._phase("encode", t0)
         lat = self.denoise(lat, text_states, pww, schedule, float(guidance_scale),
                            t_start=t_start, extra=extra, blend=blend, seeds=seeds,
-                           added_cond=added_cond)
+                           added_cond=added_cond, cache_interval=int(cache_interval),
+                           tome_ratio=tome_ratio, freeu=freeu, sag_scale=float(sag_scale))
         t0 = self._phase("denoise", t0)
         images = self.decode_uint8_device(lat)
         if output_type != "device":

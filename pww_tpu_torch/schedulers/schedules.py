@@ -1,10 +1,11 @@
 """Diffusion schedulers: trajectory tables on the host, step on the device.
 
-Port of :mod:`pww_tpu.schedulers.schedules` (every kind but LCM):
+Port of :mod:`pww_tpu.schedulers.schedules`:
 diffusers' ``scaled_linear`` betas; ``lms`` (order-4 integrated-Lagrange
 coefficients, ``scipy.integrate.quad``), ``euler``, ``euler_ancestral`` and
 ``heun`` in sigma space; ``ddim``, ``pndm`` (PLMS), ``dpmpp_2m``,
-``dpmpp_2m_sde`` and ``unipc`` in alpha space; Karras ρ=7 spacing with
+``dpmpp_2m_sde``, ``unipc`` and ``lcm`` (Latent Consistency Models) in
+alpha space; Karras ρ=7 spacing with
 ``SchedulerConfig.use_karras_sigmas``. Every per-step coefficient is
 computed once per ``set_timesteps`` into f32 numpy tables, as the JAX
 package holds them, so the device step is plain arithmetic on the latents
@@ -17,9 +18,10 @@ predictions and corrected sample, Heun's step start. A zero LMS history
 contributes zero terms, which is diffusers' truncation of the history at
 the first steps and at an img2img start. ``heun`` and ``pndm`` visit some
 steps twice, so a loop runs over ``num_steps`` visits, not the requested
-steps. ``euler_ancestral`` and ``dpmpp_2m_sde`` take fresh noise each step
-as an argument of :meth:`Schedule.step` (the JAX package draws it from
-``jax.random``, whose bits the port does not reproduce).
+steps. ``euler_ancestral``, ``dpmpp_2m_sde`` and ``lcm`` take fresh noise
+each step as an argument of :meth:`Schedule.step` (the JAX package draws it
+from ``jax.random``, whose bits the port does not reproduce); LCM's last
+step returns the denoised sample and ignores it.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from ..config import SchedulerConfig
 
 LMS_ORDER = 4
 SIGMA_KINDS = ("lms", "euler", "euler_ancestral", "heun")
-ALPHA_KINDS = ("ddim", "pndm", "dpmpp_2m", "dpmpp_2m_sde", "unipc")
+ALPHA_KINDS = ("ddim", "pndm", "dpmpp_2m", "dpmpp_2m_sde", "unipc", "lcm")
 KINDS = SIGMA_KINDS + ALPHA_KINDS
 # state rows per kind (pndm: 4 eps + the warm-up sample; unipc: x0 at i-1 and
 # i-2, the corrected sample at i-1; heun: the step's start and derivative)
@@ -128,7 +130,7 @@ class Schedule:
     @property
     def needs_noise(self) -> bool:
         """Kinds whose :meth:`step` takes fresh noise."""
-        return self.kind in ("euler_ancestral", "dpmpp_2m_sde")
+        return self.kind in ("euler_ancestral", "dpmpp_2m_sde", "lcm")
 
     @property
     def sigma_space(self) -> bool:
@@ -271,6 +273,20 @@ class Schedule:
         prev = float(np.sqrt(a_prev)) * x0 + float(np.sqrt(_f32(1.0) - a_prev)) * eps
         return prev.to(sample.dtype), state
 
+    def _step_lcm(self, mo, i, sample, state, noise):
+        # the consistency function f = c_out·x0 + c_skip·x, re-noised to the
+        # next visit's level with fresh noise, except at the last visit
+        sa, sb = self._alpha(i)
+        x, eps = sample.float(), mo.float()
+        x0 = (x - float(sb) * eps) / float(sa)
+        denoised = float(self._t("c_out", i)) * x0 + float(self._t("c_skip", i)) * x
+        if self._t("is_last", i) > 0:
+            return denoised.to(sample.dtype), state
+        a_prev = self.alphas_cumprod_prev[i]
+        prev = (float(np.sqrt(a_prev)) * denoised
+                + float(np.sqrt(_f32(1.0) - a_prev)) * noise.float())
+        return prev.to(sample.dtype), state
+
     def _step_unipc(self, mo, i, sample, state, noise):
         # UniC corrector on the current sample (from the previous corrected
         # one and the new x0), then the UniP predictor to the next visit;
@@ -333,6 +349,8 @@ class Scheduler:
             return self._dpmpp(num_steps, alphas_cumprod, device)
         elif self.kind == "unipc":
             return self._unipc(num_steps, alphas_cumprod, device)
+        elif self.kind == "lcm":
+            return self._lcm(num_steps, alphas_cumprod, device)
         else:
             raise ValueError(f"unknown scheduler kind {self.kind!r}")
 
@@ -525,6 +543,31 @@ class Scheduler:
                               num_steps, device, tables=tables)
 
 
+    def _lcm(self, num_steps, alphas_cumprod, device) -> Schedule:
+        """LCM (diffusers' ``LCMScheduler.set_timesteps``): an evenly skipped
+        descending subset of the teacher's ``original_inference_steps``-point
+        grid k·j − 1 (k = T / orig), and the boundary scalings c_skip, c_out
+        at ``timestep_scaling``·t (``pww_tpu/schedulers/schedules.py:531-575``)."""
+        cfg = self.config
+        orig = cfg.original_inference_steps
+        if num_steps > orig:
+            raise ValueError(f"lcm: num_steps ({num_steps}) must be <= "
+                             f"original_inference_steps ({orig})")
+        k = cfg.num_train_timesteps // orig
+        origin = np.arange(1, orig + 1, dtype=np.int64) * k - 1
+        t_int = origin[::-1][::len(origin) // num_steps][:num_steps].copy()
+        a_t = alphas_cumprod[t_int]
+        a_prev = alphas_cumprod[np.concatenate([t_int[1:], [t_int[-1]]])]  # last unused
+        is_last = np.zeros(num_steps)
+        is_last[-1] = 1.0
+        st = cfg.timestep_scaling * t_int.astype(np.float64)
+        tables = {"c_skip": cfg.sigma_data ** 2 / (st ** 2 + cfg.sigma_data ** 2),
+                  "c_out": st / np.sqrt(st ** 2 + cfg.sigma_data ** 2), "is_last": is_last}
+        sigmas = np.sqrt((1.0 - a_t) / a_t)  # the PwW weight function's σ
+        return self._schedule(t_int, np.concatenate([sigmas, [0.0]]), 1.0, a_t, a_prev,
+                              num_steps, device, tables=tables)
+
+
 def t_start_from_strength(num_steps: int, strength: float, offset: int = 0) -> int:
     """The first step of an img2img run (reference ``paint_with_words.py:435-440``)."""
     init_timestep = min(int(num_steps * strength) + offset, num_steps)
@@ -533,10 +576,6 @@ def t_start_from_strength(num_steps: int, strength: float, offset: int = 0) -> i
 
 def make_scheduler(kind: str = "lms",
                    config: SchedulerConfig = SchedulerConfig()) -> Scheduler:
-    if kind == "lcm":
-        raise NotImplementedError(
-            "scheduler 'lcm' needs an LCM-distilled UNet's guidance embedding "
-            "(time_cond_proj_dim), which the port's UNet lacks (ROADMAP A.14)")
     if kind not in KINDS:
         raise ValueError(f"unknown scheduler kind {kind!r}; the port has {KINDS}")
     return Scheduler(config=config, kind=kind)

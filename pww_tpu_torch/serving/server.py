@@ -20,10 +20,12 @@ Port of :mod:`pww_tpu.serving.server`::
 Run: ``python -m pww_tpu_torch.serving.server [--model DIR | --tiny]
 [--device cpu] [--port 8000]``. The pipeline is built once, on the card
 unless ``--device cpu`` is given; concurrent compatible requests are fused
-by :mod:`pww_tpu_torch.serving.batcher`. The options the port does not
-have yet (``cache_interval``, ``tome_ratio``, ``freeu``, ``sag_scale``,
-``prompt_editing``) are passed on, and answer 500 with their
-``NotImplementedError`` when on.
+by :mod:`pww_tpu_torch.serving.batcher`. The sampling extras
+(``cache_interval``, ``tome_ratio``, ``freeu``, ``sag_scale``, and
+``prompt_editing``, which runs alone) are passed on; an
+``ip_adapter_image_png_b64``, which the port does not have yet (ROADMAP
+A.15), answers 500 with its ``NotImplementedError``. Any refusal of the
+pipeline answers 500 with its error.
 """
 from __future__ import annotations
 
@@ -101,6 +103,9 @@ def request_from_json(req: dict) -> dict:
 
         wf = WeightFunction(**req["weight_function"])
     freeu = req.get("freeu")
+    extra = {}
+    if req.get("ip_adapter_image_png_b64"):
+        extra["ip_adapter_image"] = _decode_image(req["ip_adapter_image_png_b64"])
     return {
         "prompt": req.get("prompt", ""),
         "negative_prompt": req.get("negative_prompt", ""),
@@ -123,6 +128,7 @@ def request_from_json(req: dict) -> dict:
         "strength": float(req.get("strength", 0.5)),
         "mask_blur": float(req.get("mask_blur", 0.0)),
         "masked_content": str(req.get("masked_content", "original")),
+        **extra,
     }
 
 

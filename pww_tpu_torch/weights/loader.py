@@ -115,14 +115,12 @@ def config_from_checkpoint(model_path: str) -> SDModelConfig:
     ``model_index.json``, with the JAX package's defaults for what they
     leave out. A ``text_encoder_2/`` without ``text_encoder/`` is the
     SDXL-refiner layout (``xl_refiner``, the bigG tower in the ``clip``
-    slot). LCM-distilled UNets raise."""
+    slot). An LCM-distilled UNet's ``time_cond_proj_dim`` is read as any
+    other field."""
     unet_cfg = _read_json(os.path.join(model_path, "unet", "config.json")) or {}
     clip_cfg = _read_json(os.path.join(model_path, "text_encoder", "config.json"))
     clip2_cfg = _read_json(os.path.join(model_path, "text_encoder_2", "config.json"))
     vae_cfg = _read_json(os.path.join(model_path, "vae", "config.json")) or {}
-    if unet_cfg.get("time_cond_proj_dim") is not None:
-        raise NotImplementedError(f"{model_path}: LCM-distilled UNets are not ported to "
-                                  "pww_tpu_torch yet (ROADMAP A.14)")
 
     # diffusers' "attention_head_dim" holds per-block HEAD COUNTS: an int (8
     # for SD-1.x) or a list ([5, 10, 20, 20] for SD-2.x, where dh = 64)
@@ -156,6 +154,7 @@ def config_from_checkpoint(model_path: str) -> SDModelConfig:
         addition_time_embed_dim=unet_cfg.get("addition_time_embed_dim", 256),
         projection_class_embeddings_input_dim=unet_cfg.get(
             "projection_class_embeddings_input_dim"),
+        time_cond_proj_dim=unet_cfg.get("time_cond_proj_dim"),
     )
     xl_refiner = clip_cfg is None and clip2_cfg is not None
     if xl_refiner:
@@ -315,6 +314,8 @@ def _unet_json(u: UNetConfig, class_name: str) -> dict:
         out.update(addition_embed_type=u.addition_embed_type,
                    addition_time_embed_dim=u.addition_time_embed_dim,
                    projection_class_embeddings_input_dim=u.projection_class_embeddings_input_dim)
+    if u.time_cond_proj_dim is not None:
+        out["time_cond_proj_dim"] = u.time_cond_proj_dim
     return out
 
 

@@ -233,10 +233,13 @@ BATCH_REFUSALS = {  # requests, generate_batch's options, the error, its message
                        "masked_content"),
     "mask blur without a mask": (lambda: [_req("a cat", 0, mask_blur=2.0)], {}, ValueError,
                                  "mask_image"),
-    "DeepCache": (lambda: REQS, dict(cache_interval=3), NotImplementedError, "A.14"),
-    "ToMe": (lambda: REQS, dict(tome_ratio=0.5), NotImplementedError, "A.14"),
-    "FreeU": (lambda: REQS, dict(freeu=True), NotImplementedError, "A.14"),
-    "SAG": (lambda: REQS, dict(sag_scale=0.5), NotImplementedError, "A.14"),
+    # the extras (ROADMAP A.14) as the JAX generate_batch refuses them
+    "DeepCache": (lambda: REQS, dict(cache_interval=3, weight_function=lambda w, s, qk: w),
+                  ValueError, "batched CFG"),
+    "ToMe": (lambda: REQS, dict(tome_ratio="half"), ValueError, "could not convert"),
+    "FreeU": (lambda: REQS, dict(freeu=(1.5, 1.6)), ValueError, "freeu must be"),
+    "SAG": (lambda: REQS, dict(sag_scale=0.5, weight_function=lambda w, s, qk: w), ValueError,
+            "batched CFG"),
     "IP-Adapter": (lambda: REQS, dict(ip_adapter_image=np.zeros((8, 8, 3), np.uint8)),
                    NotImplementedError, "A.15"),
     "jax noise": (lambda: REQS, dict(noise_mode="jax"), NotImplementedError, "A.10"),
@@ -247,8 +250,9 @@ BATCH_REFUSALS = {  # requests, generate_batch's options, the error, its message
 
 @pytest.mark.parametrize("case", list(BATCH_REFUSALS))
 def test_generate_batch_refusals(pair, case):
-    """The JAX ``generate_batch``'s refusals; the options the port lacks
-    raise NotImplementedError naming their ROADMAP item."""
+    """The JAX ``generate_batch``'s refusals (the extras' since ROADMAP
+    A.14); the options the port lacks raise NotImplementedError naming
+    their ROADMAP item."""
     _, tp = pair
     reqs, kw, exc, match = BATCH_REFUSALS[case]
     with pytest.raises(exc, match=match):
@@ -276,7 +280,9 @@ GENERATE_REFUSALS = {  # generate's options, the error, its message
     "device output with full-res inpaint": (
         dict(output_type="device", inpaint_full_res=True, init_image=_init_image(),
              mask_image=_mask()), ValueError, 'output_type="device"'),
-    "prompt editing": (dict(prompt_editing=True), NotImplementedError, "A.14"),
+    "prompt editing": (dict(prompt="a [cat:fox:0.5]", prompt_editing=True, cache_interval=2,
+                            num_inference_steps=4), ValueError,
+                       "prompt_editing is not supported with DeepCache"),
 }
 
 

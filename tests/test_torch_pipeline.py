@@ -108,8 +108,9 @@ def test_txt2img_bias_and_seed_change_the_result(pair):
 
 
 def test_unported_options_raise(pair):
-    """What the port does not have yet: IP-Adapter, jax.random noise, the
-    LCM scheduler and hub downloads (per-step callbacks came with the
+    """What the port does not have yet: IP-Adapter, jax.random noise and
+    hub downloads (the LCM scheduler came with the sampling extras,
+    tests/test_torch_lcm_hires.py; per-step callbacks came with the
     serving slice, tests/test_torch_batch.py; img2img, inpaint
     and custom weight functions came with the second slice,
     tests/test_torch_img2img_inpaint.py; the other schedulers and local
@@ -124,8 +125,8 @@ def test_unported_options_raise(pair):
                          ip_adapter_image=np.zeros((8, 8, 3), np.uint8))
     with pytest.raises(NotImplementedError):
         tp.generate(**{**KWARGS, "noise_mode": "jax"})
-    with pytest.raises(NotImplementedError):
-        paint_with_words(preloaded_utils=tp, device="cpu", scheduler_type="lcm")
+    with pytest.raises(NotImplementedError, match="A.15"):
+        tp.generate(**{**KWARGS, "ip_adapter_scale": 0.5})
     with pytest.raises(NotImplementedError):
         paint_with_words(preloaded_utils=tp, device="cpu", model_token="token")
     with pytest.raises(FileNotFoundError):

@@ -97,7 +97,7 @@ def test_steps_match_jax(kind, karras):
     assert np.isfinite(tx.numpy()).all()
 
 
-@pytest.mark.parametrize("kind", ["euler_ancestral", "dpmpp_2m_sde"])
+@pytest.mark.parametrize("kind", ["euler_ancestral", "dpmpp_2m_sde", "lcm"])
 def test_stochastic_kinds_need_noise(kind):
     ts = make_scheduler(kind).set_timesteps(3)
     x = torch.zeros(SHAPE)
@@ -141,7 +141,11 @@ def test_v_prediction_to_epsilon_and_add_noise_match_jax(kind):
 
 
 def test_unknown_and_unported_kinds_raise():
-    with pytest.raises(NotImplementedError, match="A.14"):
-        make_scheduler("lcm")
+    """Every kind is ported since ROADMAP A.14; LCM refuses more steps than
+    its teacher's grid has, as the JAX package does."""
+    with pytest.raises(ValueError, match="original_inference_steps"):
+        make_scheduler("lcm").set_timesteps(51)
+    with pytest.raises(ValueError, match="original_inference_steps"):
+        jax_make_scheduler("lcm").set_timesteps(51)
     with pytest.raises(ValueError, match="unknown scheduler"):
         make_scheduler("dpm_fast")

@@ -274,27 +274,33 @@ def test_backpressure_releases_at_compute_not_fetch(pipe):
 def test_singletons_go_through_generate(pipe):
     """Two samples run through ``generate`` alone (its first image); a
     full-res inpaint, which refuses device output, through a synchronous
-    call; an unported option resolves to its NotImplementedError."""
+    call; a prompt-editing request, which refuses device output too, the
+    same way; an unported option (an IP-Adapter image) resolves to its
+    NotImplementedError."""
     init = np.full((64, 64, 3), 120, np.uint8)
     mask = np.zeros((64, 64), np.float32)
     mask[16:48, 16:48] = 1.0
     cases = [dict(_req("a cat", 3), num_samples=2),
              dict(_req("a cat", 4), init_image=init, mask_image=mask, inpaint_full_res=True),
-             dict(_req("a cat", 5), prompt_editing=True)]
+             dict(_req("a cat", 5), prompt="a [cat:fox:0.5]", prompt_editing=True),
+             dict(_req("a cat", 6), ip_adapter_image=init)]
     b = Batcher(pipe, max_batch=4, max_wait_ms=300.0)
     try:
         futs = [b.submit(dict(r)) for r in cases]
         two = futs[0].result(timeout=120)
         full_res = futs[1].result(timeout=120)
-        with pytest.raises(NotImplementedError, match="prompt_editing"):
-            futs[2].result(timeout=120)
+        edited = futs[2].result(timeout=120)
+        with pytest.raises(NotImplementedError, match="ip_adapter_image"):
+            futs[3].result(timeout=120)
     finally:
         b.close()
-    assert b.stats["batches"] == 3
+    assert b.stats["batches"] == 4
     kw = {k: v for k, v in cases[0].items()}
     np.testing.assert_array_equal(np.asarray(two), pipe.generate(**kw, output_type="np")[0])
     np.testing.assert_array_equal(np.asarray(full_res),
                                   pipe.generate(**cases[1], output_type="np")[0])
+    np.testing.assert_array_equal(np.asarray(edited),
+                                  pipe.generate(**cases[2], output_type="np")[0])
 
 
 # -- the server ------------------------------------------------------------------------------
@@ -309,7 +315,8 @@ def _png_b64(arr):
 
 def test_server_round_trip(pipe):
     """POST /generate through the Batcher equals the same request through
-    ``generate``; /healthz, /metrics, an unknown path and an unported option."""
+    ``generate``; a request with ToMe runs; /healthz, /metrics, an unknown
+    path and an unported option (an IP-Adapter image, ROADMAP A.15)."""
     from PIL import Image
 
     cm = np.zeros((256, 256, 3), np.uint8)
@@ -332,9 +339,10 @@ def test_server_round_trip(pipe):
 
     try:
         out = post(body)
+        tome = post(dict(body, tome_ratio=0.5))
         with pytest.raises(urllib.error.HTTPError) as err:
-            post(dict(body, tome_ratio=0.5))
-        assert err.value.code == 500 and "A.14" in json.loads(err.value.read())["error"]
+            post(dict(body, ip_adapter_image_png_b64=_png_b64(cm)))
+        assert err.value.code == 500 and "A.15" in json.loads(err.value.read())["error"]
         with urllib.request.urlopen(f"{url}/healthz", timeout=60) as resp:
             health = json.loads(resp.read())
         with urllib.request.urlopen(f"{url}/metrics", timeout=60) as resp:
@@ -351,8 +359,12 @@ def test_server_round_trip(pipe):
     want = pipe.generate(prompt="a cat", color_map_image=cm, color_context={(255, 0, 0): "cat,1.0"},
                          seed=3, num_inference_steps=2, output_type="np")[0]
     np.testing.assert_array_equal(got, want)
-    assert health["ok"] and health["stats"]["requests"] == 2
-    assert metrics["latency_samples"] == 1 and out["latency_s"] >= 0
+    got = np.asarray(Image.open(io.BytesIO(base64.b64decode(tome["image_png_b64"]))))
+    np.testing.assert_array_equal(got, pipe.generate(
+        prompt="a cat", color_map_image=cm, color_context={(255, 0, 0): "cat,1.0"}, seed=3,
+        num_inference_steps=2, tome_ratio=0.5, output_type="np")[0])
+    assert health["ok"] and health["stats"]["requests"] == 3
+    assert metrics["latency_samples"] == 2 and out["latency_s"] >= 0
 
 
 def test_server_snaps_sizes(pipe):

@@ -132,9 +132,8 @@ ERROR_CASES = {  # adapter attached, generate's arguments, the error, its messag
     "no adapter": (False, dict(adapter_image=_hint()), ValueError, "load_t2i_adapter"),
     "a hint of another size": (True, dict(adapter_image=np.zeros((32, 32, 3), np.uint8)),
                                ValueError, "size"),
-    # DeepCache is not ported: the port refuses the argument itself
-    "with DeepCache": (True, dict(adapter_image=_hint(), cache_interval=3),
-                       NotImplementedError, "cache_interval"),
+    "with DeepCache": (True, dict(adapter_image=_hint(), cache_interval=3), ValueError,
+                       "cache_interval > 1 is not supported with a T2I-Adapter"),
 }
 
 
