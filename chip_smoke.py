@@ -75,6 +75,22 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    visit); each gated on finite final latents that differ from the plain
    run's and on its launches, with s/image, ms/visit and peak GiB; then
    5-step profiles of DeepCache and ToMe;
+8c. single file: SD-1.5 at full width written as an A1111/LDM single
+   ``.safetensors`` file (fp16, I64 ``position_ids``, ``ldm_state_dict``)
+   with the tokenizer's files beside it, loaded through ``pww_load_tools``
+   (the detected config must be ``SDModelConfig.sd15()``, every tensor the
+   written fp16 value in bf16); a two-vector A1111 ``.pt`` and a one-vector
+   diffusers ``.safetensors`` embedding applied (their rows bit-equal, the
+   placeholders bound by the PwW weights); N LMS steps at 512² with
+   ``latents=`` in NHWC (K1 = K2 = 15·N, K3 = 10·N), its image within 1e-3
+   relative L2 of ``seed=``'s, a 5-step profile; a depth-cut SD-1.5
+   (``depth_cut_sd15``) single file with an embedding, card bf16 against
+   CPU f32 (< 5e-2); ``save_pretrained`` → ``from_pretrained`` (weights
+   bit-equal, the recorded scheduler back, the N-step image within 1e-3);
+   ``apps.runner.main`` on the file (15·N / 15·N / 10·N); ``run_pww``,
+   ``run_pww_inpaint`` and ``apps.runner_inpaint`` on the depth-cut model;
+   LDM-BERT at its published size, card bf16 against CPU f32 (< 5e-2).
+   Every file is deleted;
 9. norm sites: a 1-step warm-up of phase 11's pipeline records every K4
    and K5 call's signature, which must be the tables of phase 3;
 10. inpaint reference: a reduced-depth 9-channel inpaint with the norm
@@ -843,21 +859,27 @@ def phase_profile(run, tag, steps=5):
     """Device time by kernel group over one ``run(steps)`` call (torch.profiler);
     returns {group: (device ms, device kernels) per wrapper call}."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     counters = dict(zip((g for g, _ in GROUPS), launch_counters()))
     for c in counters.values():
         c.launches = 0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # the trace starts a little after the profiler does: late in the
-        # script the first few device kernels of the call went unrecorded
-        # (a K4 among them) until the call waited 0.2 s for it
+    # A warm-up step with the device trace on, whose events are dropped: the
+    # trace starts a little after the profiler does, and late in the script
+    # the first device kernels of a call went unrecorded (a K4 among them),
+    # even after a 0.2 s wait
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(8):
+            torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
         time.sleep(0.2)
+        prof.step()
         t0 = time.perf_counter()
         run(steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        prof.step()
     groups, counts, kernels = {}, {}, []
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -865,9 +887,9 @@ def phase_profile(run, tag, steps=5):
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = ev.self_cuda_time_total
-        if us <= 0:
-            continue
         name = ev.key
+        if us <= 0 or name.startswith("ProfilerStep"):  # the schedule's step range
+            continue
         group = next((g for g, frags in GROUPS
                       if any(f in name.lower() for f in frags)), "other")
         groups[group] = groups.get(group, 0.0) + us / 1e3
@@ -1888,6 +1910,453 @@ def phase_inpaint(pipe, kw, steps):
     return launches
 
 
+# -- single files, textual inversion, caller latents, save_pretrained, the apps --
+
+_UNET_RES_LDM = {"norm1": "in_layers.0", "conv1": "in_layers.2",
+                 "time_emb_proj": "emb_layers.1", "norm2": "out_layers.0",
+                 "conv2": "out_layers.3", "conv_shortcut": "skip_connection"}
+_VAE_RES_LDM = {"conv_shortcut": "nin_shortcut"}
+_VAE_ATTN_LDM = {"group_norm": "norm", "to_q": "q", "to_k": "k", "to_v": "v",
+                 "to_out.0": "proj_out"}
+
+
+def ldm_state_dict(config, params):
+    """The port's {"unet", "vae", "clip"} state dicts as one A1111/LDM
+    single file's state dict: the inverse of
+    ``pww_tpu_torch/weights/ldm_convert.py``'s renaming for ``config``'s
+    layers a UNet block and VAE blocks, the VAE attention's Linear weights
+    as 1×1 convs, and the int64 ``position_ids`` buffer real SD-1.x files
+    carry."""
+    import re
+
+    import torch
+
+    def rename(rest, table):
+        for src, dst in table.items():
+            if rest.startswith(src + "."):
+                return dst + rest[len(src):]
+        return rest
+
+    u = config.unet
+    per = u.layers_per_block + 1
+    nb = len(config.vae.block_out_channels)
+    out = {}
+    for k, v in params["unet"].items():
+        fixed = {"time_embedding.linear_1.": "time_embed.0.",
+                 "time_embedding.linear_2.": "time_embed.2.", "conv_in.": "input_blocks.0.0.",
+                 "conv_norm_out.": "out.0.", "conv_out.": "out.2."}
+        src = next((s for s in fixed if k.startswith(s)), None)
+        m = re.match(r"(down|up)_blocks\.(\d+)\.(resnets|attentions|downsamplers|upsamplers)"
+                     r"\.(\d+)\.(.+)", k)
+        mid = re.match(r"mid_block\.(resnets|attentions)\.(\d+)\.(.+)", k)
+        if src is not None:
+            key = fixed[src] + k[len(src):]
+        elif m and m[1] == "down":
+            b, kind, j, rest = int(m[2]), m[3], int(m[4]), m[5]
+            if kind == "downsamplers":  # "conv.weight" → "op.weight"
+                key = f"input_blocks.{1 + b * per + u.layers_per_block}.0.op.{rest[5:]}"
+            elif kind == "resnets":
+                key = f"input_blocks.{1 + b * per + j}.0.{rename(rest, _UNET_RES_LDM)}"
+            else:
+                key = f"input_blocks.{1 + b * per + j}.1.{rest}"
+        elif m:
+            b, kind, j, rest = int(m[2]), m[3], int(m[4]), m[5]
+            if kind == "upsamplers":
+                sub = 2 if u.up_block_has_attn[b] else 1
+                key = f"output_blocks.{b * per + u.layers_per_block}.{sub}.{rest}"
+            elif kind == "resnets":
+                key = f"output_blocks.{b * per + j}.0.{rename(rest, _UNET_RES_LDM)}"
+            else:
+                key = f"output_blocks.{b * per + j}.1.{rest}"
+        elif mid:
+            key = (f"middle_block.{2 * int(mid[2])}.{rename(mid[3], _UNET_RES_LDM)}"
+                   if mid[1] == "resnets" else f"middle_block.1.{mid[3]}")
+        else:
+            raise KeyError(f"no LDM name for the UNet's {k}")
+        out["model.diffusion_model." + key] = v
+    for k, v in params["vae"].items():
+        key = k
+        if not k.startswith(("quant_conv.", "post_quant_conv.")):
+            side, rest = k.split(".", 1)
+            m = re.match(r"(down|up)_blocks\.(\d+)\.(resnets\.(\d+)|downsamplers\.0|upsamplers\.0)"
+                         r"\.(.+)", rest)
+            mid = re.match(r"mid_block\.(resnets|attentions)\.(\d+)\.(.+)", rest)
+            if rest.startswith("conv_norm_out."):
+                rest = "norm_out." + rest[len("conv_norm_out."):]
+            elif m:
+                i = int(m[2]) if m[1] == "down" else nb - 1 - int(m[2])
+                if m[4] is not None:
+                    rest = f"{m[1]}.{i}.block.{m[4]}.{rename(m[5], _VAE_RES_LDM)}"
+                else:  # "conv.weight" under the down/upsampler
+                    rest = f"{m[1]}.{i}.{m[1]}sample.{m[5]}"
+            elif mid and mid[1] == "resnets":
+                rest = f"mid.block_{int(mid[2]) + 1}.{rename(mid[3], _VAE_RES_LDM)}"
+            elif mid:
+                rest = f"mid.attn_1.{rename(mid[3], _VAE_ATTN_LDM)}"
+                if v.dim() == 2:  # the LDM VAE's attention projections are 1×1 convs
+                    v = v[:, :, None, None]
+            key = f"{side}.{rest}"
+        out["first_stage_model." + key] = v
+    for k, v in params["clip"].items():
+        out["cond_stage_model.transformer." + k] = v
+    out["cond_stage_model.transformer.text_model.embeddings.position_ids"] = torch.arange(
+        config.clip.max_position_embeddings, dtype=torch.int64)[None]
+    return out
+
+
+def depth_cut_sd15():
+    """SD-1.5 at its published widths, cut in depth: one layer a UNet and VAE
+    block, a 2-layer text tower."""
+    import dataclasses
+
+    from pww_tpu_torch.config import SDModelConfig
+
+    cfg = SDModelConfig.sd15()
+    return dataclasses.replace(
+        cfg, clip=dataclasses.replace(cfg.clip, num_layers=2),
+        unet=dataclasses.replace(cfg.unet, layers_per_block=1),
+        vae=dataclasses.replace(cfg.vae, layers_per_block=1))
+
+
+def ldm_bert_state(cfg, seed=0, device="cuda"):
+    """An original-LDM BERT tower's state dict (``cond_stage_model.transformer.``
+    stripped, x-transformers' names), drawn on ``device`` in f32: N(0, 0.02)
+    weights (BERT's ``initializer_range``, and ``synthetic_params``' scale),
+    norms near 1. At N(0, 0.08) the 1280-wide random tower amplifies bf16
+    rounding several times over, in the JAX package's bf16 forward as in the
+    port's (tests/test_torch_ldm.py::test_ldm_bert_bf16_rounding_matches_jax)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*shape, scale=0.02, base=0.0):
+        return base + scale * torch.randn(shape, generator=g, device=device)
+
+    sd = {"token_emb.weight": r(cfg.vocab_size, cfg.d_model),
+          "pos_emb.emb.weight": r(cfg.max_position_embeddings, cfg.d_model),
+          "norm.weight": r(cfg.d_model, scale=0.008, base=1.0),
+          "norm.bias": r(cfg.d_model, scale=0.008),
+          "to_logits.weight": r(cfg.vocab_size, cfg.d_model),
+          "to_logits.bias": r(cfg.vocab_size, scale=0.008)}
+    for i in range(cfg.num_layers):
+        a, f = f"attn_layers.layers.{2 * i}", f"attn_layers.layers.{2 * i + 1}"
+        sd[f"{a}.0.weight"] = r(cfg.d_model, scale=0.008, base=1.0)
+        sd[f"{a}.0.bias"] = r(cfg.d_model, scale=0.008)
+        for p in ("to_q", "to_k", "to_v"):
+            sd[f"{a}.1.{p}.weight"] = r(cfg.inner_dim, cfg.d_model)
+        sd[f"{a}.1.to_out.weight"] = r(cfg.d_model, cfg.inner_dim)
+        sd[f"{a}.1.to_out.bias"] = r(cfg.d_model, scale=0.008)
+        sd[f"{f}.0.weight"] = r(cfg.d_model, scale=0.008, base=1.0)
+        sd[f"{f}.0.bias"] = r(cfg.d_model, scale=0.008)
+        sd[f"{f}.1.net.0.0.weight"] = r(cfg.ffn_dim, cfg.d_model)
+        sd[f"{f}.1.net.0.0.bias"] = r(cfg.ffn_dim, scale=0.008)
+        sd[f"{f}.1.net.2.weight"] = r(cfg.d_model, cfg.ffn_dim)
+        sd[f"{f}.1.net.2.bias"] = r(cfg.d_model, scale=0.008)
+    return sd
+
+
+def write_embeddings(d, width, seed=0):
+    """A two-vector A1111 ``.pt`` and a one-vector diffusers ``.safetensors``
+    embedding, ``width`` wide, in directory ``d``; returns [(path,
+    vectors)]."""
+    import torch
+
+    from pww_tpu_torch.weights import safetensors_io
+
+    g = torch.Generator().manual_seed(seed)
+    two = torch.randn((2, width), generator=g) * 0.3
+    one = torch.randn((width,), generator=g) * 0.3
+    a1111, diffusers = os.path.join(d, "cat-toy.pt"), os.path.join(d, "dog-toy.safetensors")
+    torch.save({"string_to_token": {"*": torch.tensor(265)},
+                "string_to_param": {"*": torch.nn.Parameter(two)}, "name": "<cat-toy>",
+                "step": 3000, "sd_checkpoint_name": "synthetic"}, a1111)
+    safetensors_io.save_file({"<dog-toy>": one}, diffusers)
+    return [(a1111, two), (diffusers, one[None])]
+
+
+TI_PROMPT = "a photo of <cat-toy> <cat-toy>_1 sitting next to <dog-toy>, realistic photo"
+TI_CONTEXT = {(255, 0, 0): "<cat-toy> <cat-toy>_1,0.5", (0, 0, 255): "<dog-toy>,0.5"}
+
+
+def apply_embeddings(pipe, embeddings):
+    """Each embedding file into ``pipe``; returns the placeholders' token ids."""
+    from pww_tpu_torch.weights.textual_inversion import apply_textual_inversion
+
+    ids = []
+    for path, _ in embeddings:
+        for name in apply_textual_inversion(pipe, path).split():
+            ids.append(pipe.tokenizer.convert_tokens_to_ids(name))
+    return ids
+
+
+def check_embedding_rows(pipe, ids, embeddings, tag):
+    """The text tower's rows at ``ids`` must be the files' vectors in the
+    pipeline's type, bit for bit."""
+    import torch
+
+    table = pipe.clip.text_model.embeddings.token_embedding.weight
+    want = torch.cat([v for _, v in embeddings]).to(table.device, table.dtype)
+    same = torch.equal(table[torch.tensor(ids, device=table.device)], want)
+    log(f"[{tag}] embedding rows at ids {ids} equal the files' vectors in {table.dtype}: "
+        f"{same}; table {tuple(table.shape)}, config vocab {pipe.config.clip.vocab_size}")
+    return same and pipe.config.clip.vocab_size == table.shape[0]
+
+
+def phase_single_file(steps, card):
+    """SD-1.5 at full width as an A1111/LDM single file, through the
+    reference's own surface: load, textual inversion, caller latents,
+    ``save_pretrained``, the runner and the apps' callbacks, and LDM-BERT.
+    Every file it writes is deleted. Returns (launches of the N-step call
+    with latents, its profile)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.apps import gradio_pww, gradio_pww_inpaint, runner, runner_inpaint
+    from pww_tpu_torch.conditioning.seeding import make_noise
+    from pww_tpu_torch.config import LDMBertConfig, SDModelConfig
+    from pww_tpu_torch.models.ldm_bert import LDMBertModel
+    from pww_tpu_torch.pipeline.facade import paint_with_words, pww_load_tools
+    from pww_tpu_torch.pipeline.pipeline import PwwPipeline
+    from pww_tpu_torch.schedulers.schedules import make_scheduler
+    from pww_tpu_torch.tokenizer.clip_bpe import save_tokenizer_assets, synthetic_tokenizer
+    from pww_tpu_torch.weights import safetensors_io
+    from pww_tpu_torch.weights.bridge import synthetic_params
+    from pww_tpu_torch.weights.ldm_convert import convert_ldm_bert, load_ldm_checkpoint
+
+    problems = []
+    root = tempfile.mkdtemp(prefix="pww_single_")
+    try:
+        # 1. a full-width SD-1.5 single file, fp16, with the tokenizer's files beside it
+        cfg = SDModelConfig.sd15()
+        path = os.path.join(root, "sd15.safetensors")
+        params = synthetic_params(cfg, seed=0, device="cuda", dtype=torch.float16)
+        n_params = sum(v.numel() for sd in params.values() for v in sd.values())
+        t0 = time.perf_counter()
+        safetensors_io.save_file(ldm_state_dict(cfg, params), path)
+        write_s = time.perf_counter() - t0
+        save_tokenizer_assets(synthetic_tokenizer(49408), root)
+        log(f"[single] SD-1.5, {n_params:.4e} synthetic parameters: LDM single file of "
+            f"{os.path.getsize(path) / 1e9:.3f} GB (fp16 safetensors, I64 position_ids) "
+            f"written in {write_s:.1f} s, the tokenizer's files beside it in "
+            f"{time.perf_counter() - t0 - write_s:.1f} s")
+
+        # 2. load it through the facade's loader
+        t0 = time.perf_counter()
+        pipe = pww_load_tools("cuda", "lms", local_model_path=path)
+        torch.cuda.synchronize()
+        log(f"[single] loaded by pww_load_tools → load_ldm_checkpoint to the card in bf16 "
+            f"in {time.perf_counter() - t0:.1f} s; config is SDModelConfig.sd15(): "
+            f"{pipe.config == cfg}")
+        if pipe.config != cfg:
+            problems.append(f"detected config {pipe.config}")
+        unequal = [f"{part}.{k}" for part, module in (("unet", pipe.unet), ("clip", pipe.clip),
+                                                     ("vae", pipe.vae))
+                   for k, t in module.state_dict().items()
+                   if not torch.equal(t, params[part][k].to(torch.bfloat16))]
+        log(f"[single] loaded tensors equal to the written fp16 values in bf16: "
+            f"{sum(len(p) for p in params.values()) - len(unequal)} of "
+            f"{sum(len(p) for p in params.values())}")
+        if unequal:
+            problems.append(f"{len(unequal)} loaded tensors differ: {unequal[:4]}")
+        del params
+        torch.cuda.empty_cache()
+
+        # 3. two textual-inversion files, placeholders in the prompt and the labels
+        embeddings = write_embeddings(root, cfg.clip.hidden_size)
+        ids = apply_embeddings(pipe, embeddings)
+        if not check_embedding_rows(pipe, ids, embeddings, "single"):
+            problems.append("embedding rows")
+        cm = cat_dog_map(512)
+        enc = pipe.encode_inputs(TI_PROMPT, cm, TI_CONTEXT)
+        cols = [p for p, i in enumerate(enc.prompt_ids) if i in ids]
+        bound = [float(enc.pww.weights[4096][1][:, p].abs().sum()) > 0 for p in cols]
+        log(f"[single] placeholder ids at prompt positions {cols}; the PwW weights bind "
+            f"them: {bound}")
+        if len(cols) != len(ids) or not all(bound):
+            problems.append(f"PwW binding of the placeholders {cols} {bound}")
+
+        # 4. caller latents (NHWC) against seed=, 30 LMS steps
+        pipe.profile = True
+        kw = dict(local_model_path=path, device="cuda", color_context=TI_CONTEXT,
+                  color_map_image=cm, input_prompt=TI_PROMPT, guidance_scale=7.5,
+                  output_type="np")
+        latents = make_noise(0, (1, 4, 64, 64), "torch", "cuda").permute(0, 2, 3, 1)
+        paint_with_words(num_inference_steps=2, latents=latents, **kw)  # warm-up
+        counters = launch_counters()
+        for c in counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        img = paint_with_words(num_inference_steps=steps, latents=latents, **kw)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        tm = pipe.timings
+        log(f"[single] paint_with_words 512², {steps} LMS steps, CFG 7.5, latents given: "
+            f"encode {tm['encode']:.3f} s, denoise {tm['denoise']:.3f} s "
+            f"({tm['denoise'] / steps * 1e3:.1f} ms/step), decode {tm['decode']:.3f} s, "
+            f"{total:.3f} s/image, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"({card}); launches {launches}")
+        want = {"fused_pww_reduce": 15 * steps, "fused_pww_cross_attention": 15 * steps,
+                "flash_self_attention": 10 * steps, "group_norm": 0, "layer_norm": 0}
+        if launches != want:
+            problems.append(f"launches {launches} != {want}")
+        seeded = paint_with_words(num_inference_steps=steps, seed=0, **kw)
+        rel = rel_l2(img, seeded)
+        log(f"[single] latents=make_noise(0) against seed=0: image relative L2 {rel:.3e} "
+            f"(tol 1e-3), bit-equal {np.array_equal(img, seeded)}")
+        if img.shape != (1, 512, 512, 3) or img.std() == 0 or not rel < 1e-3:
+            problems.append(f"image {img.shape} std {img.std():.2f}, latents vs seed {rel:.3e}")
+        profiled = phase_profile(
+            lambda n: paint_with_words(num_inference_steps=n, latents=latents, **kw), "single")
+
+        # 5. the depth-cut config as a single file, card bf16 against CPU f32
+        small = depth_cut_sd15()
+        small_path = os.path.join(root, "sd15_depth_cut.safetensors")
+        sp = synthetic_params(small, seed=2, device="cuda", dtype=torch.float32)
+        # std 0.1 rather than 0.02, as phase_reference, so that the steps move the latents
+        safetensors_io.save_file(ldm_state_dict(small, {
+            p: {k: (v * 5.0).half() for k, v in sd.items()} for p, sd in sp.items()}),
+            small_path)
+        del sp
+        small_embeddings = write_embeddings(root, small.clip.hidden_size, seed=1)
+        lat = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (1, 32, 32, 4)).astype(np.float32))
+        runs = {}
+        for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+            _, sd, tok = load_ldm_checkpoint(small_path, config=small)
+            sp_pipe = PwwPipeline(small, params=sd, tokenizer=tok, device=device, dtype=dtype)
+            apply_embeddings(sp_pipe, small_embeddings)
+            runs[device] = sp_pipe.generate(
+                prompt=TI_PROMPT, color_map_image=cat_dog_map(256), color_context=TI_CONTEXT,
+                num_inference_steps=4, latents=lat, return_latents=True)
+            if device == "cuda":
+                card_pipe = sp_pipe
+        rel = rel_l2(runs["cuda"], runs["cpu"])
+        ok = bool(np.isfinite(runs["cuda"]).all()) and rel < 5e-2
+        log(f"[single reference] depth-cut SD-1.5 single file + an embedding, 256 px, 4 steps "
+            f"with latents: card bf16 vs CPU f32 relative L2 {rel:.3e} (tol 5e-2) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            problems.append(f"depth-cut reference {rel:.3e}")
+
+        # 6. save_pretrained → from_pretrained at full width
+        saved = os.path.join(root, "saved")
+        pipe.scheduler = make_scheduler("ddim")  # recorded, and must come back
+        t0 = time.perf_counter()
+        pipe.save_pretrained(saved)
+        save_s = time.perf_counter() - t0
+        pipe.scheduler = make_scheduler("lms")
+        t0 = time.perf_counter()
+        back = PwwPipeline.from_pretrained(saved, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        unequal = [k for m, n in ((pipe.unet, back.unet), (pipe.clip, back.clip),
+                                  (pipe.vae, back.vae))
+                   for k, t in m.state_dict().items() if not torch.equal(t, n.state_dict()[k])]
+        log(f"[single] save_pretrained wrote {dir_gb(saved):.3f} GB in {save_s:.1f} s, "
+            f"from_pretrained read it in {load_s:.1f} s: weights bit-equal "
+            f"{not unequal}, scheduler {back.scheduler.kind} (saved ddim)")
+        if unequal or back.scheduler.kind != "ddim":
+            problems.append(f"round trip: {unequal[:4]}, scheduler {back.scheduler.kind}")
+        back.scheduler = make_scheduler("lms")
+        apply_embeddings(back, embeddings)  # the tokenizer's files hold no added tokens
+        again = back.generate(prompt=TI_PROMPT, color_map_image=cm, color_context=TI_CONTEXT,
+                              num_inference_steps=steps, latents=latents, output_type="np")
+        rel = rel_l2(again, img)
+        log(f"[single] the reloaded pipeline's {steps}-step image against step 4's: relative "
+            f"L2 {rel:.3e} (tol 1e-3)")
+        if not rel < 1e-3:
+            problems.append(f"round-trip image {rel:.3e}")
+        del back
+        shutil.rmtree(saved)
+        torch.cuda.empty_cache()
+
+        # 7. the runner on the single file, then the apps on the depth-cut config
+        out = os.path.join(root, "runner")
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        runner.main(["--model", path, "--only", "cat_dog", "--out", out, "--device", "cuda"])
+        launches_r = {c.__name__: c.launches for c in counters}
+        from PIL import Image
+
+        sizes = {f: Image.open(os.path.join(out, f)).size for f in sorted(os.listdir(out))}
+        log(f"[single] runner.main --model <file> --only cat_dog ({steps} steps): "
+            f"{time.perf_counter() - t0:.1f} s with the load, launches {launches_r}, "
+            f"files {sizes}")
+        if launches_r != want or sizes.get("output_cat_dog.png") != (512, 512):
+            problems.append(f"runner: launches {launches_r}, files {sizes}")
+        small_dir = os.path.join(root, "depth_cut")
+        card_pipe.save_pretrained(small_dir)
+        del card_pipe
+        gradio_pww._PIPE = gradio_pww_inpaint._PIPE = None
+        hint = cat_dog_map(256)
+        context = "{(255, 0, 0): 'cat,1.0', (0, 0, 255): 'dog,1.0'}"
+        images = gradio_pww.run_pww(hint, context, "a cat sitting next to a dog", "", None,
+                                    256, 256, 1, 4, 7.5, 0, 0.5, model_path=small_dir,
+                                    device="cuda")
+        inpainted = gradio_pww_inpaint.run_pww_inpaint(
+            hint, context, "a cat sitting next to a dog", "",
+            {"image": synthetic_init_image(256), "mask": (box_mask(256)[..., None] * 255).repeat(
+                3, -1).astype(np.uint8)}, 256, 256, 1, 4, 7.5, 0, 1.0,
+            model_path=small_dir, device="cuda")
+        out2 = os.path.join(root, "runner_inpaint")
+        runner_inpaint.main(["--model", small_dir, "--steps", "4", "--out", out2,
+                             "--device", "cuda"])
+        sizes2 = {f: Image.open(os.path.join(out2, f)).size for f in sorted(os.listdir(out2))}
+        got = [im.size for im in images + inpainted]
+        log(f"[single] run_pww and run_pww_inpaint on the depth-cut model (256², 4 steps): "
+            f"{got}, std {[float(np.asarray(im).std()) for im in images + inpainted]}; "
+            f"runner_inpaint (512², 4 steps): {sizes2}")
+        if got != [(256, 256)] * 2 or sorted(sizes2.values()) != [(512, 512)] * 2:
+            problems.append(f"apps: {got}, {sizes2}")
+        gradio_pww._PIPE = gradio_pww_inpaint._PIPE = None
+
+        # 8. LDM-BERT at its published size, card bf16 against CPU f32
+        bcfg = LDMBertConfig()
+        bert_sd = ldm_bert_state(bcfg)
+        conf, state = convert_ldm_bert(bert_sd)
+        del bert_sd
+        ids_b = torch.from_numpy(np.random.default_rng(0).integers(
+            0, bcfg.vocab_size, (1, bcfg.max_position_embeddings)))
+        outs = {}
+        for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+            with torch.device("meta"):
+                bert = LDMBertModel(conf)
+            bert.load_state_dict({k: v.to(device, dtype) for k, v in state.items()},
+                                 assign=True)
+            with torch.inference_mode():
+                outs[device] = bert(ids_b.to(device)).float().cpu().numpy()
+            del bert
+        rel = rel_l2(outs["cuda"], outs["cpu"])
+        ok = conf == bcfg and bool(np.isfinite(outs["cuda"]).all()) and rel < 5e-2
+        log(f"[ldm-bert] {sum(v.numel() for v in state.values()):.4e} parameters "
+            f"({conf.num_layers} layers, d_model {conf.d_model}, {conf.num_heads}×"
+            f"{conf.head_dim} heads), 77 tokens: card bf16 vs CPU f32 relative L2 {rel:.3e} "
+            f"(tol 5e-2) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            problems.append(f"LDM-BERT {conf} {rel:.3e}")
+        del state, pipe
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        from pww_tpu_torch.pipeline import facade
+
+        facade._PIPELINE_CACHE.clear()
+        torch.cuda.empty_cache()
+    if problems:
+        raise SystemExit(f"[single] {problems}")
+    return launches, profiled
+
+
+def dir_gb(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path)
+               for f in fs) / 1e9
+
+
 def phase_tiny():
     """The tiny config (head dims 8 and 16, which K1-K3 are not built for)
     on the card: every attention site takes the dense path, no kernel
@@ -2635,6 +3104,7 @@ def main():
     import torch
 
     torch.cuda.empty_cache()
+    flaunches, fprofiled = phase_single_file(args.steps, smi)
     ipipe, ikw = inpaint_pipeline()
     record_norm_sites(ikw)
     phase_inpaint_reference()
@@ -2677,6 +3147,8 @@ def main():
             controlnet_path_device_ms_per_call=cprofiled.get(group, (None,))[0],
             sdxl_path_launches=xlaunches[counter],
             sdxl_path_device_ms_per_call=xprofiled.get(group, (None,))[0],
+            single_file_path_launches=flaunches[counter],
+            single_file_path_device_ms_per_call=fprofiled.get(group, (None,))[0],
             batch8_path_launches=blaunches[counter],
             batch8_path_device_ms_per_call=bprofiled.get(group, (None,))[0],
             extras_path_launches={run: n[counter] for run, n in elaunches.items()},

@@ -1,8 +1,33 @@
 """pww_tpu_torch — paint-with-words Stable Diffusion in PyTorch, with CUDA
 kernels for Hopper.
 
-The PyTorch port of :mod:`pww_tpu`, module for module. Importing the
-package loads nothing heavy; use ``pww_tpu_torch.pipeline.pipeline.PwwPipeline``
-and ``pww_tpu_torch.pipeline.facade.paint_with_words``.
+The PyTorch port of :mod:`pww_tpu`, module for module, with its public
+names: the configs, the weight functions, the reference-shaped facade
+(``paint_with_words``, ``paint_with_words_inpaint``, ``pww_load_tools``),
+``PwwPipeline``, ``PwwState`` and ``apply_textual_inversion``. Not yet
+exported: ``MeshConfig`` and ``make_mesh`` (multi-GPU, ROADMAP A.20) and
+``train_textual_inversion`` (training, ROADMAP A.18). The kernels build at
+their first launch on a card, not at import.
 """
 __version__ = "0.1.0"
+
+from .config import (  # noqa: F401
+    CLIPTextConfig,
+    SchedulerConfig,
+    SDModelConfig,
+    UNetConfig,
+    VAEConfig,
+)
+from .ops.weight_functions import (  # noqa: F401
+    CustomWeightFunction,
+    WeightFunction,
+    as_weight_function,
+)
+from .pipeline.facade import (  # noqa: F401
+    paint_with_words,
+    paint_with_words_inpaint,
+    pww_load_tools,
+)
+from .pipeline.pipeline import PwwPipeline  # noqa: F401
+from .types import PwwState  # noqa: F401
+from .weights.textual_inversion import apply_textual_inversion  # noqa: F401

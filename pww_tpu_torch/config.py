@@ -67,6 +67,33 @@ class CLIPTextConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LDMBertConfig:
+    """LDM-BERT, the original latent-diffusion text tower
+    (``pww_tpu/config.py:62-92``): the reference converter's
+    ``create_ldm_bert_config`` with diffusers' defaults, 8 heads of 64 (an
+    attention width of 512, not ``d_model``), the BERT vocabulary, 77
+    positions; txt2img-1p4B has ``d_model`` 1280 and 32 layers."""
+
+    vocab_size: int = 30522
+    d_model: int = 1280
+    num_layers: int = 32
+    num_heads: int = 8
+    head_dim: int = 64
+    ffn_dim: int = 5120
+    max_position_embeddings: int = 77
+    layer_norm_eps: float = 1e-5
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @staticmethod
+    def tiny() -> "LDMBertConfig":
+        return LDMBertConfig(vocab_size=100, d_model=32, num_layers=2, num_heads=2,
+                             head_dim=8, ffn_dim=64, max_position_embeddings=16)
+
+
+@dataclasses.dataclass(frozen=True)
 class UNetConfig:
     """SD UNet2DConditionModel hyperparameters (SD-1.5 defaults)."""
 

@@ -1,12 +1,14 @@
-"""numpy host ops: color-map masks and prompt token matching.
+"""numpy host ops: color-map masks, the apps' color tools and prompt token
+matching.
 
-The numpy twins of :mod:`pww_tpu.native`'s ``color_masks`` and
-``token_match_row``. The C++ host library there is not ported yet; these
-compute the same results.
+The numpy twins of :mod:`pww_tpu.native`'s ``color_masks``,
+``color_mask_sqdist``, ``unique_colors`` and ``token_match_row`` (its numpy
+branches, ``pww_tpu/native/__init__.py:80-166``). The C++ host library
+there is not ported yet (ROADMAP A.19b); these compute the same results.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
@@ -24,6 +26,29 @@ def color_masks(
         eq.astype(np.float32) * strengths[:, None, None],
         eq.reshape(n, -1).sum(-1).astype(np.int64),
     )
+
+
+def color_mask_sqdist(img: np.ndarray, color, threshold: int = 30) -> np.ndarray:
+    """(H, W) bool: pixels within squared RGB distance ``threshold`` of ``color``."""
+    img = np.ascontiguousarray(img[..., :3], np.uint8)
+    diff = img.astype(np.int64) - np.asarray(color, np.int64)
+    return (diff * diff).sum(-1) < threshold
+
+
+def unique_colors(img: np.ndarray, min_fraction: float = 0.01,
+                  max_out: int = 8) -> List[Tuple[Tuple[int, int, int], int]]:
+    """Up to ``max_out`` (color, pixel count) pairs, most common first, of the
+    colors covering more than ``min_fraction`` of the image."""
+    img = np.ascontiguousarray(img[..., :3], np.uint8)
+    h, w = img.shape[:2]
+    min_count = max(1, int(min_fraction * h * w) + 1)
+    colors, counts = np.unique(img.reshape(-1, 3), axis=0, return_counts=True)
+    res = []
+    for i in np.argsort(-counts)[:max_out]:
+        if counts[i] < min_count:
+            break
+        res.append((tuple(int(x) for x in colors[i]), int(counts[i])))
+    return res
 
 
 def token_match_row(ids, sub) -> Tuple[np.ndarray, int]:

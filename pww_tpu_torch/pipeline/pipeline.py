@@ -34,8 +34,10 @@ expert denoisers: ``denoising_end`` stops a call at a fraction of the
 trajectory and returns its latents, and ``init_latents`` with
 ``denoising_start`` resumes it, on the same or another model.
 
-:meth:`PwwPipeline.from_pretrained` loads a diffusers-layout directory
-(:mod:`~pww_tpu_torch.weights.loader`).
+:meth:`PwwPipeline.from_pretrained` loads a diffusers-layout directory, an
+A1111/LDM single file or a JAX-written ``params.msgpack`` directory
+(:mod:`~pww_tpu_torch.weights.loader`), and
+:meth:`PwwPipeline.save_pretrained` writes the diffusers layout.
 
 Serving (``pww_tpu/pipeline/pipeline.py:1213-1355, 2237-2709``):
 :meth:`PwwPipeline.generate_batch` runs N independent requests (own prompt,
@@ -102,6 +104,8 @@ NO_STRENGTH_TRUNCATION = ("pndm", "heun", "unipc", "dpmpp_2m", "dpmpp_2m_sde")
 UNPORTED = {
     "ip_adapter_image": (None, "A.15 (IP-Adapter)"),
     "ip_adapter_scale": (None, "A.15 (IP-Adapter)"),
+    "rng": (None, "A.10e (a jax.random key; the port draws torch noise from seed)"),
+    "sharding": ("batch", "A.20 (multi-GPU)"),
 }
 
 
@@ -338,12 +342,16 @@ class PwwPipeline:
     @classmethod
     def from_pretrained(cls, model_path: str, scheduler: Optional[str] = None,
                         **kwargs) -> "PwwPipeline":
-        """A pipeline on a diffusers-layout directory (SD-1.x, SD-1.x
-        inpainting, SD-2.x, SDXL base and refiner; ``.safetensors`` or
-        ``.bin`` weights and the tokenizers' files). ``scheduler=None``
-        takes the ``scheduler_type`` a top-level ``config.json`` records,
-        else "lms". The weights go to the pipeline's device and dtype
-        (``**kwargs``: the constructor's)."""
+        """A pipeline on a checkpoint that
+        :func:`~pww_tpu_torch.weights.loader.load_pipeline_checkpoint`
+        reads: a diffusers-layout directory (SD-1.x, SD-1.x inpainting,
+        SD-2.x, SDXL base and refiner; ``.safetensors`` or ``.bin`` weights
+        and the tokenizers' files), one A1111/LDM ``.ckpt`` or
+        ``.safetensors`` file, or a directory the JAX package's
+        ``save_pretrained`` or converter wrote (``params.msgpack``).
+        ``scheduler=None`` takes the ``scheduler_type`` a top-level
+        ``config.json`` records, else "lms". The weights go to the
+        pipeline's device and dtype (``**kwargs``: the constructor's)."""
         from ..weights.loader import load_pipeline_checkpoint, recorded_scheduler
 
         config, params, tokenizer, tokenizer_2 = load_pipeline_checkpoint(model_path)
@@ -351,6 +359,29 @@ class PwwPipeline:
             scheduler = recorded_scheduler(model_path)
         return cls(config=config, params=params, tokenizer=tokenizer, scheduler=scheduler,
                    tokenizer_2=tokenizer_2, **kwargs)
+
+    def save_pretrained(self, path: str) -> None:
+        """Write the pipeline to ``path`` in the diffusers layout
+        (:func:`~pww_tpu_torch.weights.loader.save_diffusers_checkpoint`:
+        the weights as ``.safetensors`` in their own type, the tokenizers'
+        files for a real-BPE tokenizer) with a top-level ``config.json``
+        recording the scheduler. :meth:`from_pretrained` reads it back, and
+        so does the JAX package's, by its diffusers branch (there is no
+        ``params.msgpack``: the port writes no flax tree). Config fields
+        that the diffusers files do not carry come back at their defaults."""
+        import json
+        import os
+
+        from ..weights.loader import save_diffusers_checkpoint
+
+        parts = {"unet": self.unet, "clip": self.clip, "vae": self.vae}
+        if self.clip2 is not None:
+            parts["clip2"] = self.clip2
+        save_diffusers_checkpoint(path, self.config,
+                                  {part: m.state_dict() for part, m in parts.items()},
+                                  self.tokenizer, tokenizer_2=self.tokenizer_2)
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump({"scheduler_type": self.scheduler.kind}, f, indent=1)
 
     def _place(self, module: torch.nn.Module, state) -> torch.nn.Module:
         """A module built on the meta device, given ``state`` on this
@@ -774,6 +805,7 @@ class PwwPipeline:
         noise_mode: str = "torch",
         vae_sample_mode: str = "sample",  # "mean" = the posterior mean
         output_type: str = "pil",
+        latents=None,  # txt2img: caller-drawn initial noise, (N, h, w, C) NHWC
         return_latents: bool = False,
         cache_interval: int = 1,  # DeepCache: a full UNet visit every k visits
         tome_ratio: float = 0.0,  # ToMe: the share of tokens merged at 64² sites
@@ -787,6 +819,13 @@ class PwwPipeline:
         un-fetched (N, H, W, 3) uint8 tensor on the pipeline's device
         (``output_type="device"``), or with ``return_latents`` the final
         (N, h, w, 4) f32 latents (NHWC).
+
+        ``latents``: txt2img's initial noise, drawn by the caller, in the
+        layout ``return_latents`` gives, (``num_samples``, h, w, C); it is
+        scaled by the schedule's ``init_noise_sigma`` and takes no regional
+        seeding (``pww_tpu/pipeline/pipeline.py:1621-1628``). With
+        ``init_image`` or ``init_latents`` it is ignored, as in the JAX
+        pipeline.
 
         ``control_image``: one hint per attached ControlNet (a single one is
         shared by all), RGB in [0, 255] at the processing resolution;
@@ -927,9 +966,16 @@ class PwwPipeline:
                 noise = make_noise(seed, tuple(init_lat.shape), noise_mode, self.device)
                 lat = schedule.add_noise(init_lat, noise, t_start)
         elif init_image is None:
-            shape = (n, cfg.vae.latent_channels, height // sf, width // sf)
-            lat = make_noise(seed, shape, noise_mode, self.device)
-            lat = regional_seed_latents(lat, enc.regions, noise_mode)
+            if latents is not None:
+                lat = torch.as_tensor(latents)
+                want_shape = (n, height // sf, width // sf, cfg.vae.latent_channels)
+                if tuple(lat.shape) != want_shape:
+                    raise ValueError(f"latents shape {tuple(lat.shape)} != {want_shape}")
+                lat = lat.to(self.device, torch.float32).permute(0, 3, 1, 2).contiguous()
+            else:
+                shape = (n, cfg.vae.latent_channels, height // sf, width // sf)
+                lat = make_noise(seed, shape, noise_mode, self.device)
+                lat = regional_seed_latents(lat, enc.regions, noise_mode)
             lat = lat * schedule.init_noise_sigma
         else:
             t_start = self._t_start(num_inference_steps, strength, schedule)

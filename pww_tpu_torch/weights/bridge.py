@@ -31,13 +31,13 @@ from ..config import SDModelConfig
 StateDicts = Dict[str, Dict[str, torch.Tensor]]
 
 
-def _leaf(leaf: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
-    """flax leaf → (torch leaf name, torch-layout array)."""
+def _leaf(leaf: str, arr: torch.Tensor) -> Tuple[str, torch.Tensor]:
+    """flax leaf → (torch leaf name, torch-layout tensor)."""
     if leaf == "kernel":
-        if arr.ndim == 4:
-            return "weight", np.transpose(arr, (3, 2, 0, 1))
-        if arr.ndim == 2:
-            return "weight", np.transpose(arr, (1, 0))
+        if arr.dim() == 4:
+            return "weight", arr.permute(3, 2, 0, 1).contiguous()
+        if arr.dim() == 2:
+            return "weight", arr.t().contiguous()
         return "weight", arr
     return {"bias": "bias", "scale": "weight", "embedding": "weight"}[leaf], arr
 
@@ -172,16 +172,17 @@ _KEYS = {"unet": unet_key, "clip": clip_key, "clip2": clip_key, "vae": vae_key,
 
 
 def params_from_jax(tree) -> StateDicts:
-    """{part: flax tree of numpy arrays} → {part: torch state dict}, for the
-    parts "unet", "clip", "clip2", "vae", "controlnet" and "t2i_adapter" in
-    ``tree``."""
+    """{part: flax tree of numpy arrays or CPU tensors} → {part: torch state
+    dict}, for the parts "unet", "clip", "clip2", "vae", "controlnet" and
+    "t2i_adapter" in ``tree``."""
     out: StateDicts = {}
     for part, sub in tree.items():
         sd = out[part] = {}
         for path, arr in _walk(sub):
             *mods, leaf = path
             mods = tuple(mods)
-            arr = np.asarray(arr)
+            if not isinstance(arr, torch.Tensor):
+                arr = torch.tensor(np.asarray(arr))
             if part in ("clip", "clip2") and leaf == "position_embedding":
                 key, t = "text_model.embeddings.position_embedding.weight", arr
             else:
@@ -189,7 +190,7 @@ def params_from_jax(tree) -> StateDicts:
                 key = f"{_KEYS[part](mods)}.{name}"
             if key in sd:
                 raise ValueError(f"duplicate key {key} from {path}")
-            sd[key] = torch.tensor(np.asarray(t))
+            sd[key] = t
         if part == "controlnet":
             sd[COND_EMBEDDING_OUT] = centre_tap(sd[COND_EMBEDDING_OUT])
     return out

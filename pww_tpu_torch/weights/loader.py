@@ -18,14 +18,17 @@ the exceptions, which the JAX package handles in ``fill_params`` and
 * buffers that are not parameters (``text_model.embeddings.position_ids``)
   are dropped.
 
+:func:`load_pipeline_checkpoint` also reads one A1111/LDM ``.ckpt`` or
+``.safetensors`` file (:mod:`.ldm_convert`) and a directory that the JAX
+package's ``save_pretrained`` or converter CLI wrote (``params.msgpack``,
+decoded by :mod:`.msgpack_io`, and ``config.json``).
 ControlNet checkpoints (a diffusers ``ControlNetModel`` directory or one
 file) load through :func:`load_controlnet_checkpoint`, T2I-Adapter state
 dicts (bare or ``adapter.``-prefixed keys) through
 :func:`t2i_adapter_state_dict`; :func:`save_controlnet_checkpoint` writes
-the former. The SDXL (``text_time``) ControlNet, SDXL 9-channel
-inpainting, single-file LDM checkpoints and the JAX package's
-``params.msgpack`` raise ``NotImplementedError`` naming their ROADMAP items
-(A.16a, A.16b, A.17).
+the former. The SDXL (``text_time``) ControlNet and SDXL 9-channel
+inpainting raise ``NotImplementedError`` naming their ROADMAP items (A.16a,
+A.16b).
 
 A parameter missing from the checkpoint raises ``KeyError`` naming the
 first few; any other key left over makes the pipeline's
@@ -36,6 +39,7 @@ pipeline casts them to its own.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -43,9 +47,10 @@ from typing import Dict, Optional
 
 import torch
 
-from ..config import CLIPTextConfig, SDModelConfig, UNetConfig, VAEConfig
+from ..config import CLIPTextConfig, SchedulerConfig, SDModelConfig, UNetConfig, VAEConfig
 from . import safetensors_io
-from .bridge import COND_EMBEDDING_OUT, StateDicts, build_models, centre_tap
+from .bridge import (COND_EMBEDDING_OUT, StateDicts, build_models, centre_tap,
+                     params_from_jax, pipeline_parts)
 
 WEIGHT_FILES = (
     "diffusion_pytorch_model.safetensors",
@@ -201,9 +206,89 @@ def convert_state_dict(part: str, state: Dict[str, torch.Tensor],
     return out
 
 
+# The JAX configs' fields that the port drops (ROADMAP "Not ported": knobs
+# that only shaped TPU code), and those it takes per call or has not ported,
+# which a JAX-written config may hold at their off values only.
+JAX_ONLY_DROPPED = {"unet": ("xattn_block_q", "flash_block", "flash_pad_heads",
+                             "conv_lowering", "xattn_variant")}
+JAX_ONLY_OFF = {"unet": {"tome_ratio": (0.0, "generate(tome_ratio=...)"),
+                         "freeu": (None, "generate(freeu=...)"),
+                         "sow_mid_attn": (False, "generate(sag_scale=...)"),
+                         "ip_adapter_tokens": (None, "ROADMAP A.15 (IP-Adapter)")}}
+_TUPLE_FIELDS = ("block_out_channels", "down_block_has_attn", "transformer_depth")
+
+
+def _config_part(cls, part: str, fields: dict, where: str):
+    """One JAX config dataclass from ``config.json`` as the port's ``cls``."""
+    known = {f.name for f in dataclasses.fields(cls)}
+    kept = {}
+    for name, value in fields.items():
+        if name in known:
+            kept[name] = tuple(value) if name in _TUPLE_FIELDS and value is not None else value
+        elif name in JAX_ONLY_DROPPED.get(part, ()):
+            continue
+        elif name in JAX_ONLY_OFF.get(part, {}):
+            off, instead = JAX_ONLY_OFF[part][name]
+            if value != off:
+                raise NotImplementedError(
+                    f"{where}: {part}.{name}={value!r} is not a config field of "
+                    f"pww_tpu_torch; use {instead}")
+        else:
+            raise ValueError(f"{where}: unknown {part} config field {name!r}")
+    return cls(**kept)
+
+
+def native_config(meta: dict, where: str = "config.json") -> SDModelConfig:
+    """``config.json``'s ``"model"`` (``dataclasses.asdict`` of the JAX
+    ``SDModelConfig``) as the port's config: the TPU-only fields dropped,
+    the per-call ones taken at their off values, any other field the port
+    lacks refused (:data:`JAX_ONLY_DROPPED`, :data:`JAX_ONLY_OFF`)."""
+    m = dict(meta["model"])
+    parts = {"clip": CLIPTextConfig, "clip2": CLIPTextConfig, "unet": UNetConfig,
+             "vae": VAEConfig, "scheduler": SchedulerConfig}
+    for part, cls in parts.items():
+        if m.get(part) is not None:
+            m[part] = _config_part(cls, part, m[part], where)
+    return _config_part(SDModelConfig, "model", m, where)
+
+
+def _load_native_checkpoint(model_path: str):
+    """A directory the JAX package wrote (``pww_tpu/weights/loader.py:
+    470-561``): ``params.msgpack`` (the flax trees, through
+    :func:`~.bridge.params_from_jax`), ``config.json`` and the tokenizers'
+    files (the toy tokenizer where there are none)."""
+    from ..tokenizer.clip_bpe import CLIPTokenizer, toy_tokenizer
+    from . import msgpack_io
+
+    cj = os.path.join(model_path, "config.json")
+    with open(cj) as f:
+        config = native_config(json.load(f), cj)
+    tree = msgpack_io.load_file(os.path.join(model_path, "params.msgpack"))
+    parts = pipeline_parts(config)
+    if set(tree) != set(parts):
+        raise ValueError(f"{model_path}: params.msgpack holds {sorted(tree)}, the config's "
+                         f"pipeline {sorted(parts)}")
+    state = params_from_jax(tree)
+    params: StateDicts = {part: convert_state_dict(part, state[part], module.state_dict())
+                          for part, module in build_models(config).items()}
+    try:
+        tokenizer = CLIPTokenizer.from_dir(model_path)
+    except FileNotFoundError:
+        tokenizer = toy_tokenizer(config.clip.vocab_size)
+    tokenizer_2 = None
+    if config.is_xl:
+        t2dir = os.path.join(model_path, "tokenizer_2")
+        tokenizer_2 = CLIPTokenizer.from_dir(t2dir) if os.path.isdir(t2dir) else tokenizer
+    return config, params, tokenizer, tokenizer_2
+
+
 def load_pipeline_checkpoint(model_path: str):
     """(config, {"unet", "clip", "vae"} state dicts, tokenizer, tokenizer_2)
-    from a diffusers-layout directory: ``unet/``, ``text_encoder/`` and
+    from a checkpoint, dispatched as the JAX loader does
+    (``pww_tpu/weights/loader.py:564-580``): a file goes to
+    :func:`~.ldm_convert.load_ldm_checkpoint` (``tokenizer_2`` None), a
+    directory with ``params.msgpack`` to the JAX-written format's reader,
+    anything else is a diffusers-layout directory: ``unet/``, ``text_encoder/`` and
     ``vae/`` each with a ``config.json`` and one of :data:`WEIGHT_FILES`, and
     the tokenizer's ``vocab.json`` / ``merges.txt`` in ``tokenizer/`` or at
     the top. SDXL-base adds "clip2" from ``text_encoder_2/`` and
@@ -215,11 +300,11 @@ def load_pipeline_checkpoint(model_path: str):
     from ..tokenizer.clip_bpe import CLIPTokenizer
 
     if os.path.isfile(model_path):
-        raise NotImplementedError(f"{model_path}: single-file LDM checkpoints are not "
-                                  "ported to pww_tpu_torch yet (ROADMAP A.17)")
+        from .ldm_convert import load_ldm_checkpoint
+
+        return (*load_ldm_checkpoint(model_path), None)
     if os.path.exists(os.path.join(model_path, "params.msgpack")):
-        raise NotImplementedError(f"{model_path}: the JAX package's native params.msgpack "
-                                  "format is not ported to pww_tpu_torch (ROADMAP A.17)")
+        return _load_native_checkpoint(model_path)
     config = config_from_checkpoint(model_path)
     params: StateDicts = {}
     subdirs = {"unet": "unet", "clip": "text_encoder_2" if config.xl_refiner else "text_encoder",
@@ -279,8 +364,9 @@ def t2i_adapter_state_dict(source, expected: Dict[str, torch.Tensor]) -> Dict[st
 
 
 def recorded_scheduler(model_path: str) -> str:
-    """The ``scheduler_type`` a top-level ``config.json`` records (the JAX
-    package's ``save_pretrained`` and converter write it), else "lms"."""
+    """The ``scheduler_type`` a directory's top-level ``config.json``
+    records (both packages' ``save_pretrained`` and converters write it),
+    else "lms", as for a single file."""
     cj = os.path.join(model_path, "config.json")
     if os.path.isdir(model_path) and os.path.exists(cj):
         try:

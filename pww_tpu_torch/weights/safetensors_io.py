@@ -4,8 +4,10 @@ The format: an 8-byte little-endian header length n, n bytes of JSON
 (``{name: {"dtype", "shape", "data_offsets": [begin, end]}}`` plus an
 optional ``"__metadata__"`` map of strings), then the tensors' raw
 little-endian bytes, each at its offsets from the end of the header. F32,
-F16 and BF16 are read and written; numpy has no bfloat16, so BF16 bytes
-are read as uint16 and viewed as ``torch.bfloat16``.
+F16, BF16, I64, I32, I16, I8, U8 and BOOL are read and written in
+their own torch types (real SD-1.x files store ``position_ids`` as I64, and
+LDM files with EMA weights ``model_ema.num_updates`` as I32); numpy has no
+bfloat16, so BF16 bytes are read as uint16 and viewed as ``torch.bfloat16``.
 """
 from __future__ import annotations
 
@@ -22,6 +24,12 @@ _DTYPES = {
     "F32": (np.float32, torch.float32),
     "F16": (np.float16, torch.float16),
     "BF16": (np.uint16, torch.bfloat16),
+    "I64": (np.int64, torch.int64),
+    "I32": (np.int32, torch.int32),
+    "I16": (np.int16, torch.int16),
+    "I8": (np.int8, torch.int8),
+    "U8": (np.uint8, torch.uint8),
+    "BOOL": (np.bool_, torch.bool),
 }
 _NAMES = {t: name for name, (_, t) in _DTYPES.items()}
 

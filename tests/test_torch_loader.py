@@ -1,6 +1,7 @@
 """The port's checkpoint loading against the JAX package's (CPU).
 
-* ``weights/safetensors_io`` against the ``safetensors`` package, both ways;
+* ``weights/safetensors_io`` against the ``safetensors`` package, both ways,
+  the integer types included;
 * the port's ``load_pipeline_checkpoint`` and the JAX one on the same tiny
   diffusers directories (SD-1.x, 9-channel inpainting, and SD-2-style with
   per-block head counts, Linear ``proj_in``/``proj_out`` and the old VAE
@@ -12,6 +13,7 @@
 """
 import dataclasses
 import os
+import struct
 
 import jax
 import jax.numpy as jnp
@@ -77,12 +79,39 @@ def test_safetensors_bf16_round_trips_against_the_package(tmp_path):
 
 
 def test_safetensors_refuses_other_types_and_bad_offsets(tmp_path):
+    """The integer and bool types real single files hold (I64 ``position_ids``,
+    I32 ``model_ema.num_updates``) read as ``safetensors.numpy`` reads them
+    and round-trip; a dtype name the format does not define, a type the
+    reader lacks (F64) and offsets that do not fit are refused."""
+    import json
+
     p = str(tmp_path / "x.safetensors")
+    rng = np.random.default_rng(0)
+    ints = {"position_ids": np.arange(77, dtype=np.int64)[None],
+            "num_updates": np.array(1234, np.int32),
+            "i16": rng.integers(-300, 300, (3, 4)).astype(np.int16),
+            "i8": rng.integers(-100, 100, (5,)).astype(np.int8),
+            "u8": rng.integers(0, 255, (2, 3)).astype(np.uint8),
+            "mask": rng.random((4,)) > 0.5}
+    safetensors.numpy.save_file(ints, p)
+    back = safetensors_io.load_file(p)
+    want = safetensors.numpy.load_file(p)
+    assert set(back) == set(want) == set(ints)
+    for k, t in back.items():
+        assert t.numpy().dtype == want[k].dtype, k
+        np.testing.assert_array_equal(t.numpy(), want[k], err_msg=k)
+    safetensors_io.save_file(back, p)
+    for k, a in safetensors.numpy.load_file(p).items():
+        assert a.dtype == ints[k].dtype
+        np.testing.assert_array_equal(a, ints[k], err_msg=k)
     with pytest.raises(ValueError, match="dtype"):
-        safetensors_io.save_file({"i": torch.zeros(3, dtype=torch.int64)}, p)
-    safetensors.numpy.save_file({"i": np.zeros(3, np.int64)}, p)
-    with pytest.raises(ValueError, match="I64"):
-        safetensors_io.load_file(p)
+        safetensors_io.save_file({"i": torch.zeros(3, dtype=torch.complex64)}, p)
+    for dtype in ("X99", "F64"):
+        raw = json.dumps({"i": {"dtype": dtype, "shape": [2], "data_offsets": [0, 4]}}).encode()
+        with open(p, "wb") as f:
+            f.write(struct.pack("<Q", len(raw)) + raw + bytes(4))
+        with pytest.raises(ValueError, match=dtype):
+            safetensors_io.load_file(p)
     safetensors_io.save_file({"x": torch.zeros(4)}, p)
     with open(p, "r+b") as f:  # cut the data short
         f.truncate(os.path.getsize(p) - 4)
@@ -209,13 +238,36 @@ def test_missing_key_raises_and_position_ids_do_not(dirs, tmp_path):
 
 
 def test_unported_formats_raise(tmp_path):
+    """Single files and ``params.msgpack`` directories load now
+    (tests/test_torch_ldm.py holds them against the JAX loaders). What the
+    dispatch still refuses: an original-LDM (LDM-BERT) single file, as the
+    reference does, and a JAX-written directory whose config carries a
+    setting the port would drop, such as IP-Adapter tokens (ROADMAP A.15);
+    a file that is no checkpoint raises where it is read."""
+    import json
+
+    bert = tmp_path / "ldm.safetensors"
+    safetensors.numpy.save_file(
+        {"cond_stage_model.transformer.token_emb.weight": np.zeros((10, 4), np.float32)},
+        str(bert))
+    with pytest.raises(ValueError, match="LDM-BERT"):
+        loader.load_pipeline_checkpoint(str(bert))
+    native = tmp_path / "native"
+    native.mkdir()
+    model = dataclasses.asdict(JaxSDModelConfig.tiny())
+    model["unet"]["ip_adapter_tokens"] = 4
+    (native / "config.json").write_text(json.dumps({"model": model}))
+    (native / "params.msgpack").write_bytes(b"\x80")
+    with pytest.raises(NotImplementedError, match="A.15"):
+        loader.load_pipeline_checkpoint(str(native))
+    model["unet"]["ip_adapter_tokens"] = None
+    (native / "config.json").write_text(json.dumps({"model": model}))
+    with pytest.raises(ValueError, match="params.msgpack holds"):  # an empty map
+        loader.load_pipeline_checkpoint(str(native))
     f = tmp_path / "model.safetensors"
     f.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A.17"):
+    with pytest.raises(struct.error):
         loader.load_pipeline_checkpoint(str(f))
-    (tmp_path / "params.msgpack").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A.17"):
-        loader.load_pipeline_checkpoint(str(tmp_path))
 
 
 # -- the facade ---------------------------------------------------------------

@@ -143,13 +143,16 @@ def test_entry_points_default_to_the_card():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Importing every module of the port loads neither JAX nor the JAX
+    package, nor the packages the card's machine lacks (``msgpack``,
+    ``safetensors``, ``ml_dtypes``, ``gradio``)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import pww_tpu_torch\n"
         "for m in pkgutil.walk_packages(pww_tpu_torch.__path__, 'pww_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax') or m.startswith(('jax.', 'flax.'))\n"
-        "             or m == 'pww_tpu' or m.startswith('pww_tpu.'))\n"
+        "banned = ('jax', 'flax', 'pww_tpu', 'msgpack', 'safetensors', 'ml_dtypes', 'gradio')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
         "n = sum(m.startswith('pww_tpu_torch') for m in sys.modules)\n"
         "print(n, bad)\n"
         "sys.exit(1 if bad or n < 20 else 0)\n"
@@ -157,3 +160,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_the_port_exports_the_jax_packages_public_names():
+    """Every public name of ``pww_tpu/__init__.py`` but the three that wait
+    for their ROADMAP items: ``MeshConfig`` and ``make_mesh`` (A.20,
+    multi-GPU) and ``train_textual_inversion`` (A.18, training)."""
+    import pww_tpu
+    import pww_tpu_torch
+
+    waiting = {"MeshConfig": "A.20", "make_mesh": "A.20", "train_textual_inversion": "A.18"}
+    public = {n for n in vars(pww_tpu) if not n.startswith("_")
+              and not isinstance(getattr(pww_tpu, n), type(pww_tpu))}
+    assert set(waiting) <= public
+    missing = sorted(n for n in public - set(waiting) if not hasattr(pww_tpu_torch, n))
+    assert not missing, missing
+    assert not any(hasattr(pww_tpu_torch, n) for n in waiting)
+    doc = pww_tpu_torch.__doc__
+    assert all(n in doc and item in doc for n, item in waiting.items())
+    assert pww_tpu_torch.PwwPipeline.__module__ == "pww_tpu_torch.pipeline.pipeline"
