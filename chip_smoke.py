@@ -130,26 +130,55 @@ Phases, each printing its own lines; any failure ends the run non-zero:
     3 LMS steps, card bf16 against CPU f32 (K1/K2/K3 14/14/6 a visit); then
     6 steps cut at 0.5: the base to denoising_end, the refiner from there
     (12/12/6), and the refiner's update from the CPU's base latents;
+8d. adapters reference: phase 4's reduced-depth config with a kohya LoRA
+   (rank 8, every UNet and text linear, proj and resnet conv) merged and
+   each IP-Adapter variant attached (a ViT-H/14 image tower at its widths,
+   cut to 2 layers), 256 px, 3 steps, card bf16 against CPU f32 (< 5e-2);
+   the ViT-H/14 tower at its published size (6.3e8 parameters) on one
+   reference image, embeddings and penultimate states (< 5e-2);
+8e. adapters: on phase 5's pipeline, N LMS steps at 512² with the map:
+   a kohya LoRA file (rank 64, alpha 32: every attention and feed-forward
+   linear, the 1×1 proj convs, LoCon 3×3 entries on every resnet conv,
+   every text linear; fp16) written and loaded (its module count, size,
+   write and load s), K1/K2/K3 15/15/10 a visit, an image unlike the
+   plain one; the same entries in the peft layout merge bit-equal; after
+   ``unload_loras`` every UNet and CLIP tensor is bit-equal to before; a
+   ViT-H/14 image encoder written as a transformers directory and the
+   ``ip-adapter_sd15``- and ``ip-adapter-plus_sd15``-shaped files, each
+   attached by ``load_ip_adapter`` and run with a reference image (15/15/10
+   a visit, the encoder's ms per image; ``ip_adapter_scale=0.0`` gives
+   the plain image bit for bit, scale 1 another); for the standard file
+   one request through the ``Batcher`` and one ``POST /generate``
+   (``ip_adapter_image_png_b64``), both bit-equal to ``generate``, a 4-row
+   ``generate_batch`` sharing the image (each row within
+   ``SERVE_IMAGE_TOL`` of the request alone), and a 5-step profile;
 19. sdxl path: SDXL-base at diffusers' published shapes written as an fp16
     diffusers directory (the free space printed first; deleted once
     loaded), through ``paint_with_words(local_model_path=...)``, 1024², N
     LMS steps, CFG 7.5, K1 = K2 = K3 = 70·N (SDXL_LAUNCHES_PER_VISIT), a
     5-step profile; the refiner at its published shapes the same way, one
     ensemble call (the base's visits at t >= 200, the refiner's 44/44/40 a
-    visit after them), and one 4-step euler call on the base.
+    visit after them), and one 4-step euler call on the base; then on the
+    base at 1024², 4 steps each, a kohya LoRA at rank 32 (UNet attention,
+    ``lora_te1_``, ``lora_te2_``; 70/70/70 a visit, the unload bit-equal)
+    and an ``ip-adapter_sdxl_vit-h``-shaped file with the ViT-H encoder
+    (70 sites; 70/70/70 a visit, scale 0 bit-equal to no adapter).
 
 Then a JSON line with every kernel, the card's name and power limit, and
 last {"ok": true, "device": {...}}.
 Imports nothing of JAX. Needs one card.
 """
 import argparse
+import atexit
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -899,7 +928,8 @@ def phase_profile(run, tag, steps=5):
     if busy == 0:
         raise SystemExit(f"[profile {tag}] the trace holds no device time")
     log(f"[profile {tag}] {steps}-step call: {wall * 1e3:.1f} ms wall, device busy "
-        f"{busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}")
+        f"{busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}, "
+        f"{sum(counts.values())} device kernels")
     log(f"[profile {tag}] by group (ms): " + ", ".join(
         f"{g} {t:.2f}" for g, t in sorted(groups.items(), key=lambda x: -x[1])))
     for ms, count, name in sorted(kernels, reverse=True)[:8]:
@@ -2944,14 +2974,15 @@ def load_xl(cfg, seed, tag):
     return pipe, path
 
 
-def phase_sdxl(steps, card):
+def phase_sdxl(steps, card, enc_dir, tmp):
     """SDXL-base at diffusers' published shapes from a written directory,
     through ``paint_with_words(local_model_path=...)``: N LMS steps at 1024²
     with 70 launches of each of K1-K3 per visit, the loader's cache, a
     5-step profile; then the refiner at its published shapes the same way,
     one ensemble call (base ``denoising_end=0.8``, refiner ``init_latents``
     and ``denoising_start=0.8``) with launches checked per model, and one
-    euler call on the base."""
+    euler call on the base; then the adapters on the base
+    (phase_sdxl_adapters)."""
     import numpy as np
     import torch
 
@@ -3060,7 +3091,507 @@ def phase_sdxl(steps, card):
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("[sdxl] the euler call failed its launch or output checks")
-    return launches, profiled, {"base": base_launches, "refiner": ref_launches}
+    adapters = phase_sdxl_adapters(pipe, dict(run_kw, prompt=prompt), card, enc_dir, tmp)
+    return launches, profiled, {"base": base_launches, "refiner": ref_launches}, adapters
+
+
+# -- the adapters: LoRA and the IP-Adapter (ROADMAP A.15, A.17c) ------------------------
+
+# kohya's module selection: UNet attention and feed-forward linears, the
+# transformers' 1×1 proj convs, LoCon 3×3 entries on every resnet conv, and
+# the text towers' attention and MLP linears
+LORA_UNET_LINEAR = r"attn[12]\.(to_q|to_k|to_v|to_out\.0)\.weight$|ff\.net\.(0\.proj|2)\.weight$"
+LORA_UNET_PROJ = r"attentions\.\d+\.proj_(in|out)\.weight$"
+LORA_UNET_CONV = r"resnets\.\d+\.conv[12]\.weight$"
+LORA_UNET_ATTN = r"attn[12]\.(to_q|to_k|to_v|to_out\.0)\.weight$"
+LORA_TE = r"self_attn\.(q|k|v|out)_proj\.weight$|mlp\.fc[12]\.weight$"
+LORA_TE_ATTN = r"self_attn\.(q|k|v|out)_proj\.weight$"
+KOHYA_PREFIX = {"unet": "lora_unet", "clip": "lora_te", "clip2": "lora_te2"}
+PEFT_PREFIX = {"unet": "unet", "clip": "text_encoder", "clip2": "text_encoder_2"}
+
+
+def lora_files(states, patterns, rank, alpha, seed, xl=False, std=0.02):
+    """A LoRA for ``states`` ({tower: state dict}) on every weight matching
+    ``patterns`` ({tower: regex}): N(0, std) halves drawn on the card from
+    ``seed``, fp16, rank ``rank`` (conv entries: (r, I, kh, kw) down,
+    (O, r, 1, 1) up). Returns (kohya layout with ``alpha``, peft layout with
+    alpha/r folded into an f32 lora_B, a power of two here, so that both
+    merge bit-equal) as CPU state dicts."""
+    import torch
+
+    assert (alpha / rank) in (0.5, 1.0, 2.0)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kohya, peft = {}, {}
+    prefix = dict(KOHYA_PREFIX, clip="lora_te1" if xl else "lora_te")
+    for tower, sd in states.items():
+        for key, w in sd.items():
+            if not re.search(patterns.get(tower, "^$"), key):
+                continue
+            o, i = w.shape[:2]
+            down_shape = (rank, i, *w.shape[2:])
+            up_shape = (o, rank) + ((1, 1) if w.dim() == 4 else ())
+            down = (torch.randn(down_shape, generator=g, device="cuda") * std).half().cpu()
+            up = (torch.randn(up_shape, generator=g, device="cuda") * std).half().cpu()
+            mod = key[: -len(".weight")]
+            name = f"{prefix[tower]}_{mod.replace('.', '_')}"
+            kohya.update({f"{name}.lora_down.weight": down, f"{name}.lora_up.weight": up,
+                          f"{name}.alpha": torch.tensor(float(alpha), dtype=torch.float16)})
+            # lora_B in f32: halving fp16 would round its subnormals
+            peft.update({f"{PEFT_PREFIX[tower]}.{mod}.lora_A.weight": down,
+                         f"{PEFT_PREFIX[tower]}.{mod}.lora_B.weight": up.float() * (alpha / rank)})
+    return kohya, peft
+
+
+def ip_adapter_file_state(unet, embed_dim, num_tokens=4, plus=None, seed=0, std=0.02):
+    """An IP-Adapter for ``unet`` (the port's UNet), tencent-ailab's flat
+    layout in fp16: the standard ``image_proj`` (proj to ``num_tokens``
+    context tokens, its LayerNorm at 1 and 0) or, with ``plus`` = (dim,
+    depth, heads, queries), a Resampler over ``embed_dim``-wide states with
+    (1, Q, D) latents as published; ``to_k_ip``/``to_v_ip`` at every attn2
+    site, N(0, std) from ``seed`` on the card."""
+    import torch
+
+    from pww_tpu_torch.weights.ip_adapter import attn2_sites, site_module
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=g, device="cuda") * std).half().cpu()
+
+    ctx = unet.config.cross_attention_dim
+    if plus is None:
+        proj = {"proj.weight": w(num_tokens * ctx, embed_dim), "proj.bias": w(num_tokens * ctx),
+                "norm.weight": torch.ones(ctx).half(), "norm.bias": torch.zeros(ctx).half()}
+    else:
+        dim, depth, heads, queries = plus
+        inner = heads * 64
+        ones, zeros = torch.ones(dim).half(), torch.zeros(dim).half()
+        proj = {"latents": w(1, queries, dim), "proj_in.weight": w(dim, embed_dim),
+                "proj_in.bias": w(dim), "proj_out.weight": w(ctx, dim), "proj_out.bias": w(ctx),
+                "norm_out.weight": torch.ones(ctx).half(), "norm_out.bias": torch.zeros(ctx).half()}
+        for i in range(depth):
+            a, f = f"layers.{i}.0.", f"layers.{i}.1."
+            proj.update({a + "norm1.weight": ones, a + "norm1.bias": zeros,
+                         a + "norm2.weight": ones, a + "norm2.bias": zeros,
+                         a + "to_q.weight": w(inner, dim), a + "to_kv.weight": w(2 * inner, dim),
+                         a + "to_out.weight": w(dim, inner), f + "0.weight": ones,
+                         f + "0.bias": zeros, f + "1.weight": w(4 * dim, dim),
+                         f + "3.weight": w(dim, 4 * dim)})
+    state = {f"image_proj.{k}": v for k, v in proj.items()}
+    for i, site in enumerate(attn2_sites(unet.config)):
+        inner = unet.get_submodule(site_module(*site)).to_q.weight.shape[0]
+        for leaf in ("to_k_ip", "to_v_ip"):
+            state[f"ip_adapter.{2 * i + 1}.{leaf}.weight"] = w(inner, ctx)
+    return state
+
+
+def write_image_encoder(path, cfg, seed=0):
+    """A synthetic transformers image-encoder directory of ``cfg`` (fp16
+    N(0, 0.02) from ``seed``, the port's writer); returns (parameters, GB,
+    write s)."""
+    import torch
+
+    from pww_tpu_torch.models.clip_vision import CLIPVisionEncoder
+    from pww_tpu_torch.weights.bridge import synthetic_state
+    from pww_tpu_torch.weights.ip_adapter import save_image_encoder
+
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        enc = CLIPVisionEncoder(cfg)
+    state = synthetic_state(enc, torch.Generator(device="cuda").manual_seed(seed), torch.float16)
+    save_image_encoder(path, cfg, state)
+    n = sum(v.numel() for v in state.values())
+    return n, os.path.getsize(os.path.join(path, "model.safetensors")) / 1e9, \
+        time.perf_counter() - t0
+
+
+def reference_image():
+    """A non-square RGB reference image (the CLIP preprocessing resizes its
+    shortest edge and crops)."""
+    return synthetic_init_image(320, seed=3)[:256]
+
+
+def state_snapshot(modules):
+    return {name: {k: v.clone() for k, v in m.state_dict().items()}
+            for name, m in modules.items()}
+
+
+def bit_equal(modules, snapshot):
+    """The names of the tensors of ``modules`` that differ from ``snapshot``."""
+    import torch
+
+    return [f"{name}.{k}" for name, m in modules.items() for k, v in m.state_dict().items()
+            if not torch.equal(v, snapshot[name][k])]
+
+
+def phase_adapters_reference():
+    """Card bf16 against CPU f32: the reduced-depth SD-1.5 (reduced_sd15)
+    with a LoRA merged and each IP-Adapter variant attached (a ViT-H image
+    tower cut to 2 layers), 256 px, 3 LMS steps; then the ViT-H tower at its
+    published size on one reference image, its embeddings and penultimate
+    states."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.config import CLIPVisionConfig
+    from pww_tpu_torch.models.clip_vision import CLIPVisionEncoder, preprocess_clip_image
+    from pww_tpu_torch.pipeline.pipeline import PwwPipeline
+    from pww_tpu_torch.weights.bridge import synthetic_state
+
+    cfg, params, cpu = reduced_sd15()
+    gpu = PwwPipeline(cfg, params=params, device="cuda", dtype=torch.bfloat16)
+    ref = PwwPipeline(cfg, params=cpu, device="cpu", dtype=torch.float32)
+    del params, cpu
+    kohya, _ = lora_files({"unet": ref.unet.state_dict(), "clip": ref.clip.state_dict()},
+                          {"unet": f"{LORA_UNET_LINEAR}|{LORA_UNET_PROJ}|{LORA_UNET_CONV}",
+                           "clip": LORA_TE}, rank=8, alpha=8, seed=11, std=0.1)
+    n = [p.load_lora(kohya) for p in (gpu, ref)]
+    vcfg = dataclasses.replace(CLIPVisionConfig(), num_layers=2)
+    with torch.device("meta"):
+        enc = CLIPVisionEncoder(vcfg)
+    vstate = synthetic_state(enc, torch.Generator().manual_seed(12), torch.float32)
+    image = reference_image()
+    kw = dict(prompt="a cat sitting next to a dog", color_map_image=cat_dog_map(256),
+              color_context={(255, 0, 0): "cat,0.5", (0, 0, 255): "dog,0.5"},
+              num_inference_steps=3, seed=0, return_latents=True, ip_adapter_image=image)
+    failed = []
+    for label, plus in (("standard", None), ("plus", (768, 4, 12, 16))):
+        state = ip_adapter_file_state(ref.unet, vcfg.hidden_size if plus else vcfg.projection_dim,
+                                      plus=plus, seed=13, std=0.1)
+        for p in (gpu, ref):
+            p.load_ip_adapter(state, image_encoder=(vcfg, vstate))
+        t0 = time.perf_counter()
+        got = gpu.generate(**kw)
+        t1 = time.perf_counter()
+        want = ref.generate(**kw)
+        rel = rel_l2(got, want)
+        ok = bool(np.isfinite(got).all()) and rel < 5e-2 and n[0] == n[1]
+        log(f"[adapters reference] LoRA ({n[0]} modules, rank 8) + IP-Adapter {label}, 256 px, "
+            f"3 LMS steps, (320, 640)-channel UNet, ViT-H widths at 2 layers: card bf16 vs CPU "
+            f"f32 relative L2 error {rel:.3e} (tol 5e-2), card {t1 - t0:.1f} s, CPU "
+            f"{time.perf_counter() - t1:.1f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(label)
+    del gpu, ref
+    vcfg = CLIPVisionConfig()
+    with torch.device("meta"):
+        enc = CLIPVisionEncoder(vcfg)
+    vstate = synthetic_state(enc, torch.Generator(device="cuda").manual_seed(14), torch.float32)
+    card = place(enc, vstate, "cuda", torch.bfloat16)
+    with torch.device("meta"):
+        enc = CLIPVisionEncoder(vcfg)
+    host = place(enc, {k: v.cpu() for k, v in vstate.items()}, "cpu", torch.float32)
+    px = preprocess_clip_image(image, vcfg.image_size)
+    with torch.inference_mode():
+        got = card(px.cuda(), output="hidden_and_pooled")
+        t0 = time.perf_counter()
+        want = host(px, output="hidden_and_pooled")
+        cpu_s = time.perf_counter() - t0
+    for label, g, w in zip(("penultimate states", "embeddings"), got, want):
+        rel = rel_l2(g.float().cpu(), w)
+        ok = bool(torch.isfinite(g).all()) and rel < 5e-2
+        log(f"[adapters reference] ViT-H/14 image tower at its published size, {label} "
+            f"{tuple(g.shape)}: card bf16 vs CPU f32 ({cpu_s:.1f} s) relative L2 error "
+            f"{rel:.3e} (tol 5e-2) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"vision {label}")
+    if failed:
+        raise SystemExit(f"[adapters reference] card run disagrees with the CPU reference: "
+                         f"{failed}")
+
+
+def place(module, state, device, dtype):
+    """A module built on the meta device, given ``state``, for inference."""
+    module.load_state_dict({k: v.to(device=device, dtype=dtype) for k, v in state.items()},
+                           strict=True, assign=True)
+    return module.eval().requires_grad_(False)
+
+
+def timed_run(pipe, call, steps):
+    """One call after the launch counters are zeroed: (result, K1-K5
+    launches, wall s, peak GiB above what was held before)."""
+    import torch
+
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = call(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (out, {c.__name__: c.launches for c in counters}, wall,
+            (torch.cuda.max_memory_allocated() - held) / 2**30)
+
+
+def path_launches(steps, visit=VISIT):
+    return {"fused_pww_reduce": visit[0] * steps, "fused_pww_cross_attention": visit[1] * steps,
+            "flash_self_attention": visit[2] * steps, "group_norm": 0, "layer_norm": 0}
+
+
+def phase_adapters(pipe, kw, steps, card, tmp):
+    """LoRA and the IP-Adapter on the main SD-1.5 pipeline at 512², N LMS
+    steps, CFG 7.5, the cat/dog map: a kohya LoRA file (rank 64, alpha 32,
+    UNet attention, feed-forward, proj and LoCon resnet convs, every text
+    linear) written, loaded and run (15/15/10 launches a visit, an image
+    unlike the plain one), its peft twin merged bit-equal, the unload
+    bit-equal; a ViT-H/14 image encoder directory and the standard and
+    plus IP-Adapter files written (fp16) and attached, each run with a
+    reference image (15/15/10 a visit; scale 0 bit-equal to the plain image,
+    scale 1 unlike it); for the standard one, one request through the
+    Batcher and one POST /generate bit-equal to ``generate``, a 4-row
+    ``generate_batch`` with one shared image within SERVE_IMAGE_TOL of each
+    row alone, and a 5-step profile. Returns ({run: launches}, the IP
+    profile, the encoder directory, which stays in ``tmp`` for the SDXL
+    phase)."""
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.config import CLIPVisionConfig
+    from pww_tpu_torch.models.clip_vision import preprocess_clip_image
+    from pww_tpu_torch.weights.lora import load_lora_file, merge_lora
+    from pww_tpu_torch.weights.safetensors_io import save_file
+
+    gkw = dict(prompt=kw["input_prompt"], color_map_image=kw["color_map_image"],
+               color_context=kw["color_context"], guidance_scale=7.5, seed=0, output_type="np")
+    problems, launches = [], {}
+    image = reference_image()
+    plain = pipe.generate(**gkw, num_inference_steps=steps)
+
+    def report(name, out, got, wall, peak, want=None):
+        launches[name] = got
+        tm = pipe.timings
+        log(f"[adapters] {name}: {wall:.3f} s/image, denoise {tm['denoise']:.3f} s "
+            f"({tm['denoise'] / steps * 1e3:.1f} ms/step), peak {peak:.2f} GiB above the "
+            f"weights, image {out.shape} mean {out.mean():.2f} std {out.std():.2f}, unlike the "
+            f"plain image: {not np.array_equal(out, plain)}; launches {got} ({card})")
+        if got != (want or path_launches(steps)):
+            problems.append(f"{name}: launches {got}")
+        if np.array_equal(out, plain) or not out.std() > 0:
+            problems.append(f"{name}: its image equals the plain one or is constant")
+
+    # -- LoRA
+    towers = {"unet": pipe.unet, "clip": pipe.clip}
+    kohya, peft = lora_files({t: m.state_dict() for t, m in towers.items()},
+                             {"unet": f"{LORA_UNET_LINEAR}|{LORA_UNET_PROJ}|{LORA_UNET_CONV}",
+                              "clip": LORA_TE}, rank=64, alpha=32, seed=21)
+    paths = {name: os.path.join(tmp, f"lora_{name}.safetensors") for name in ("kohya", "peft")}
+    t0 = time.perf_counter()
+    save_file(kohya, paths["kohya"])
+    write_s = time.perf_counter() - t0
+    save_file(peft, paths["peft"])
+    before = state_snapshot(towers)
+    merged = {}
+    for name, path in paths.items():
+        merged[name], n_merged, _ = merge_lora({t: m.state_dict() for t, m in towers.items()},
+                                               load_lora_file(path))
+    differ = [f"{t}.{k}" for t in merged["kohya"] for k, v in merged["kohya"][t].items()
+              if not torch.equal(v, merged["peft"][t][k])]
+    del merged
+    t0 = time.perf_counter()
+    n = pipe.load_lora(paths["kohya"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log(f"[adapters] LoRA: kohya file of {len(kohya) // 3} modules (rank 64, alpha 32, fp16), "
+        f"{os.path.getsize(paths['kohya']) / 1e6:.1f} MB written in {write_s:.2f} s; load_lora "
+        f"{load_s:.3f} s, {n} modules merged; the peft twin's merge differs from the kohya "
+        f"merge at {len(differ)} tensors {differ[:4]}")
+    if n != len(kohya) // 3 or differ:
+        problems.append(f"lora: {n} of {len(kohya) // 3} modules merged, peft differs {differ[:4]}")
+    pipe.generate(**gkw, num_inference_steps=2)  # warm-up
+    out, got, wall, peak = timed_run(pipe, lambda s: pipe.generate(**gkw, num_inference_steps=s),
+                                     steps)
+    report("lora", out, got, wall, peak)
+    pipe.unload_loras()
+    changed = bit_equal(towers, before)
+    log(f"[adapters] unload_loras: {len(changed)} UNet and CLIP tensors differ from before")
+    if changed:
+        problems.append(f"lora unload: {changed[:4]}")
+    del before, kohya, peft
+
+    # -- IP-Adapter
+    vcfg = CLIPVisionConfig()
+    enc_dir = os.path.join(tmp, "image_encoder")
+    n_enc, gb, enc_s = write_image_encoder(enc_dir, vcfg, seed=22)
+    log(f"[adapters] ViT-H/14 image encoder: {n_enc:.4e} parameters, transformers directory "
+        f"of {gb:.3f} GB (fp16) written in {enc_s:.1f} s")
+    files = {"ip": ip_adapter_file_state(pipe.unet, vcfg.projection_dim, seed=23),
+             "ip_plus": ip_adapter_file_state(pipe.unet, vcfg.hidden_size, seed=24,
+                                              plus=(768, 4, 12, 16))}
+    profiled = None
+    for name, state in files.items():
+        path = os.path.join(tmp, f"{name}.safetensors")
+        save_file(state, path)
+        t0 = time.perf_counter()
+        pipe.load_ip_adapter(path, image_encoder=enc_dir)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        enc = pipe._ip["image_encoder"]
+        px = preprocess_clip_image(image, vcfg.image_size).cuda()
+        with torch.inference_mode():
+            enc_ms = time_ms(lambda: enc(px, output="hidden_and_pooled"), reps=5, trials=3)
+        log(f"[adapters] {name}: {os.path.getsize(path) / 1e6:.1f} MB file ({len(state)} "
+            f"tensors), load_ip_adapter {load_s:.2f} s (the encoder included), "
+            f"{pipe.config.unet.ip_adapter_tokens} tokens; image encoder {enc_ms:.3f} ms per "
+            f"image ({card})")
+        ikw = dict(gkw, ip_adapter_image=image)
+        pipe.generate(**ikw, num_inference_steps=2)  # warm-up
+        out, got, wall, peak = timed_run(pipe, lambda s: pipe.generate(
+            **ikw, num_inference_steps=s), steps)
+        report(name, out, got, wall, peak)
+        off = pipe.generate(**ikw, num_inference_steps=steps, ip_adapter_scale=0.0)
+        log(f"[adapters] {name} at scale 0 equals the plain image: {np.array_equal(off, plain)}")
+        if not np.array_equal(off, plain):
+            problems.append(f"{name}: scale 0 differs from the plain image")
+        if name == "ip":
+            problems += serve_ip(pipe, ikw, steps, image)
+            profiled = phase_profile(lambda s: pipe.generate(**ikw, num_inference_steps=s),
+                                     "adapters ip")
+    if problems:
+        raise SystemExit(f"[adapters] {problems}")
+    return launches, profiled, enc_dir
+
+
+def serve_ip(pipe, ikw, steps, image):
+    """The standard IP-Adapter through the serving path: one request through
+    the Batcher and one POST /generate (both run alone through generate),
+    each bit-equal to ``generate``'s image; a 4-row ``generate_batch``
+    sharing the reference image, each row within SERVE_IMAGE_TOL of the
+    request alone. Returns the problems."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    from PIL import Image
+
+    from pww_tpu_torch.serving.batcher import Batcher
+    from pww_tpu_torch.serving.server import make_handler, request_from_json
+
+    problems = []
+    alone = pipe.generate(**ikw, num_inference_steps=steps)[0]
+    req = {k: v for k, v in ikw.items() if k != "output_type"}
+    batcher = Batcher(pipe, max_batch=8, max_wait_ms=25.0)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(batcher))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def png(arr):
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format="PNG")
+        return base64.b64encode(buf.getvalue()).decode()
+
+    body = {"prompt": ikw["prompt"], "seed": ikw["seed"], "steps": steps,
+            "guidance_scale": ikw["guidance_scale"],
+            "color_context": {str(k): v for k, v in ikw["color_context"].items()},
+            "color_map_png_b64": png(ikw["color_map_image"]), "ip_adapter_image_png_b64": png(image)}
+    try:
+        t0 = time.perf_counter()
+        batched = np.asarray(batcher.submit(dict(req, num_inference_steps=steps)).result(600))
+        b_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        post = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/generate",
+            data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(post, timeout=600) as r:
+            status, out = r.status, json.loads(r.read())
+        h_s = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+        batcher.close()
+    served = np.asarray(Image.open(io.BytesIO(base64.b64decode(out["image_png_b64"]))))
+    via_json = pipe.generate(**request_from_json(body), output_type="np")[0]
+    ok_b, ok_h = np.array_equal(batched, alone), status == 200 and np.array_equal(served, via_json)
+    log(f"[adapters] ip through the Batcher ({b_s:.3f} s) equals generate: {ok_b}; POST "
+        f"/generate answered {status} in {h_s:.3f} s with generate's image: {ok_h}")
+    if not (ok_b and ok_h):
+        problems.append(f"serving: Batcher equal {ok_b}, HTTP {status} equal {ok_h}")
+    reqs = serve_requests(steps, n=4)
+    t0 = time.perf_counter()
+    rows = pipe.generate_batch(reqs, num_inference_steps=steps, output_type="np",
+                               ip_adapter_image=image)
+    batch_s = time.perf_counter() - t0
+    rels = [rel_l2(row, pipe.generate(**dict(r, output_type="np", ip_adapter_image=image))[0])
+            for row, r in zip(rows, reqs)]
+    log(f"[adapters] ip generate_batch, 4 rows, one reference image: {batch_s:.3f} s "
+        f"({batch_s / 4:.4f} s/image), rows against generate alone relative L2 "
+        f"{[f'{r:.2e}' for r in rels]} (tol {SERVE_IMAGE_TOL})")
+    if max(rels) > SERVE_IMAGE_TOL or len({r.tobytes() for r in rows}) != 4:
+        problems.append(f"generate_batch rows {rels}")
+    return problems
+
+
+def phase_sdxl_adapters(pipe, gkw, card, enc_dir, tmp, steps=4):
+    """SDXL-base at 1024², ``steps`` LMS steps (cut from N, not the width):
+    a kohya LoRA at rank 32 on UNet attention and both text towers
+    (``lora_te1_``/``lora_te2_``), 70/70/70 launches a visit and the unload
+    bit-equal; an ``ip-adapter_sdxl_vit-h``-shaped file (4 tokens of 2048
+    from ViT-H's 1024, 70 sites of 640 and 1280) with the ViT-H encoder,
+    70/70/70 a visit, scale 0 bit-equal to no adapter. Returns {run:
+    launches}."""
+    import numpy as np
+
+    from pww_tpu_torch.weights.safetensors_io import save_file
+
+    want = path_launches(steps, SDXL_LAUNCHES_PER_VISIT["sdxl"])
+    gkw = dict(gkw, output_type="np")
+    plain = pipe.generate(**gkw, num_inference_steps=steps)
+    towers = {"unet": pipe.unet, "clip": pipe.clip, "clip2": pipe.clip2}
+    kohya, _ = lora_files({t: m.state_dict() for t, m in towers.items()},
+                          {"unet": LORA_UNET_ATTN, "clip": LORA_TE_ATTN, "clip2": LORA_TE_ATTN},
+                          rank=32, alpha=32, seed=31, xl=True)
+    path = os.path.join(tmp, "lora_sdxl.safetensors")
+    save_file(kohya, path)
+    before = state_snapshot(towers)
+    t0 = time.perf_counter()
+    n = pipe.load_lora(path)
+    load_s = time.perf_counter() - t0
+    problems, launches = [], {}
+    lora, launches["sdxl_lora"], wall, peak = timed_run(
+        pipe, lambda s: pipe.generate(**gkw, num_inference_steps=s), steps)
+    pipe.unload_loras()
+    changed = bit_equal(towers, before)
+    del before
+    log(f"[sdxl adapters] LoRA: {n} of {len(kohya) // 3} modules (rank 32, lora_te1_ and "
+        f"lora_te2_ included), {os.path.getsize(path) / 1e6:.1f} MB, load_lora {load_s:.3f} s; "
+        f"{steps} LMS steps 1024²: {wall:.3f} s/image, peak {peak:.2f} GiB above the weights, "
+        f"launches {launches['sdxl_lora']}, image unlike the plain one: "
+        f"{not np.array_equal(lora, plain)}; after unload_loras {len(changed)} tensors differ "
+        f"({card})")
+    if n != len(kohya) // 3 or launches["sdxl_lora"] != want or changed:
+        problems.append(f"lora: {n} merged, launches {launches['sdxl_lora']}, unload {changed[:4]}")
+    state = ip_adapter_file_state(pipe.unet, 1024, seed=32)
+    path = os.path.join(tmp, "ip_sdxl.safetensors")
+    save_file(state, path)
+    t0 = time.perf_counter()
+    pipe.load_ip_adapter(path, image_encoder=enc_dir)
+    load_s = time.perf_counter() - t0
+    ikw = dict(gkw, ip_adapter_image=reference_image())
+    out, launches["sdxl_ip"], wall, peak = timed_run(
+        pipe, lambda s: pipe.generate(**ikw, num_inference_steps=s), steps)
+    off = pipe.generate(**ikw, num_inference_steps=steps, ip_adapter_scale=0.0)
+    sites = len(state) // 2 - 2
+    log(f"[sdxl adapters] ip-adapter_sdxl_vit-h-shaped file: {sites} sites, "
+        f"{os.path.getsize(path) / 1e6:.1f} MB, load_ip_adapter {load_s:.2f} s (the ViT-H "
+        f"encoder included); {steps} LMS steps 1024²: {wall:.3f} s/image, peak {peak:.2f} GiB "
+        f"above the weights, launches {launches['sdxl_ip']}; unlike the plain image: "
+        f"{not np.array_equal(out, plain)}; scale 0 equals it: {np.array_equal(off, plain)} "
+        f"({card})")
+    if (launches["sdxl_ip"] != want or sites != 70 or not np.array_equal(off, plain)
+            or np.array_equal(out, plain)):
+        problems.append(f"ip: launches {launches['sdxl_ip']}, {sites} sites, scale 0 equal "
+                        f"{np.array_equal(off, plain)}, scale 1 equal {np.array_equal(out, plain)}")
+    if problems:
+        raise SystemExit(f"[sdxl adapters] {problems}")
+    return launches
 
 
 def main():
@@ -3100,6 +3631,10 @@ def main():
     blaunches, bprofiled = phase_serve(pipe, args.steps)
     phase_extras_reference()
     elaunches, eprofiled = phase_extras(pipe, kw, args.steps)
+    tmp = tempfile.mkdtemp(prefix="pww_adapters_")
+    atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+    phase_adapters_reference()
+    alaunches, aprofiled, enc_dir = phase_adapters(pipe, kw, args.steps, smi, tmp)
     del pipe, kw
     import torch
 
@@ -3124,7 +3659,8 @@ def main():
     claunches, cprofiled = phase_controlnet(args.steps, smi)
     torch.cuda.empty_cache()
     phase_sdxl_reference()
-    xlaunches, xprofiled, ensemble = phase_sdxl(args.steps, smi)
+    xlaunches, xprofiled, ensemble, xalaunches = phase_sdxl(args.steps, smi, enc_dir, tmp)
+    alaunches.update(xalaunches)
     path_kernels = [c.__name__ for c in launch_counters()[:3]]
 
     kernels = []
@@ -3154,6 +3690,8 @@ def main():
             extras_path_launches={run: n[counter] for run, n in elaunches.items()},
             extras_path_device_ms_per_call={
                 run: p.get(group, (None,))[0] for run, p in eprofiled.items()},
+            adapters_path_launches={run: n[counter] for run, n in alaunches.items()},
+            adapters_path_device_ms_per_call=aprofiled.get(group, (None,))[0],
             ensemble_launches=({part: n[path_kernels.index(counter)]
                                 for part, n in ensemble.items()}
                                if counter in path_kernels else None),

@@ -2,7 +2,8 @@
 kernels for Hopper.
 
 The PyTorch port of :mod:`pww_tpu`, module for module, with its public
-names: the configs, the weight functions, the reference-shaped facade
+names: the configs (and the IP-Adapter's ``CLIPVisionConfig`` and
+``IpState``), the weight functions, the reference-shaped facade
 (``paint_with_words``, ``paint_with_words_inpaint``, ``pww_load_tools``),
 ``PwwPipeline``, ``PwwState`` and ``apply_textual_inversion``. Not yet
 exported: ``MeshConfig`` and ``make_mesh`` (multi-GPU, ROADMAP A.20) and
@@ -13,6 +14,7 @@ __version__ = "0.1.0"
 
 from .config import (  # noqa: F401
     CLIPTextConfig,
+    CLIPVisionConfig,
     SchedulerConfig,
     SDModelConfig,
     UNetConfig,
@@ -29,5 +31,5 @@ from .pipeline.facade import (  # noqa: F401
     pww_load_tools,
 )
 from .pipeline.pipeline import PwwPipeline  # noqa: F401
-from .types import PwwState  # noqa: F401
+from .types import IpState, PwwState  # noqa: F401
 from .weights.textual_inversion import apply_textual_inversion  # noqa: F401

@@ -4,8 +4,11 @@ Mirrors :mod:`pww_tpu.config` for SD-1.x (txt2img, img2img, inpaint),
 SD-2.x (head dim 64, OpenCLIP-H text tower, v-prediction) and SDXL base and
 refiner (dual or single projected text tower, transformer depth per stage,
 ``text_time`` micro-conditioning) and LCM-distilled UNets
-(``time_cond_proj_dim``). ToMe, FreeU and SAG are per-call options of the
-UNet's forward here, not config fields as in the JAX package. The knobs that only shaped TPU code (conv lowering, head-dim lane
+(``time_cond_proj_dim``), and the IP-Adapter's image tower
+(:class:`CLIPVisionConfig`) and image-prompt tokens
+(``UNetConfig.ip_adapter_tokens``). ToMe, FreeU and SAG are per-call
+options of the UNet's forward here, not config fields as in the JAX
+package. The knobs that only shaped TPU code (conv lowering, head-dim lane
 padding, cross-attention grid-order variants, Mosaic block sizes) are not
 carried over; the kernel dispatch thresholds and the norm-kernel switches
 are.
@@ -67,6 +70,34 @@ class CLIPTextConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    """CLIP vision tower (IP-Adapter image conditioning); the defaults are
+    OpenCLIP ViT-H/14, the encoder the published SD-1.5 and SDXL
+    ``vit-h`` IP-Adapters pair with (``pww_tpu/config.py:95-122``)."""
+
+    hidden_size: int = 1280
+    intermediate_size: int = 5120
+    num_layers: int = 32
+    num_heads: int = 16
+    image_size: int = 224
+    patch_size: int = 14
+    hidden_act: str = "gelu"
+    layer_norm_eps: float = 1e-5
+    projection_dim: int = 1024
+
+    @property
+    def num_positions(self) -> int:
+        return (self.image_size // self.patch_size) ** 2 + 1
+
+    @staticmethod
+    def tiny() -> "CLIPVisionConfig":
+        return CLIPVisionConfig(
+            hidden_size=32, intermediate_size=64, num_layers=2, num_heads=4,
+            image_size=32, patch_size=8, projection_dim=24,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class LDMBertConfig:
     """LDM-BERT, the original latent-diffusion text tower
     (``pww_tpu/config.py:62-92``): the reference converter's
@@ -123,6 +154,10 @@ class UNetConfig:
     # ``time_embedding.cond_proj`` adds to the timestep embedding (diffusers'
     # ``time_cond_proj_dim``; 256 for LCM-Dreamshaper-v7); None = none
     time_cond_proj_dim: Optional[int] = None
+    # IP-Adapter: the number of image-prompt tokens; set, every attn2 gains
+    # the decoupled ``to_k_ip``/``to_v_ip`` projections (set by
+    # ``PwwPipeline.load_ip_adapter``); None = no image branch
+    ip_adapter_tokens: Optional[int] = None
     # ToMe (a per-call ``tome_ratio``) merges only at the self-attention
     # sites of at least this many tokens (tomesd's max_downsample=1 at 512²)
     tome_min_tokens: int = 4096

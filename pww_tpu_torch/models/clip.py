@@ -25,10 +25,14 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class CLIPAttention(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    """Causal for the text tower; ``causal=False`` for the vision tower
+    (:mod:`~pww_tpu_torch.models.clip_vision`)."""
+
+    def __init__(self, cfg: CLIPTextConfig, causal: bool = True):
         super().__init__()
         d = cfg.hidden_size
         self.num_heads = cfg.num_heads
+        self.causal = causal
         self.q_proj = nn.Linear(d, d)
         self.k_proj = nn.Linear(d, d)
         self.v_proj = nn.Linear(d, d)
@@ -37,7 +41,7 @@ class CLIPAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = (split_heads(p(x), self.num_heads)
                    for p in (self.q_proj, self.k_proj, self.v_proj))
-        return self.out_proj(merge_heads(pww_attention(q, k, v, causal=True)))
+        return self.out_proj(merge_heads(pww_attention(q, k, v, causal=self.causal)))
 
 
 class CLIPMLP(nn.Module):
@@ -54,9 +58,11 @@ class CLIPMLP(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    """Pre-LN layer; ``cfg`` is a text or a vision tower's config."""
+
+    def __init__(self, cfg: CLIPTextConfig, causal: bool = True):
         super().__init__()
-        self.self_attn = CLIPAttention(cfg)
+        self.self_attn = CLIPAttention(cfg, causal)
         self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.mlp = CLIPMLP(cfg)
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)

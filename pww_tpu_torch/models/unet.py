@@ -23,6 +23,12 @@ Attention dispatch (``pww_tpu/models/unet.py:177-211``), per site:
 
 The sampling extras are arguments of :meth:`UNet2DConditionModel.forward`:
 ToMe, FreeU, SAG's probabilities and DeepCache's collect and use passes.
+
+The IP-Adapter (``UNetConfig.ip_adapter_tokens``,
+``pww_tpu/models/unet.py:212-232``): every attn2 gains ``to_k_ip`` and
+``to_v_ip``, and adds ``scale`` times a dense attention of its queries over
+the image-prompt tokens (:class:`~pww_tpu_torch.types.IpState`) to the text
+branch's output. The PwW bias and the K1/K2 route stay on the text branch.
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ from ..ops.group_norm import group_norm_site
 from ..ops.layer_norm import layer_norm_site
 from ..ops.tome import build_token_merge
 from ..ops.weight_functions import CustomWeightFunction
-from ..types import PwwState
+from ..types import IpState, PwwState
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -119,24 +125,32 @@ class FeedForward(nn.Module):
 
 
 class Attention(nn.Module):
-    """q from hidden states; k, v from a context sequence (or the states)."""
+    """q from hidden states; k, v from a context sequence (or the states);
+    ``ip``: the IP-Adapter's ``to_k_ip``/``to_v_ip`` (a cross-attention)."""
 
-    def __init__(self, dim: int, ctx_dim: int, heads: int, cfg: UNetConfig):
+    def __init__(self, dim: int, ctx_dim: int, heads: int, cfg: UNetConfig, ip: bool = False):
         super().__init__()
         self.heads = heads
         self.cfg = cfg
         self.to_q = nn.Linear(dim, dim, bias=False)
         self.to_k = nn.Linear(ctx_dim, dim, bias=False)
         self.to_v = nn.Linear(ctx_dim, dim, bias=False)
+        if ip:
+            self.to_k_ip = nn.Linear(ctx_dim, dim, bias=False)
+            self.to_v_ip = nn.Linear(ctx_dim, dim, bias=False)
+        self.has_ip = ip
         self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 pww: Optional[PwwState] = None,
-                sag_probs: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+                sag_probs: Optional[List[torch.Tensor]] = None,
+                ip: Optional[IpState] = None) -> torch.Tensor:
         """``sag_probs`` (self-attention only): a list that takes this site's
         f32 attention probabilities (B, H, L, L) for SAG; the site's output
         then comes from those probabilities in f32 too, as in
-        ``pww_tpu/models/unet.py:163-176``, on every path."""
+        ``pww_tpu/models/unet.py:163-176``, on every path. ``ip``: the
+        image-prompt tokens, in the compute dtype, and the scale, rounded to
+        it, where this site has the IP branch."""
         cfg = self.cfg
         is_self = context is None
         ctx = x if is_self else context
@@ -162,6 +176,12 @@ class Attention(nn.Module):
         else:
             out = pww_attention(q, k, v, bias_w=bias_w, weight_fn=weight_fn,
                                 sigma=sigma)
+        if self.has_ip:
+            if ip is None:
+                raise ValueError("ip_adapter_tokens is set: pass an IpState operand")
+            out_ip = pww_attention(q, split_heads(self.to_k_ip(ip.tokens), self.heads),
+                                   split_heads(self.to_v_ip(ip.tokens), self.heads))
+            out = out + ip.scale * out_ip
         return self.to_out[0](merge_heads(out))
 
 
@@ -171,12 +191,13 @@ class BasicTransformerBlock(nn.Module):
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn1 = Attention(dim, dim, heads, cfg)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn2 = Attention(dim, ctx_dim, heads, cfg)
+        self.attn2 = Attention(dim, ctx_dim, heads, cfg, ip=cfg.ip_adapter_tokens is not None)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
         self.fused_norm = cfg.fused_layer_norm
 
-    def forward(self, x, context, pww, grid=None, tome_ratio: float = 0.0, sag_probs=None):
+    def forward(self, x, context, pww, grid=None, tome_ratio: float = 0.0, sag_probs=None,
+                ip=None):
         """``tome_ratio`` > 0 with the token ``grid`` (h, w): ToMe around
         ``attn1``, the block input as the similarity metric
         (``pww_tpu/models/unet.py:264-275``)."""
@@ -187,7 +208,7 @@ class BasicTransformerBlock(nn.Module):
             x = x + unmerge(self.attn1(merge(h)))
         else:
             x = x + self.attn1(h, sag_probs=sag_probs)
-        x = x + self.attn2(layer_norm_site(self.norm2, x, fused=fused), context, pww)
+        x = x + self.attn2(layer_norm_site(self.norm2, x, fused=fused), context, pww, ip=ip)
         return x + self.ff(layer_norm_site(self.norm3, x, fused=fused))
 
 
@@ -207,15 +228,16 @@ class Transformer2DModel(nn.Module):
         )
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
-    def forward(self, x, context, pww, tome_ratio: float = 0.0, sag_probs=None):
+    def forward(self, x, context, pww, tome_ratio: float = 0.0, sag_probs=None, ip=None):
         """ToMe only at sites of at least ``tome_min_tokens`` tokens (tomesd's
-        max_downsample=1); ``sag_probs`` goes to block 0's ``attn1``."""
+        max_downsample=1); ``sag_probs`` goes to block 0's ``attn1``, ``ip``
+        to every block's ``attn2``."""
         b, c, h, w = x.shape
         z = self.proj_in(group_norm_site(self.norm, x, fused=self.fused_norm))
         z = z.permute(0, 2, 3, 1).reshape(b, h * w, c).contiguous()
         tome = tome_ratio if h * w >= self.tome_min_tokens else 0.0
         for i, blk in enumerate(self.transformer_blocks):
-            z = blk(z, context, pww, (h, w), tome, sag_probs if i == 0 else None)
+            z = blk(z, context, pww, (h, w), tome, sag_probs if i == 0 else None, ip)
         z = z.reshape(b, h, w, c).permute(0, 3, 1, 2)
         return self.proj_out(z) + x
 
@@ -258,7 +280,7 @@ class DownBlock(nn.Module):
 
     def forward(self, x, temb, ctx, pww, skips: List[torch.Tensor],
                 intrablock: Optional[torch.Tensor] = None, tome_ratio: float = 0.0,
-                downsample: bool = True):
+                downsample: bool = True, ip: Optional[IpState] = None):
         """``intrablock``: a T2I-Adapter feature, added after the last
         transformer, so that it joins that skip and the downsampler's input
         (diffusers' CrossAttnDownBlock2D ``additional_residuals``). An
@@ -268,7 +290,7 @@ class DownBlock(nn.Module):
         for i, resnet in enumerate(self.resnets):
             x = resnet(x, temb)
             if self.attentions is not None:
-                x = self.attentions[i](x, ctx, pww, tome_ratio)
+                x = self.attentions[i](x, ctx, pww, tome_ratio, ip=ip)
                 if intrablock is not None and i == len(self.resnets) - 1:
                     x = x + intrablock.to(x.dtype)
             skips.append(x)
@@ -297,7 +319,7 @@ class UpBlock(nn.Module):
         self.upsamplers = None if last else nn.ModuleList([Upsample2D(c_out)])
 
     def forward(self, x, temb, ctx, pww, skips: List[torch.Tensor], tome_ratio: float = 0.0,
-                freeu: Optional[Tuple[float, float]] = None):
+                freeu: Optional[Tuple[float, float]] = None, ip: Optional[IpState] = None):
         """``freeu`` = (b, s): FreeU before each resnet, the backbone's first
         half of the channels times b and the skip's low frequencies times s
         (``pww_tpu/models/unet.py:441-450``)."""
@@ -309,7 +331,7 @@ class UpBlock(nn.Module):
                 skip = fourier_filter(skip, 1, freeu[1])
             x = resnet(torch.cat([x, skip], dim=1), temb)
             if self.attentions is not None:
-                x = self.attentions[i](x, ctx, pww, tome_ratio)
+                x = self.attentions[i](x, ctx, pww, tome_ratio, ip=ip)
         if self.upsamplers is not None:
             x = self.upsamplers[0](x)
         return x
@@ -327,9 +349,9 @@ class UNetMidBlock2DCrossAttn(nn.Module):
                                 cfg.depth_for(len(cfg.block_out_channels) - 1))]
         )
 
-    def forward(self, x, temb, ctx, pww, tome_ratio: float = 0.0, sag_probs=None):
+    def forward(self, x, temb, ctx, pww, tome_ratio: float = 0.0, sag_probs=None, ip=None):
         x = self.resnets[0](x, temb)
-        x = self.attentions[0](x, ctx, pww, tome_ratio, sag_probs)
+        x = self.attentions[0](x, ctx, pww, tome_ratio, sag_probs, ip)
         return self.resnets[1](x, temb)
 
 
@@ -408,6 +430,7 @@ class UNet2DConditionModel(nn.Module):
                 sag_probs: Optional[List[torch.Tensor]] = None,
                 cache_mode: Optional[str] = None,
                 cached_feature: Optional[torch.Tensor] = None,
+                ip: Optional[IpState] = None,
                 ):
         """(B, C_in, h, w) latents → (B, C_out, h, w) in the compute dtype.
 
@@ -439,6 +462,9 @@ class UNet2DConditionModel(nn.Module):
         input); ``cache_mode="use"`` runs only ``conv_in``, down block 0
         (without its downsampler), the last up block on ``cached_feature``
         and the head.
+
+        ``ip``: the IP-Adapter's tokens (B, n_ip, D_ctx) and scale, for a
+        UNet with ``ip_adapter_tokens``; both passes of DeepCache take it.
         """
         cfg = self.config
         dtype = self.conv_in.weight.dtype
@@ -463,6 +489,9 @@ class UNet2DConditionModel(nn.Module):
                                 add_t.reshape(time_ids.shape[0], -1)], dim=-1)
             temb = temb + self.add_embedding(add_in.to(dtype))
         ctx = encoder_hidden_states.to(dtype)
+        if ip is not None:  # the tokens and the scale in the compute dtype, once
+            ip = IpState(ip.tokens.to(dtype),
+                         float(torch.tensor(ip.scale, dtype=torch.float32).to(dtype)))
         x = self.conv_in(sample.to(dtype))
         skips = [x]
         n = len(self.up_blocks)
@@ -479,13 +508,13 @@ class UNet2DConditionModel(nn.Module):
             if cached_feature is None:
                 raise ValueError('cache_mode="use" requires cached_feature')
             self.down_blocks[0](x, temb, ctx, pww, skips, tome_ratio=tome_ratio,
-                                downsample=False)
+                                downsample=False, ip=ip)
             x = self.up_blocks[n - 1](cached_feature.to(dtype), temb, ctx, pww, skips,
-                                      tome_ratio, up_freeu(n - 1))
+                                      tome_ratio, up_freeu(n - 1), ip)
             return self._head(x)
         for i, blk in enumerate(self.down_blocks):
             intra = None if down_intrablock_residuals is None else down_intrablock_residuals[i]
-            x = blk(x, temb, ctx, pww, skips, intra, tome_ratio)
+            x = blk(x, temb, ctx, pww, skips, intra, tome_ratio, ip=ip)
             if intra is not None and blk.attentions is None:
                 x = x + intra.to(x.dtype)
         if down_block_residuals is not None:
@@ -493,12 +522,12 @@ class UNet2DConditionModel(nn.Module):
                 raise ValueError(f"{len(down_block_residuals)} down-block residuals for "
                                  f"{len(skips)} skips")
             skips = [s + r for s, r in zip(skips, down_block_residuals)]
-        x = self.mid_block(x, temb, ctx, pww, tome_ratio, sag_probs)
+        x = self.mid_block(x, temb, ctx, pww, tome_ratio, sag_probs, ip)
         if mid_block_residual is not None:
             x = x + mid_block_residual
         feature = None
         for i, blk in enumerate(self.up_blocks):
-            x = blk(x, temb, ctx, pww, skips, tome_ratio, up_freeu(i))
+            x = blk(x, temb, ctx, pww, skips, tome_ratio, up_freeu(i), ip)
             if i == n - 2:
                 feature = x
         out = self._head(x)

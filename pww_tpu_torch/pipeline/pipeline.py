@@ -62,9 +62,19 @@ UNets (the guidance scale embedded as a UNet input, the external CFG scale
 1.0) with the ``lcm`` scheduler; in ``generate`` alone, A1111 prompt
 editing (``prompt_editing``: the conditioning switches at the schedule's
 steps), and :meth:`PwwPipeline.generate_hires`, the two-pass hires fix.
+
+Adapters (``pww_tpu/pipeline/pipeline.py:888-1158``): a LoRA merges into
+the UNet's and the text towers' weights (:meth:`PwwPipeline.load_lora`;
+:meth:`PwwPipeline.unload_loras` restores them bit for bit); an IP-Adapter
+(:meth:`PwwPipeline.load_ip_adapter`) adds ``to_k_ip``/``to_v_ip`` to every
+cross-attention and, per call, the reference image's tokens through the
+CLIP vision tower and the adapter's projection (``generate(
+ip_adapter_image=, ip_adapter_scale=)``, ``generate_batch(
+ip_adapter_image=)``, one image shared by the batch).
+
 Everything else the JAX pipeline's ``generate`` takes raises
 ``NotImplementedError`` here (when on, for the options :data:`UNPORTED`
-lists with their ROADMAP items).
+lists with their ROADMAP items: a jax.random key and multi-GPU sharding).
 """
 from __future__ import annotations
 
@@ -89,7 +99,7 @@ from ..ops.resize import resize_linear_antialias, resize_nearest
 from ..ops.weight_functions import (AnyWeightFunction, CustomWeightFunction,
                                    as_weight_function)
 from ..schedulers.schedules import make_scheduler, t_start_from_strength
-from ..types import PwwState
+from ..types import IpState, PwwState
 from ..weights.bridge import StateDicts, build_models, synthetic_params, synthetic_state
 from .inpaint import (blur_mask, expand_crop_region, fill_masked_region, paste_region,
                       prepare_mask_and_masked_image)
@@ -99,11 +109,9 @@ from .inpaint import (blur_mask, expand_crop_region, fill_masked_region, paste_r
 NO_STRENGTH_TRUNCATION = ("pndm", "heun", "unipc", "dpmpp_2m", "dpmpp_2m_sde")
 
 # The JAX pipeline's options that the port does not have yet: the value that
-# leaves each off, and the ROADMAP item that ports it. Off, they are
-# accepted (a serving request carries them all); on, they raise.
+# leaves each off, and the ROADMAP item that decides or ports it. Off, they
+# are accepted; on, they raise.
 UNPORTED = {
-    "ip_adapter_image": (None, "A.15 (IP-Adapter)"),
-    "ip_adapter_scale": (None, "A.15 (IP-Adapter)"),
     "rng": (None, "A.10e (a jax.random key; the port draws torch noise from seed)"),
     "sharding": ("batch", "A.20 (multi-GPU)"),
 }
@@ -331,6 +339,8 @@ class PwwPipeline:
         self.clip2 = models.get("clip2")
         self.controlnets: List[torch.nn.Module] = []  # more than one: multi-ControlNet
         self.t2i_adapter: Optional[torch.nn.Module] = None
+        self._lora_saved: Dict[str, Dict[str, torch.Tensor]] = {}  # pre-LoRA tensors
+        self._ip: Optional[Dict] = None  # the attached IP-Adapter (load_ip_adapter)
         self.profile = profile
         self.timings: Dict[str, float] = {}
         # encode caches (pww_tpu/pipeline/pipeline.py:1213-1355): one lock
@@ -447,6 +457,200 @@ class PwwPipeline:
             params = synthetic_state(adapter, g, self.dtype)
         self.t2i_adapter = self._place(adapter, params)
         return self
+
+    # -- LoRA and IP-Adapter -------------------------------------------------------
+    def _towers(self) -> Dict[str, torch.nn.Module]:
+        towers = {"unet": self.unet, "clip": self.clip}
+        if self.clip2 is not None:
+            towers["clip2"] = self.clip2
+        return towers
+
+    @staticmethod
+    def _assign(module: torch.nn.Module, tensors: Dict[str, torch.Tensor]) -> None:
+        """Replace the named parameters of ``module`` by ``tensors``."""
+        for key, t in tensors.items():
+            owner, _, leaf = key.rpartition(".")
+            setattr(module.get_submodule(owner), leaf,
+                    torch.nn.Parameter(t, requires_grad=False))
+
+    def load_lora(self, source, scale: float = 1.0) -> int:
+        """Merge a LoRA into the UNet and text towers' weights
+        (``pww_tpu/pipeline/pipeline.py:888-921``). ``source``: a
+        ``.safetensors``/``.bin`` path, a raw state dict or a parsed
+        :class:`~pww_tpu_torch.weights.lora.LoraWeights`; kohya and
+        diffusers/peft layouts. Calls stack, each at its own scale. Returns
+        the number of modules merged; :meth:`unload_loras` restores the
+        weights bit for bit. The encode caches are dropped when a text
+        tower's weights changed."""
+        from ..weights.lora import LoraWeights, load_lora_file, merge_lora, parse_lora_state
+
+        if isinstance(source, str):
+            lora = load_lora_file(source)
+        elif isinstance(source, LoraWeights):
+            lora = source
+        else:
+            lora = parse_lora_state(source)
+        towers = self._towers()
+        params = {name: m.state_dict() for name, m in towers.items()}
+        merged, n, touched = merge_lora(params, lora, scale=scale, saved=self._lora_saved)
+        for tower, leaves in touched.items():
+            self._lora_saved.setdefault(tower, {}).update(leaves)
+        text_changed = False
+        for tower, sd in merged.items():
+            changed = {k: v for k, v in sd.items() if v is not params[tower][k]}
+            self._assign(towers[tower], changed)
+            text_changed |= bool(changed) and tower != "unet"
+        if text_changed:
+            self.invalidate_encode_caches()
+        return n
+
+    def unload_loras(self) -> None:
+        """Put back the exact pre-LoRA weights that :meth:`load_lora` saved,
+        and drop the encode caches."""
+        if not self._lora_saved:
+            return
+        towers = self._towers()
+        for tower, saved in self._lora_saved.items():
+            self._assign(towers[tower], saved)
+        self._lora_saved = {}
+        self.invalidate_encode_caches()
+
+    def load_ip_adapter(self, source=None, image_encoder=None, num_tokens: int = 4,
+                        scale: float = 1.0, image_embed_dim: int = 1024, seed: int = 0):
+        """Attach an IP-Adapter (image prompts, Ye et al. 2023;
+        ``pww_tpu/pipeline/pipeline.py:925-1064``). ``source``: a flat
+        ``ip-adapter*.safetensors``/``.bin`` path, a raw state dict, a
+        parsed ``(image_proj, sites)`` pair, or None for N(0, 0.02) weights
+        from ``seed`` (``num_tokens`` tokens from ``image_embed_dim``-wide
+        embeddings). A checkpoint with ``image_proj.latents`` is the plus
+        adapter (a Resampler over the encoder's penultimate states).
+        ``image_encoder``: a transformers image-encoder directory, a
+        :class:`~pww_tpu_torch.models.clip_vision.CLIPVisionEncoder`, or a
+        ``(CLIPVisionConfig, state dict)`` pair; without one, ``generate``
+        takes precomputed embeddings. A second call replaces the adapter.
+        Returns the pipeline."""
+        from ..models.clip_vision import CLIPVisionEncoder, ImageProjection, Resampler
+        from ..models.unet import UNet2DConditionModel
+        from ..weights import ip_adapter as ipw
+
+        cfg = self.config
+        proj_state = sites_state = None
+        plus = False
+        if source is not None:
+            if isinstance(source, str):
+                proj_state, sites_state = ipw.load_ip_adapter_file(source)
+            elif isinstance(source, tuple):
+                proj_state, sites_state = source
+            else:
+                proj_state, sites_state = ipw.parse_ip_adapter_state(source)
+            plus = ipw.is_plus_format(proj_state)
+            if plus:
+                rcfg = ipw.resampler_config(proj_state)
+                if rcfg["output_dim"] != cfg.unet.cross_attention_dim:
+                    raise ValueError(f"ip-adapter-plus output dim {rcfg['output_dim']} != "
+                                     f"cross_attention_dim {cfg.unet.cross_attention_dim}")
+                num_tokens = rcfg["num_queries"]
+                image_embed_dim = proj_state["proj_in.weight"].shape[1]
+            else:
+                num_tokens = ipw.num_tokens_from_proj(proj_state, cfg.unet.cross_attention_dim)
+                image_embed_dim = proj_state["proj.weight"].shape[1]
+        unet_cfg = dataclasses.replace(cfg.unet, ip_adapter_tokens=num_tokens)
+        with torch.device("meta"):
+            unet = UNet2DConditionModel(unet_cfg)
+            if plus:
+                proj = Resampler(**rcfg, embedding_dim=image_embed_dim)
+            else:
+                proj = ImageProjection(cfg.unet.cross_attention_dim, num_tokens, image_embed_dim)
+        base = {k: v for k, v in self.unet.state_dict().items()
+                if not k.endswith(ipw.IP_LEAVES)}
+        g = torch.Generator(device=self.device).manual_seed(int(seed))
+        if sites_state is not None:
+            unet_state = ipw.install_ip_adapter(base, unet.state_dict(), unet_cfg, sites_state)
+        else:  # N(0, 0.02) in the new projections, in state-dict order
+            unet_state = {k: base[k] if k in base else
+                          torch.randn(ref.shape, generator=g, device=self.device).mul_(0.02)
+                          for k, ref in unet.state_dict().items()}
+        if proj_state is not None:
+            proj_params = (ipw.resampler_params(proj_state) if plus
+                           else ipw.image_proj_params(proj_state))
+        else:
+            proj_params = synthetic_state(proj, g, self.dtype)
+        encoder = image_encoder
+        if isinstance(image_encoder, str):
+            encoder = ipw.load_image_encoder(image_encoder)
+        if isinstance(encoder, tuple):
+            vcfg, state = encoder
+            with torch.device("meta"):
+                module = CLIPVisionEncoder(vcfg)
+            encoder = self._place(module, state)
+        elif encoder is not None:
+            encoder = encoder.to(device=self.device, dtype=self.dtype).eval().requires_grad_(False)
+        self.unet = self._place(unet, unet_state)
+        self.config = dataclasses.replace(cfg, unet=unet_cfg)
+        self._ip = {"proj": self._place(proj, proj_params), "num_tokens": num_tokens,
+                    "scale": scale, "image_encoder": encoder, "embed_dim": image_embed_dim,
+                    "plus": plus}
+        return self
+
+    def _ip_for_call(self, image, n: int, scale=None) -> Optional[IpState]:
+        """The call's IpState where an adapter is attached; an image without
+        one raises (``pww_tpu/pipeline/pipeline.py:1868-1875``)."""
+        if self.config.unet.ip_adapter_tokens is not None:
+            return self._ip_state(image, n, scale)
+        if image is not None:
+            raise ValueError("ip_adapter_image given but no adapter attached: call "
+                             "pipe.load_ip_adapter(...) first")
+        return None
+
+    def _ip_state(self, image, n: int, scale=None) -> IpState:
+        """The 2N-row IpState [uncond*N, cond*N] (``pww_tpu/pipeline/
+        pipeline.py:1066-1142``): the cond rows project the reference
+        image's CLIP embedding (the plus adapter: its penultimate states);
+        the uncond rows the zero embedding (plus: the zero image through the
+        encoder). ``image`` is precomputed when it has a leading batch of 1,
+        the embed width last and a float type ((1, D) standard, (1, L, D)
+        plus); a raw (H, W, 3) image goes through the encoder."""
+        from ..models.clip_vision import preprocess_clip_image
+
+        d = self._ip
+        plus, enc = d["plus"], d["image_encoder"]
+
+        def encode(img):
+            size = enc.config.image_size
+            px = (torch.zeros((1, 3, size, size)) if img is None
+                  else preprocess_clip_image(img, size))
+            px = px.to(self.device)
+            return enc(px, output="hidden_and_pooled")[0] if plus else enc(px)
+
+        def precomputed(x) -> bool:
+            if getattr(x, "ndim", None) != (3 if plus else 2):
+                return False
+            if x.shape[0] != 1 or x.shape[-1] != d["embed_dim"]:
+                return False
+            if isinstance(x, torch.Tensor):
+                return x.is_floating_point()
+            dt = np.dtype(x.dtype)
+            return np.issubdtype(dt, np.floating) or dt.name == "bfloat16"
+
+        if hasattr(image, "ndim") and precomputed(image):
+            emb = (image if isinstance(image, torch.Tensor)
+                   else torch.from_numpy(np.asarray(image, np.float32))).to(self.device)
+            emb_uncond = encode(None) if plus and enc is not None else torch.zeros_like(emb)
+        elif image is None and enc is None:
+            emb = torch.zeros((1, 1, d["embed_dim"]) if plus else (1, d["embed_dim"]),
+                              device=self.device)
+            emb_uncond = emb
+        elif enc is None:
+            raise ValueError("no image encoder attached: load_ip_adapter(..., image_encoder="
+                             "<dir>) or pass precomputed image embeddings ((1, D) standard / "
+                             "(1, L, D) plus)")
+        else:
+            emb = encode(image)
+            emb_uncond = encode(None) if plus else torch.zeros_like(emb)
+        proj = d["proj"]
+        cond, uncond = proj(emb.float()), proj(emb_uncond.float())
+        tokens = torch.cat([uncond.expand(n, -1, -1), cond.expand(n, -1, -1)])
+        return IpState(tokens, float(d["scale"] if scale is None else scale))
 
     def _control_residuals(self, control, lat: torch.Tensor, t,
                            text_states: torch.Tensor, pww: Optional[PwwState]):
@@ -576,7 +780,8 @@ class PwwPipeline:
                 seeds: Sequence[int] = (0,), control=None, adapter=None, added_cond=None,
                 t_end: Optional[int] = None, callback: Optional[Callable] = None,
                 callback_steps: int = 1, cache_interval: int = 1, tome_ratio: float = 0.0,
-                freeu=None, sag_scale: float = 0.0, conds: Optional[Dict] = None):
+                freeu=None, sag_scale: float = 0.0, conds: Optional[Dict] = None,
+                ip: Optional[IpState] = None):
         """The scheduler's loop from visit ``t_start`` to ``t_end`` (default:
         the last); latents (N, C, h, w) f32 in and out.
 
@@ -617,7 +822,11 @@ class PwwPipeline:
         uncond ε, and one more uncond-only pass on it pushes the guided ε
         away by ``sag_scale``·(ε_u − ε_degraded). ``conds``: prompt editing,
         {visit: (text_states, pww, added_cond)} for every visit, replacing
-        the three arguments.
+        the three arguments. ``ip``: the IP-Adapter's 2N-row tokens and
+        scale, to every UNet call: all rows to the batched call and both
+        DeepCache passes, each CFG half's rows on the split path, the uncond
+        rows to SAG's degraded pass; the ControlNet takes none
+        (``pww_tpu/pipeline/pipeline.py:60-63, 147-148, 291, 361-369``).
         """
         split = isinstance(pww.weight_fn, CustomWeightFunction)
         sag = sag_scale > 0
@@ -685,7 +894,8 @@ class PwwPipeline:
                         down, mid = self._control_residuals(control, lat_c, t,
                                                             text_states[half], p)
                     outs.append(self.unet(lat_in, t, text_states[half], p, down, mid,
-                                          adapter, ac, **extras).float())
+                                          adapter, ac, ip=None if ip is None else ip.rows(half),
+                                          **extras).float())
                 out_u, out_c = outs
             else:
                 lat2 = torch.cat([lat_c, lat_c])
@@ -696,11 +906,12 @@ class PwwPipeline:
                     lat2 = torch.cat([lat2, torch.cat([extra, extra])], dim=1)
                 args = (lat2, t, text_states, pww_t, down, mid, adapter, added_cond)
                 if cache_interval > 1 and (i - t_start) % cache_interval == 0:
-                    eps2, feature = self.unet(*args, cache_mode="collect", **extras)
+                    eps2, feature = self.unet(*args, cache_mode="collect", ip=ip, **extras)
                 elif cache_interval > 1:
-                    eps2 = self.unet(*args, cache_mode="use", cached_feature=feature, **extras)
+                    eps2 = self.unet(*args, cache_mode="use", cached_feature=feature, ip=ip,
+                                     **extras)
                 else:
-                    eps2 = self.unet(*args, sag_probs=probs, **extras)
+                    eps2 = self.unet(*args, sag_probs=probs, ip=ip, **extras)
                 out_u, out_c = eps2[:n].float(), eps2[n:].float()
             eps_u = schedule.to_epsilon(out_u, lat, i, prediction_type)
             eps_c = schedule.to_epsilon(out_c, lat, i, prediction_type)
@@ -708,7 +919,7 @@ class PwwPipeline:
             if sag:
                 eps = eps + sag_scale * (eps_u - self._sag_degraded_eps(
                     lat, eps_u, probs[0][:n], i, schedule, t, text_states[:n], pww_t,
-                    added_cond, extras))
+                    added_cond, extras, None if ip is None else ip.rows(slice(0, n))))
             noise = None
             if step_noise is not None:
                 noise = torch.cat([torch.randn(noise_shape, generator=g)
@@ -723,10 +934,11 @@ class PwwPipeline:
         return lat
 
     def _sag_degraded_eps(self, lat, eps_u, probs_u, i, schedule, t, text_u, pww_t,
-                          added_cond, extras):
+                          added_cond, extras, ip_u=None):
         """SAG's uncond ε on the degraded latents
         (``pww_tpu/pipeline/pipeline.py:263-294``): ``probs_u`` (N, H, L, L)
-        are the uncond rows' mid-block probabilities."""
+        are the uncond rows' mid-block probabilities, ``ip_u`` the uncond
+        rows' IP-Adapter tokens."""
         n, _, h_lat, w_lat = lat.shape
         down = 2 ** (len(self.config.unet.block_out_channels) - 1)
         # an integer upscale, where torch's and jax.image.resize's nearest agree
@@ -741,7 +953,7 @@ class PwwPipeline:
             weight_orig=None if pww_t.weight_orig is None else pww_t.weight_orig[:n])
         ac = None if added_cond is None else {k: v[:n] for k, v in added_cond.items()}
         out = self.unet(deg_in, t, text_u, pww_u, None, None, None, ac, sag_probs=[],
-                        **extras).float()
+                        ip=ip_u, **extras).float()
         return schedule.to_epsilon(out, deg_lat, i, self.config.unet.prediction_type)
 
     def decode_uint8_device(self, latents: torch.Tensor) -> torch.Tensor:
@@ -812,6 +1024,8 @@ class PwwPipeline:
         freeu=None,  # FreeU: True (the family's defaults) or (b1, b2, s1, s2)
         sag_scale: float = 0.0,  # Self-Attention Guidance strength (0 = off)
         prompt_editing: bool = False,  # A1111 [from:to:when] and [a|b] schedules
+        ip_adapter_image=None,  # reference image or embeddings (load_ip_adapter first)
+        ip_adapter_scale: Optional[float] = None,  # default: load_ip_adapter's scale
         **unported,
     ):
         """txt2img, img2img and inpaint with paint-with-words. Returns PIL
@@ -853,7 +1067,12 @@ class PwwPipeline:
         1.0. ``prompt_editing``: a prompt or negative prompt with A1111
         ``[from:to:when]`` / ``[a|b]`` constructs is encoded once per
         distinct rendering, and each visit takes its step's conditioning
-        (the first rendering sets the size, the regions and the seeding)."""
+        (the first rendering sets the size, the regions and the seeding).
+
+        ``ip_adapter_image``: with an IP-Adapter attached, a PIL image or
+        (H, W, 3) array, or precomputed embeddings ((1, D) standard, (1, L,
+        D) plus; :meth:`_ip_state`), None for the zero image;
+        ``ip_adapter_scale`` overrides the adapter's scale for the call."""
         cfg = self.config
         freeu = freeu_params(freeu, cfg.is_xl)
         tome_ratio = float(tome_ratio)
@@ -1015,6 +1234,7 @@ class PwwPipeline:
                 aesthetic_score, negative_aesthetic_score, self.device)
             added_cond = {"text_embeds": pooled.float(), "time_ids": time_ids}
         added_cond, guidance_scale = self._lcm_guidance(added_cond, guidance_scale, n)
+        ip = self._ip_for_call(ip_adapter_image, n, ip_adapter_scale)
         t_end = None if denoising_end is None else steps_at_or_above(denoising_end)
         if edit_sched is not None and len(edit_sched) == 1:
             edit_sched = None  # a constant schedule: the plain path
@@ -1043,7 +1263,7 @@ class PwwPipeline:
                            control=control, adapter=adapter, added_cond=added_cond,
                            t_end=t_end, callback=callback, callback_steps=int(callback_steps),
                            cache_interval=int(cache_interval), tome_ratio=tome_ratio,
-                           freeu=freeu, sag_scale=float(sag_scale), conds=conds)
+                           freeu=freeu, sag_scale=float(sag_scale), conds=conds, ip=ip)
         t0 = self._phase("denoise", t0)
         if return_latents:
             return lat.permute(0, 2, 3, 1).cpu().numpy()
@@ -1201,6 +1421,7 @@ class PwwPipeline:
         tome_ratio: float = 0.0,
         freeu=None,  # FreeU: True (the family's defaults) or (b1, b2, s1, s2)
         sag_scale: float = 0.0,
+        ip_adapter_image=None,  # one reference image shared by the batch
         **unported,
     ):
         """N independent paint-with-words requests as one batched denoise
@@ -1223,7 +1444,9 @@ class PwwPipeline:
         with no crop, and the refiner's aesthetic scores 6.0 / 2.5. The
         extras ``cache_interval``, ``tome_ratio``, ``freeu`` and
         ``sag_scale`` apply to the whole batch, as in :meth:`generate`, and
-        an LCM-distilled UNet takes the embedded guidance scale.
+        an LCM-distilled UNet takes the embedded guidance scale. With an
+        IP-Adapter attached, ``ip_adapter_image`` conditions every row, at
+        the adapter's scale.
 
         Returns PIL images, a (N, H, W, 3) uint8 array (``"np"``), or the
         un-fetched uint8 tensor on the pipeline's device (``"device"``).
@@ -1340,11 +1563,13 @@ class PwwPipeline:
                              for seed, e in zip(seeds, encs)])
             lat = lat * schedule.init_noise_sigma
         added_cond, guidance_scale = self._lcm_guidance(added_cond, guidance_scale, n)
+        ip = self._ip_for_call(ip_adapter_image, n)
         t0 = self._phase("encode", t0)
         lat = self.denoise(lat, text_states, pww, schedule, float(guidance_scale),
                            t_start=t_start, extra=extra, blend=blend, seeds=seeds,
                            added_cond=added_cond, cache_interval=int(cache_interval),
-                           tome_ratio=tome_ratio, freeu=freeu, sag_scale=float(sag_scale))
+                           tome_ratio=tome_ratio, freeu=freeu, sag_scale=float(sag_scale),
+                           ip=ip)
         t0 = self._phase("denoise", t0)
         images = self.decode_uint8_device(lat)
         if output_type != "device":

@@ -12,7 +12,9 @@ Port of :mod:`pww_tpu.serving.server`::
                      "init_image_png_b64": ...,    # optional: img2img
                      "strength": 0.5,
                      "mask_image_png_b64": ...,    # optional: inpaint (with init)
-                     "mask_blur": 0.0, "masked_content": "original"}
+                     "mask_blur": 0.0, "masked_content": "original",
+                     "ip_adapter_image_png_b64": ...}  # optional: an IP-Adapter's
+                                                       # reference image
       → {"image_png_b64": ..., "latency_s": ...}
     GET  /healthz   → {"ok": true, "stats": {...}}
     GET  /metrics   → counters, p50/p95 request latency, batch efficiency
@@ -22,10 +24,11 @@ Run: ``python -m pww_tpu_torch.serving.server [--model DIR | --tiny]
 unless ``--device cpu`` is given; concurrent compatible requests are fused
 by :mod:`pww_tpu_torch.serving.batcher`. The sampling extras
 (``cache_interval``, ``tome_ratio``, ``freeu``, ``sag_scale``, and
-``prompt_editing``, which runs alone) are passed on; an
-``ip_adapter_image_png_b64``, which the port does not have yet (ROADMAP
-A.15), answers 500 with its ``NotImplementedError``. Any refusal of the
-pipeline answers 500 with its error.
+``prompt_editing``, which runs alone) are passed on. An
+``ip_adapter_image_png_b64`` runs alone through ``generate`` with the
+pipeline's IP-Adapter (``make_handler(Batcher(pipe))`` on a pipeline
+that ``load_ip_adapter`` attached one to); without one it answers 500
+with the pipeline's ``ValueError``, as any refusal of the pipeline does.
 """
 from __future__ import annotations
 

@@ -55,3 +55,25 @@ class PwwState:
 
     def with_sigma(self, sigma: torch.Tensor) -> "PwwState":
         return dataclasses.replace(self, sigma=sigma)
+
+
+@dataclasses.dataclass(frozen=True)
+class IpState:
+    """IP-Adapter image conditioning, the decoupled cross-attention's operand
+    (``pww_tpu/types.py:65-76``).
+
+    Attributes:
+      tokens: (B, n_ip, D_ctx) projected image-prompt tokens, the CFG rows
+        [uncond*N, cond*N]; the uncond rows hold the projection of the zero
+        image embedding (the plus variant: of the zero image through the
+        encoder).
+      scale: the image branch's multiplier, a float.
+    """
+
+    tokens: torch.Tensor
+    scale: float
+
+    def rows(self, index) -> "IpState":
+        """The state for a slice of the batch rows (a CFG half, the uncond
+        rows of SAG's degraded pass)."""
+        return dataclasses.replace(self, tokens=self.tokens[index])

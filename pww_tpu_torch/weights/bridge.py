@@ -14,12 +14,18 @@
   ``pww_tpu/models/t2i_adapter.py``'s ``t2i_adapter_key``. SDXL's second
   text tower is part "clip2"; a projected tower's ``text_projection``
   sits at the top level, as in transformers' ``CLIPTextModelWithProjection``
-  (``pww_tpu/weights/loader.py:172-176``).
+  (``pww_tpu/weights/loader.py:172-176``). The IP-Adapter's trees: an
+  ip-enabled UNet's ``to_k_ip``/``to_v_ip`` come across as any other dense
+  kernel; part "image_encoder" (``CLIPVisionEncoder``) takes
+  :func:`vision_key`, the inverse of ``pww_tpu/weights/ip_adapter.py``'s;
+  parts "image_proj" (``ImageProjection``) and "resampler" (``Resampler``)
+  take tencent-ailab's ``image_proj.*`` names (:func:`resampler_key`).
 * :func:`synthetic_params` fills every float tensor of the port's modules
   with N(0, 0.02), drawn on the device from a seeded ``torch.Generator``.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Dict, Tuple
 
@@ -146,6 +152,44 @@ def t2i_adapter_key(path: Tuple[str, ...]) -> str:
     return ".".join(parts)
 
 
+def vision_key(path: Tuple[str, ...]) -> str:
+    """('layers_3', 'self_attn', 'q_proj') →
+    'vision_model.encoder.layers.3.self_attn.q_proj'; transformers'
+    ``pre_layrnorm`` keeps its typo."""
+    if path[0] == "visual_projection":
+        return "visual_projection"
+    if path[0] == "patch_embedding":
+        return "vision_model.embeddings.patch_embedding"
+    parts = []
+    for m in path:
+        mm = re.fullmatch(r"layers_(\d+)", m)
+        parts.append(f"encoder.layers.{mm[1]}" if mm else
+                     "pre_layrnorm" if m == "pre_layernorm" else m)
+    return "vision_model." + ".".join(parts)
+
+
+_RESAMPLER_PATTERNS = ((r"layers_(\d+)_attn", "layers.{}.0"),
+                       (r"layers_(\d+)_ff_norm", "layers.{}.1.0"),
+                       (r"layers_(\d+)_ff_in", "layers.{}.1.1"),
+                       (r"layers_(\d+)_ff_out", "layers.{}.1.3"))
+
+
+def resampler_key(path: Tuple[str, ...]) -> str:
+    """('layers_1_ff_in',) → 'layers.1.1.1' (tencent-ailab's layout:
+    ``layers.{i}.0`` the attention, ``layers.{i}.1`` the LayerNorm, Linear,
+    GELU, Linear feed-forward)."""
+    parts = []
+    for m in path:
+        for pat, fmt in _RESAMPLER_PATTERNS:
+            mm = re.fullmatch(pat, m)
+            if mm:
+                parts.append(fmt.format(mm[1]))
+                break
+        else:
+            parts.append(m)
+    return ".".join(parts)
+
+
 # the JAX package's conditioning embedding ends in a 1×1 conv where
 # diffusers' (and the port's) has a 3×3 one (ROADMAP C.8)
 COND_EMBEDDING_OUT = "controlnet_cond_embedding.conv_out.weight"
@@ -168,13 +212,23 @@ def _walk(tree, prefix=()):
 
 
 _KEYS = {"unet": unet_key, "clip": clip_key, "clip2": clip_key, "vae": vae_key,
-         "controlnet": controlnet_key, "t2i_adapter": t2i_adapter_key}
+         "controlnet": controlnet_key, "t2i_adapter": t2i_adapter_key,
+         "image_encoder": vision_key, "image_proj": ".".join, "resampler": resampler_key}
+# parameters that are flax leaves of their own, not a module's kernel or scale
+_PARAM_LEAVES = {
+    ("clip", "position_embedding"): "text_model.embeddings.position_embedding.weight",
+    ("clip2", "position_embedding"): "text_model.embeddings.position_embedding.weight",
+    ("image_encoder", "class_embedding"): "vision_model.embeddings.class_embedding",
+    ("image_encoder", "position_embedding"): "vision_model.embeddings.position_embedding.weight",
+    ("resampler", "latents"): "latents",
+}
 
 
 def params_from_jax(tree) -> StateDicts:
     """{part: flax tree of numpy arrays or CPU tensors} → {part: torch state
-    dict}, for the parts "unet", "clip", "clip2", "vae", "controlnet" and
-    "t2i_adapter" in ``tree``."""
+    dict}, for the parts "unet", "clip", "clip2", "vae", "controlnet",
+    "t2i_adapter", "image_encoder", "image_proj" and "resampler" in
+    ``tree``."""
     out: StateDicts = {}
     for part, sub in tree.items():
         sd = out[part] = {}
@@ -183,8 +237,8 @@ def params_from_jax(tree) -> StateDicts:
             mods = tuple(mods)
             if not isinstance(arr, torch.Tensor):
                 arr = torch.tensor(np.asarray(arr))
-            if part in ("clip", "clip2") and leaf == "position_embedding":
-                key, t = "text_model.embeddings.position_embedding.weight", arr
+            if (part, leaf) in _PARAM_LEAVES and not mods:
+                key, t = _PARAM_LEAVES[part, leaf], arr
             else:
                 name, t = _leaf(leaf, arr)
                 key = f"{_KEYS[part](mods)}.{name}"
@@ -221,7 +275,9 @@ def build_models(config: SDModelConfig, device="meta", parts=None):
         "clip": lambda: CLIPTextModel(config.clip),
         "clip2": lambda: CLIPTextModel(config.clip2),
         "vae": lambda: AutoencoderKL(config.vae),
-        "controlnet": lambda: ControlNetModel(config.unet),
+        # a ControlNet takes no image-prompt tokens (pww_tpu/pipeline/pipeline.py:60-63)
+        "controlnet": lambda: ControlNetModel(dataclasses.replace(config.unet,
+                                                                  ip_adapter_tokens=None)),
         "t2i_adapter": lambda: T2IAdapter(config.unet.block_out_channels,
                                           downscale_factor=config.vae.scale_factor),
     }

@@ -213,8 +213,18 @@ JAX_ONLY_DROPPED = {"unet": ("xattn_block_q", "flash_block", "flash_pad_heads",
                              "conv_lowering", "xattn_variant")}
 JAX_ONLY_OFF = {"unet": {"tome_ratio": (0.0, "generate(tome_ratio=...)"),
                          "freeu": (None, "generate(freeu=...)"),
-                         "sow_mid_attn": (False, "generate(sag_scale=...)"),
-                         "ip_adapter_tokens": (None, "ROADMAP A.15 (IP-Adapter)")}}
+                         "sow_mid_attn": (False, "generate(sag_scale=...)")}}
+# Fields the port has, refused at any other value in a JAX-written directory.
+# The JAX package's save_pretrained (pww_tpu/pipeline/pipeline.py:751-775)
+# writes an IP-Adapter's to_k_ip/to_v_ip and ip_adapter_tokens but not the
+# adapter's image projection or encoder, and its own from_pretrained cannot
+# load the directory (the UNet's init traces without an IpState and raises);
+# ROADMAP C.14.
+JAX_REFUSED = {"unet": {"ip_adapter_tokens": (
+    None, "the directory was saved with an IP-Adapter attached, and the JAX package's "
+    "save_pretrained writes its to_k_ip/to_v_ip but not its image projection, so neither "
+    "package can run it (ROADMAP C.14); save the pipeline without the adapter and attach "
+    "it with PwwPipeline.load_ip_adapter")}}
 _TUPLE_FIELDS = ("block_out_channels", "down_block_has_attn", "transformer_depth")
 
 
@@ -223,6 +233,10 @@ def _config_part(cls, part: str, fields: dict, where: str):
     known = {f.name for f in dataclasses.fields(cls)}
     kept = {}
     for name, value in fields.items():
+        if name in JAX_REFUSED.get(part, {}):
+            off, why = JAX_REFUSED[part][name]
+            if value != off:
+                raise ValueError(f"{where}: {part}.{name}={value!r}: {why}")
         if name in known:
             kept[name] = tuple(value) if name in _TUPLE_FIELDS and value is not None else value
         elif name in JAX_ONLY_DROPPED.get(part, ()):
@@ -242,7 +256,9 @@ def native_config(meta: dict, where: str = "config.json") -> SDModelConfig:
     """``config.json``'s ``"model"`` (``dataclasses.asdict`` of the JAX
     ``SDModelConfig``) as the port's config: the TPU-only fields dropped,
     the per-call ones taken at their off values, any other field the port
-    lacks refused (:data:`JAX_ONLY_DROPPED`, :data:`JAX_ONLY_OFF`)."""
+    lacks refused (:data:`JAX_ONLY_DROPPED`, :data:`JAX_ONLY_OFF`); an
+    IP-Adapter's ``ip_adapter_tokens`` refused with its reason
+    (:data:`JAX_REFUSED`)."""
     m = dict(meta["model"])
     parts = {"clip": CLIPTextConfig, "clip2": CLIPTextConfig, "unet": UNetConfig,
              "vae": VAEConfig, "scheduler": SchedulerConfig}

@@ -241,7 +241,7 @@ BATCH_REFUSALS = {  # requests, generate_batch's options, the error, its message
     "SAG": (lambda: REQS, dict(sag_scale=0.5, weight_function=lambda w, s, qk: w), ValueError,
             "batched CFG"),
     "IP-Adapter": (lambda: REQS, dict(ip_adapter_image=np.zeros((8, 8, 3), np.uint8)),
-                   NotImplementedError, "A.15"),
+                   ValueError, "load_ip_adapter"),
     "jax noise": (lambda: REQS, dict(noise_mode="jax"), NotImplementedError, "A.10"),
     "unknown option": (lambda: REQS, dict(sharding="spatial"), NotImplementedError,
                        "sharding"),
@@ -252,7 +252,9 @@ BATCH_REFUSALS = {  # requests, generate_batch's options, the error, its message
 def test_generate_batch_refusals(pair, case):
     """The JAX ``generate_batch``'s refusals (the extras' since ROADMAP
     A.14); the options the port lacks raise NotImplementedError naming
-    their ROADMAP item."""
+    their ROADMAP item; an IP-Adapter image without an adapter attached
+    raises ValueError (the JAX one ignores it; tests/test_torch_ip_adapter.py
+    runs the batch with one)."""
     _, tp = pair
     reqs, kw, exc, match = BATCH_REFUSALS[case]
     with pytest.raises(exc, match=match):

@@ -241,8 +241,9 @@ def test_unported_formats_raise(tmp_path):
     """Single files and ``params.msgpack`` directories load now
     (tests/test_torch_ldm.py holds them against the JAX loaders). What the
     dispatch still refuses: an original-LDM (LDM-BERT) single file, as the
-    reference does, and a JAX-written directory whose config carries a
-    setting the port would drop, such as IP-Adapter tokens (ROADMAP A.15);
+    reference does, and a JAX-written directory saved with an IP-Adapter
+    attached (``ip_adapter_tokens`` set), which the JAX loader cannot run
+    either: it raises tracing the UNet without an IpState (ROADMAP C.14);
     a file that is no checkpoint raises where it is read."""
     import json
 
@@ -258,8 +259,12 @@ def test_unported_formats_raise(tmp_path):
     model["unet"]["ip_adapter_tokens"] = 4
     (native / "config.json").write_text(json.dumps({"model": model}))
     (native / "params.msgpack").write_bytes(b"\x80")
-    with pytest.raises(NotImplementedError, match="A.15"):
+    with pytest.raises(ValueError, match="C.14.*load_ip_adapter"):
         loader.load_pipeline_checkpoint(str(native))
+    from pww_tpu.weights.loader import load_pipeline_checkpoint as jax_load
+
+    with pytest.raises(ValueError, match="pass an IpState operand"):
+        jax_load(str(native))
     model["unet"]["ip_adapter_tokens"] = None
     (native / "config.json").write_text(json.dumps({"model": model}))
     with pytest.raises(ValueError, match="params.msgpack holds"):  # an empty map

@@ -108,8 +108,10 @@ def test_txt2img_bias_and_seed_change_the_result(pair):
 
 
 def test_unported_options_raise(pair):
-    """What the port does not have yet: IP-Adapter, jax.random noise and
-    hub downloads (the LCM scheduler came with the sampling extras,
+    """What the port does not have yet: jax.random noise and hub downloads;
+    and an IP-Adapter image without an adapter attached, a ValueError as in
+    the JAX pipeline, whose ``ip_adapter_scale`` alone changes nothing
+    (the IP-Adapter came with tests/test_torch_ip_adapter.py; the LCM scheduler came with the sampling extras,
     tests/test_torch_lcm_hires.py; per-step callbacks came with the
     serving slice, tests/test_torch_batch.py; img2img, inpaint
     and custom weight functions came with the second slice,
@@ -120,13 +122,13 @@ def test_unported_options_raise(pair):
     latent-space img2img, ``init_latents`` with ``denoising_start``, in
     tests/test_torch_sdxl.py)."""
     _, tp = pair
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="load_ip_adapter"):
         paint_with_words(preloaded_utils=tp, device="cpu",
                          ip_adapter_image=np.zeros((8, 8, 3), np.uint8))
     with pytest.raises(NotImplementedError):
         tp.generate(**{**KWARGS, "noise_mode": "jax"})
-    with pytest.raises(NotImplementedError, match="A.15"):
-        tp.generate(**{**KWARGS, "ip_adapter_scale": 0.5})
+    kw = {**KWARGS, "num_inference_steps": 1, "return_latents": True}
+    np.testing.assert_array_equal(tp.generate(**kw, ip_adapter_scale=0.5), tp.generate(**kw))
     with pytest.raises(NotImplementedError):
         paint_with_words(preloaded_utils=tp, device="cpu", model_token="token")
     with pytest.raises(FileNotFoundError):

@@ -275,8 +275,9 @@ def test_singletons_go_through_generate(pipe):
     """Two samples run through ``generate`` alone (its first image); a
     full-res inpaint, which refuses device output, through a synchronous
     call; a prompt-editing request, which refuses device output too, the
-    same way; an unported option (an IP-Adapter image) resolves to its
-    NotImplementedError."""
+    same way; an IP-Adapter image on a pipeline without an adapter resolves
+    to generate's ValueError (tests/test_torch_ip_adapter.py serves one
+    with an adapter attached)."""
     init = np.full((64, 64, 3), 120, np.uint8)
     mask = np.zeros((64, 64), np.float32)
     mask[16:48, 16:48] = 1.0
@@ -290,7 +291,7 @@ def test_singletons_go_through_generate(pipe):
         two = futs[0].result(timeout=120)
         full_res = futs[1].result(timeout=120)
         edited = futs[2].result(timeout=120)
-        with pytest.raises(NotImplementedError, match="ip_adapter_image"):
+        with pytest.raises(ValueError, match="load_ip_adapter"):
             futs[3].result(timeout=120)
     finally:
         b.close()
@@ -316,7 +317,9 @@ def _png_b64(arr):
 def test_server_round_trip(pipe):
     """POST /generate through the Batcher equals the same request through
     ``generate``; a request with ToMe runs; /healthz, /metrics, an unknown
-    path and an unported option (an IP-Adapter image, ROADMAP A.15)."""
+    path and an IP-Adapter image on a pipeline without an adapter (500
+    with the pipeline's ValueError; tests/test_torch_ip_adapter.py serves
+    one with an adapter attached)."""
     from PIL import Image
 
     cm = np.zeros((256, 256, 3), np.uint8)
@@ -342,7 +345,8 @@ def test_server_round_trip(pipe):
         tome = post(dict(body, tome_ratio=0.5))
         with pytest.raises(urllib.error.HTTPError) as err:
             post(dict(body, ip_adapter_image_png_b64=_png_b64(cm)))
-        assert err.value.code == 500 and "A.15" in json.loads(err.value.read())["error"]
+        assert (err.value.code == 500
+                and "load_ip_adapter" in json.loads(err.value.read())["error"])
         with urllib.request.urlopen(f"{url}/healthz", timeout=60) as resp:
             health = json.loads(resp.read())
         with urllib.request.urlopen(f"{url}/metrics", timeout=60) as resp:
