@@ -32,6 +32,11 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    of it without and with a ControlNet, the host time inside the UNet's and
    the ControlNet's forward and the synchronising operations of one
    ControlNet call, and the host time of each K2 and K3 wrapper call;
+3a. train kernels (not with ``--kernels-only``): K3 under autograd at the
+   training shapes (batch 1, no CFG: L 4096 dh 40 and L 1024 dh 80, B·H
+   8), its Function's dQ, dK, dV against autograd through the plain version
+   on the same bf16 inputs, with CUDA-event times of the forward kernel,
+   the plain backward, and SDPA's forward and backward as a yardstick;
 4. reference: a reduced-depth SD-1.5-width txt2img (256 px, 3 steps) on the
    card in bf16 against the same pipeline on the CPU in f32;
 5. main path: SD-1.5 at full width (synthetic N(0, 0.02) weights) through
@@ -75,6 +80,16 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    visit); each gated on finite final latents that differ from the plain
    run's and on its launches, with s/image, ms/visit and peak GiB; then
    5-step profiles of DeepCache and ToMe;
+8f. train (after extras, on phase 5's pipeline): ``train_textual_inversion``
+   and ``train_lora`` (rank 8, the attention linears), 3 steps each on two
+   512² synthetic images; finite losses, TI's old table rows bit-equal and
+   its new row moved, every LoRA B nonzero and every A moved after step 3,
+   the UNet bit-equal after ``train_lora``, K3 = 10 launches a train step
+   and K1 = K2 = K4 = K5 = 0; K1, K2, K4 and K5 raise under grad mode on
+   the card; N steps with the trained placeholder and with the saved LoRA
+   loaded (15/15/10 a visit, finite latents, the LoRA image unlike the
+   plain one); ms per train step, peak GiB and a 1-step profile of each
+   trainer (K3's device ms inside a step);
 8c. single file: SD-1.5 at full width written as an A1111/LDM single
    ``.safetensors`` file (fp16, I64 ``position_ids``, ``ldm_state_dict``)
    with the tokenizer's files beside it, loaded through ``pww_load_tools``
@@ -170,6 +185,7 @@ Imports nothing of JAX. Needs one card.
 """
 import argparse
 import atexit
+import copy
 import json
 import math
 import os
@@ -3594,6 +3610,346 @@ def phase_sdxl_adapters(pipe, gkw, card, enc_dir, tmp, steps=4):
     return launches
 
 
+# K3 at the training path's shapes: SD-1.5 at 512², batch 1 without CFG,
+# (L, dh) at B·H 8; five sites of each per UNet call
+TRAIN_SHAPES = ((4096, 40), (1024, 80))
+TRAIN_STEPS = 3
+TRAIN_K3_PER_STEP = 10
+TRAIN_LORA_LR = 5e-3  # 3 Adam steps move each factor by ~1.5e-2, above W's bf16 ulps
+
+
+def phase_train_kernels():
+    """K3 under autograd at TRAIN_SHAPES: the Function (kernel forward, plain
+    backward) against autograd through ``self_attention_plain`` on the same
+    bf16 inputs, the output and dQ, dK, dV each within 2^-6·max|x| and 1e-2
+    relative L2; CUDA-event times. Returns the cases."""
+    import torch
+    import torch.nn.functional as F
+
+    from pww_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    cases, failed = [], []
+    for l, dh in TRAIN_SHAPES:
+        bh = 8
+        q, k, v, do = (torch.randn((1, bh, l, dh), generator=g, device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fa.flash_self_attention(*leaves)
+        through = out.grad_fn is not None and "FlashSelfAttention" in type(out.grad_fn).__name__
+        out.backward(do)
+        ref = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        ref_out = fa.self_attention_plain(*ref)
+        ref_out.backward(do)
+        label = f"train L{l} dh{dh} B·H{bh}"
+        case = dict(case=label, through_function=through)
+        # The kernel's output is held as in phase 1 (P rounded to bf16 for
+        # P·V). The plain backward and autograd through the plain forward
+        # both work in f32 from the same bf16 inputs and round dQ, dK, dV to
+        # bf16: they differ by summation order and a bf16 ulp here and
+        # there. K3's forward limits (PERF.md error table) hold all four:
+        # 2^-6·max|x| and 1e-2 relative L2. A dropped dh^-½ or a transposed
+        # dS would miss by 1e-1 and more (estimated, not run).
+        pairs = [("o", out.detach(), ref_out.detach())] + [
+            (f"d{n}", got.grad, want.grad) for n, got, want in zip("qkv", leaves, ref)]
+        for name, got, want in pairs:
+            diff = got.float() - want.float()
+            err, rel = diff.abs().max().item(), (diff.norm() / want.float().norm()).item()
+            tol = 2**-6 * want.float().abs().max().item()
+            ok = bool(torch.isfinite(got).all()) and err <= tol and rel <= 1e-2
+            case.update({f"{name}_max_abs_err": err, f"{name}_tol": tol,
+                         f"{name}_rel_l2_err": rel})
+            if not ok:
+                failed.append(f"{label} {name}")
+        if not through:
+            failed.append(f"{label}: the output has no FlashSelfAttention grad_fn")
+        del leaves, ref, out, ref_out
+        sq, sk, sv = (x.clone().requires_grad_(True) for x in (q, k, v))
+        sout = F.scaled_dot_product_attention(sq, sk, sv)
+        case.update(
+            ms=time_ms(lambda: fa.flash_self_attention(q, k, v)),
+            plain_ms=time_ms(lambda: fa.self_attention_plain(q, k, v), reps=3),
+            plain_backward_ms=time_ms(lambda: fa.self_attention_backward_plain(q, k, v, do),
+                                      reps=3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+            library_backward_ms=time_ms(lambda: torch.autograd.grad(
+                sout, (sq, sk, sv), do, retain_graph=True)),
+            calls_per_train_step=TRAIN_K3_PER_STEP // len(TRAIN_SHAPES))
+        # the forward reads q, k, v and writes o; a backward reads q, k, v, dO
+        # and writes dQ, dK, dV, and does 2.5 forwards' products (S again,
+        # dV, dP, dQ, dK): the bound of a hand-written backward kernel
+        case["bound_ms"], case["bound_by"] = bound(4 * q.numel() * 2, 4 * bh * l * l * dh)
+        case["backward_bound_ms"], case["backward_bound_by"] = bound(
+            7 * q.numel() * 2, 10 * bh * l * l * dh)
+        del sq, sk, sv, sout, q, k, v, do
+        torch.cuda.empty_cache()
+        log(f"[train kernels] K3 {label}: " + ", ".join(
+            f"{n} max_abs_err {case[f'{n}_max_abs_err']:.3e} (tol {case[f'{n}_tol']:.3e}) "
+            f"rel_l2 {case[f'{n}_rel_l2_err']:.3e}" for n in ("o", "dq", "dk", "dv"))
+            + f" {'ok' if label not in ' '.join(failed) else 'FAIL'} | forward kernel "
+            f"{case['ms']:.4f} ms (bound {case['bound_ms']:.4f}, {case['bound_by']}), plain "
+            f"forward {case['plain_ms']:.4f} ms, SDPA "
+            f"forward {case['library_ms']:.4f} ms; plain backward {case['plain_backward_ms']:.4f}"
+            f" ms, SDPA backward {case['library_backward_ms']:.4f} ms, a backward's bound "
+            f"{case['backward_bound_ms']:.4f} ms ({case['backward_bound_by']})")
+        cases.append(case)
+    if failed:
+        raise SystemExit(f"[train kernels] outside tolerance: {failed}")
+    return cases
+
+
+def train_images(n=2, size=512):
+    return [synthetic_init_image(size, seed=40 + i) for i in range(n)]
+
+
+def refusals_under_grad():
+    """K1, K2, K4 and K5 on the card, with an input that requires a gradient
+    under grad mode: each must raise NotImplementedError. Returns the ones
+    that did not."""
+    import torch
+
+    from pww_tpu_torch.ops import cross_attention_kernel as xk
+    from pww_tpu_torch.ops import group_norm as gn
+    from pww_tpu_torch.ops import layer_norm as ln
+    from pww_tpu_torch.ops.weight_functions import WeightFunction
+
+    def t(*shape, grad=False):
+        return torch.randn(shape, device="cuda").to(torch.bfloat16).requires_grad_(grad)
+
+    q, k, v = t(2, 8, 4096, 40, grad=True), t(2, 8, 77, 40), t(2, 8, 77, 40)
+    w = torch.rand((2, 4096, 77), device="cuda")
+    coef = torch.ones(2, device="cuda")
+    calls = {
+        "fused_pww_reduce": lambda: xk.fused_pww_reduce(
+            q, k, WeightFunction(0.1, "log1p_sigma", "max")),
+        "fused_pww_cross_attention": lambda: xk.fused_pww_cross_attention(q, k, v, w, coef),
+        "group_norm": lambda: gn.group_norm(t(2, 320, 64, 64, grad=True), torch.ones(
+            320, device="cuda"), torch.zeros(320, device="cuda"), groups=32, eps=1e-5),
+        "layer_norm": lambda: ln.layer_norm(t(2, 4096, 320, grad=True), torch.ones(
+            320, device="cuda"), torch.zeros(320, device="cuda"), eps=1e-5),
+    }
+    silent = []
+    for name, call in calls.items():
+        try:
+            call()
+            silent.append(name)
+        except NotImplementedError as e:
+            log(f"[train] {name} under grad mode raises: {str(e)[:90]}...")
+    return silent
+
+
+def adam_update(optimizer, p):
+    """The step ``torch.optim.Adam`` gave ``p`` last, in f64, from its state
+    after that step: lr/(1 - b1^t) · m / (√v / √(1 - b2^t) + eps)."""
+    group = next(g for g in optimizer.param_groups if any(x is p for x in g["params"]))
+    state = optimizer.state[p]
+    t, (b1, b2) = float(state["step"]), group["betas"]
+    m, v = state["exp_avg"].double(), state["exp_avg_sq"].double()
+    return group["lr"] / (1 - b1**t) * m / (v.sqrt() / math.sqrt(1 - b2**t) + group["eps"])
+
+
+class LoraStepSpy:
+    """Wraps ``LoraTrainer.step`` while ``train_lora`` runs and checks each
+    step's A factors against the update Adam gave them. An element moves
+    when its update exceeds half the f32 spacing of its value (round to
+    nearest; a quarter where it moves down across a power of two); the
+    recomputed update differs from the one applied by a few f32 ulps, so the
+    gate takes the whole spacing: every element whose update exceeds the
+    spacing above |a| must have moved. Where A's gradient is far below 1e-8,
+    Adam's step is about lr·g/1e-8 and falls below the spacing: such an
+    element may stay, and a whole A may stay at its init."""
+
+    def __init__(self, trainer_cls):
+        self.cls, self.step = trainer_cls, trainer_cls.step
+        self.init, self.grads, self.ratio, self.due, self.stuck = None, {}, {}, 0, set()
+
+    def __enter__(self):
+        import torch
+
+        spy = self
+
+        def step(trainer, factors, optimizer, draws):
+            before = {k: f["a"].detach().clone() for k, f in factors.items()}
+            if spy.init is None:
+                spy.init = before
+            out = spy.step(trainer, factors, optimizer, draws)
+            for k, f in factors.items():
+                a0 = before[k]
+                spacing = torch.nextafter(a0.abs(), torch.full_like(a0, math.inf)) - a0.abs()
+                ratio = adam_update(optimizer, f["a"]).abs() / spacing.double()
+                due = ratio > 1
+                spy.due += int(due.sum())
+                if bool((due & (f["a"].detach() == a0)).any()):
+                    spy.stuck.add(k)
+                spy.grads[k], spy.ratio[k] = f["a"].grad.abs().max().item(), ratio.max().item()
+            return out
+
+        self.cls.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.step
+
+    def problems(self, factors):
+        """After the run: every A has a nonzero, finite gradient at the last
+        step (through B and the merge; at step 1, with B = 0, it has none),
+        and every element due to move moved at every step. Returns them."""
+        import torch
+
+        no_grad = [k for k, g in self.grads.items() if not (g > 0 and math.isfinite(g))]
+        still = [k for k, f in factors.items() if torch.equal(f["a"], self.init[k].cpu())]
+        log(f"[train] lora: A's gradient at the last step nonzero and finite at "
+            f"{len(self.grads) - len(no_grad)} of {len(self.grads)} sites (smallest "
+            f"{min(self.grads.values()):.3e}, largest {max(self.grads.values()):.3e}); "
+            f"{self.due} elements due to move over the steps, some unmoved at "
+            f"{len(self.stuck)} sites; A at its init at {len(still)} sites (largest last "
+            f"update there {max((self.ratio[k] for k in still), default=0):.3e} of the f32 "
+            f"spacing)")
+        return ([f"lora: A without a gradient at {no_grad[:3]}"] if no_grad else []) + (
+            [f"lora: A unmoved where Adam's step exceeds its spacing at {sorted(self.stuck)[:3]}"]
+            if self.stuck else [])
+
+
+def phase_train(pipe, kw, steps, card, tmp):
+    """Training on phase 5's SD-1.5 pipeline (bf16, 512²): textual inversion
+    and LoRA through their entry points, each gated; the trained concept and
+    the saved LoRA through ``generate``; ms per step, peak GiB and a profiled
+    step of each. Puts the pipeline's tokenizer and token table back as it
+    found them. Returns ({run: launches}, {trainer: profile})."""
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.training import train_lora, train_textual_inversion
+    from pww_tpu_torch.training.lora import LoraTrainer
+    from pww_tpu_torch.training.textual_inversion import TextualInversionTrainer
+    from pww_tpu_torch.weights.textual_inversion import set_token_table
+
+    problems, launches, profiled = [], {}, {}
+    images = train_images()
+    caption = "a photo of a pww toy"
+    want = {"fused_pww_reduce": 0, "fused_pww_cross_attention": 0,
+            "flash_self_attention": TRAIN_K3_PER_STEP * TRAIN_STEPS, "group_norm": 0,
+            "layer_norm": 0}
+
+    # -- textual inversion (the tokenizer and the table are put back at the end)
+    emb = pipe.clip.text_model.embeddings.token_embedding
+    table0, tokenizer0 = emb.weight.detach().clone(), copy.deepcopy(pipe.tokenizer)
+    init_id = pipe.tokenizer("toy")["input_ids"][1]
+    ti, launches["train_ti"], wall, peak = timed_run(pipe, lambda n: train_textual_inversion(
+        pipe, images, "<pww-toy>", initializer_token="toy", num_steps=n, seed=0), TRAIN_STEPS)
+    table = emb.weight.detach()
+    old_equal = torch.equal(table[:table0.shape[0]], table0)
+    moved = (table[-1].float() - table0[init_id].float()).abs().max().item()
+    log(f"[train] textual inversion, {TRAIN_STEPS} steps: {wall:.3f} s (set-up included), "
+        f"peak {peak:.2f} GiB above the weights, losses {ti.losses}, table {tuple(table.shape)}, "
+        f"old rows bit-equal {old_equal}, new row moved {moved:.3e} from its init; launches "
+        f"{launches['train_ti']} ({card})")
+    if (not np.isfinite(ti.losses).all() or not old_equal or not moved > 0
+            or launches["train_ti"] != want):
+        problems.append(f"ti: losses {ti.losses}, old rows equal {old_equal}, moved {moved}, "
+                        f"launches {launches['train_ti']}")
+
+    # -- LoRA
+    before = state_snapshot({"unet": pipe.unet})
+    with LoraStepSpy(LoraTrainer) as spy:
+        lora, launches["train_lora"], wall, peak = timed_run(pipe, lambda n: train_lora(
+            pipe, images, caption, rank=8, num_steps=n, learning_rate=TRAIN_LORA_LR, seed=0),
+            TRAIN_STEPS)
+    zero_b = [k for k, f in lora.factors.items() if not f["b"].any()]
+    changed = bit_equal({"unet": pipe.unet}, before)
+    log(f"[train] LoRA rank 8, {len(lora.factors)} sites, {TRAIN_STEPS} steps at lr "
+        f"{TRAIN_LORA_LR}: {wall:.3f} s (set-up and the A check included), peak {peak:.2f} "
+        f"GiB above the weights, losses {lora.losses}; B zero at {len(zero_b)} sites; UNet "
+        f"tensors changed {len(changed)}; launches {launches['train_lora']} ({card})")
+    if (not np.isfinite(lora.losses).all() or zero_b or changed
+            or launches["train_lora"] != want or len(lora.factors) != 128):
+        problems.append(f"lora: losses {lora.losses}, {len(lora.factors)} sites, B zero "
+                        f"{zero_b[:3]}, UNet changed {changed[:3]}, "
+                        f"launches {launches['train_lora']}")
+    problems += spy.problems(lora.factors)
+    del before, spy
+    silent = refusals_under_grad()
+    if silent:
+        problems.append(f"no refusal under grad mode: {silent}")
+
+    # -- ms per step and a profiled step of each trainer (their own set-ups)
+    trainers = {
+        "ti": (TextualInversionTrainer(pipe, images, "<pww-timing>", "toy"),
+               lambda tr: tr.init(5e-3)),
+        "lora": (LoraTrainer(pipe, images, caption, rank=8),
+                 lambda tr: tr.init(0, TRAIN_LORA_LR)),
+    }
+    for name, (tr, init_fn) in trainers.items():
+        state = list(init_fn(tr))
+        gen = torch.Generator().manual_seed(1)
+
+        def run(n):
+            for _ in range(n):
+                _, state[0], state[1] = tr.step(state[0], state[1], tr.draws(gen, 1))
+
+        run(1)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(TRAIN_STEPS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+        profiled[name] = phase_profile(run, f"train {name}", steps=1)
+        if name == "ti":  # the timing concept's row, so that every token has one
+            tr.install(state[0])
+        log(f"[train] {name}: {ms:.1f} ms per train step (batch 1, 512², synchronised, "
+            f"{TRAIN_STEPS} steps after a warm-up); K3 device ms a call inside a step "
+            f"{profiled[name].get('K3 flash_self_attention', (None,))[0]} ({card})")
+        del tr, state
+    del trainers
+    torch.cuda.empty_cache()
+
+    # -- the trained concept and the trained LoRA through generate
+    last = {}
+
+    def keep_last(i, t, lat):
+        last["lat"] = lat
+
+    gkw = dict(color_map_image=kw["color_map_image"], guidance_scale=7.5, seed=0,
+               output_type="np", callback=keep_last, callback_steps=steps)
+    runs = {
+        "train_ti_generate": dict(gkw, prompt=f"a photo of {ti.placeholder} next to a dog",
+                                  color_context={(255, 0, 0): f"{ti.placeholder},0.5",
+                                                 (0, 0, 255): "dog,0.5"}),
+        "train_lora_plain": dict(gkw, prompt=kw["input_prompt"],
+                                 color_context=kw["color_context"]),
+    }
+    runs["train_lora_generate"] = runs["train_lora_plain"]
+    images_out = {}
+    for name, rkw in runs.items():
+        if name == "train_lora_generate":
+            path = os.path.join(tmp, "trained_lora.safetensors")
+            lora.save(path)
+            n = pipe.load_lora(path)
+            if n != len(lora.factors):
+                problems.append(f"load_lora merged {n} of {len(lora.factors)}")
+        last.clear()
+        out, launches[name], wall, peak = timed_run(
+            pipe, lambda s: pipe.generate(**rkw, num_inference_steps=s), steps)
+        finite = "lat" in last and bool(torch.isfinite(last["lat"]).all())
+        images_out[name] = out
+        log(f"[train] {name}: {wall:.3f} s/image, image {out.shape} mean {out.mean():.2f} "
+            f"std {out.std():.2f}, final latents finite {finite}; launches {launches[name]} "
+            f"({card})")
+        if launches[name] != path_launches(steps) or not finite or not out.std() > 0:
+            problems.append(f"{name}: launches {launches[name]}, finite {finite}")
+    differs = not np.array_equal(images_out["train_lora_generate"], images_out["train_lora_plain"])
+    pipe.unload_loras()
+    log(f"[train] the trained LoRA's image unlike the plain one: {differs}")
+    if not differs:
+        problems.append("the trained LoRA does not change the image")
+    # the later phases see the pipeline that phase 5 built
+    pipe.tokenizer = tokenizer0
+    set_token_table(pipe, table0)
+    if problems:
+        raise SystemExit(f"[train] {problems}")
+    return launches, profiled
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=30, help="LMS steps of the main path")
@@ -3620,6 +3976,7 @@ def main():
         print(json.dumps({name: loss_ms_per_run(cs) for name, cs in cases.items()}))
         print(f"card: {smi}")
         return 0
+    tcases = phase_train_kernels()
     phase_reference()
     launches, pipe, kw = phase_main_path(args.steps)
     from pww_tpu_torch.pipeline.facade import paint_with_words, paint_with_words_inpaint
@@ -3633,6 +3990,7 @@ def main():
     elaunches, eprofiled = phase_extras(pipe, kw, args.steps)
     tmp = tempfile.mkdtemp(prefix="pww_adapters_")
     atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+    tlaunches, tprofiled = phase_train(pipe, kw, args.steps, smi, tmp)
     phase_adapters_reference()
     alaunches, aprofiled, enc_dir = phase_adapters(pipe, kw, args.steps, smi, tmp)
     del pipe, kw
@@ -3695,6 +4053,10 @@ def main():
             ensemble_launches=({part: n[path_kernels.index(counter)]
                                 for part, n in ensemble.items()}
                                if counter in path_kernels else None),
+            train_path_launches={run: n[counter] for run, n in tlaunches.items()},
+            train_path_device_ms_per_call={
+                trainer: p.get(group, (None,))[0] for trainer, p in tprofiled.items()},
+            **({"train_cases": tcases} if name == "flash_self_attention" else {}),
             cases=cs,
         ))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -14,7 +14,8 @@ runs, per sample b,
 The global reduce must finish before the bias is applied, so they stay two
 launches. Each wrapper takes its plain PyTorch version for tensors on the
 CPU and launches its CUDA kernel for tensors on the card (bf16, contiguous);
-anything else raises. Each counts its launches in ``.launches``.
+anything else raises, inputs that require a gradient under grad mode among
+them (the kernels have no backward). Each counts its launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -164,6 +165,7 @@ def fused_pww_reduce(q: torch.Tensor, k: torch.Tensor,
         return torch.ones((b,), dtype=torch.float32, device=q.device)
     if q.device.type == "cpu":
         return pww_cross_attention_reduce(q, k, weight_fn)
+    cuda_build.refuse_grad("fused_pww_reduce", q, k)
     check_kernel_inputs("fused_pww_reduce", q, k)
     if k.shape[:2] != (b, h) or k.shape[3] != dh:
         raise ValueError(f"fused_pww_reduce: q {tuple(q.shape)} vs k {tuple(k.shape)}")
@@ -206,6 +208,7 @@ def fused_pww_cross_attention(
     lk = k.shape[2]
     if q.device.type == "cpu":
         return pww_cross_attention_plain(q, k, v, w, coef)
+    cuda_build.refuse_grad("fused_pww_cross_attention", q, k, v, w, coef)
     check_kernel_inputs("fused_pww_cross_attention", q, k, v)
     if k.shape != (b, h, lk, dh) or v.shape != k.shape:
         raise ValueError("fused_pww_cross_attention: k and v must be (B, H, Lk, dh)")

@@ -17,6 +17,8 @@ import subprocess
 import threading
 from typing import Dict, Optional
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "pww_tpu_torch")
@@ -114,3 +116,14 @@ def check(err: int, what: str) -> None:
         f.argtypes = [ctypes.c_int]
         f.restype = ctypes.c_char_p
         raise RuntimeError(f"{what}: CUDA error {err}: {f(err).decode()}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where a kernel without a backward would be launched on inputs
+    that require a gradient: its output would carry no ``grad_fn``, and the
+    gradient through it would be dropped without a word."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel has no backward (ROADMAP.md §B), so it cannot run "
+            "under autograd on inputs that require a gradient; call it under "
+            "torch.no_grad(), or keep the knob that sends this site to it off")

@@ -5,6 +5,13 @@ PyTorch version for tensors on the CPU and launches the CUDA kernel
 (``csrc/flash_attention.cu``: online softmax, tensor-core products, no
 (L × L) scores in device memory) for bf16 tensors on the card; anything else
 raises. Launches are counted in ``flash_self_attention.launches``.
+
+Under autograd (grad mode on, and q, k or v requiring a gradient) the
+wrapper goes through :class:`FlashSelfAttention`: the same forward, and the
+plain backward :func:`self_attention_backward_plain`, which recomputes the
+probabilities. The JAX package has no backward kernel to port, and its K3
+cannot be differentiated at all (ROADMAP.md C.18); a hand-written backward
+kernel is later work (ROADMAP.md §B).
 """
 from __future__ import annotations
 
@@ -15,6 +22,9 @@ import torch
 from . import cuda_build
 from .cross_attention_kernel import HEAD_DIMS, check_kernel_inputs
 
+# f32 (L × L) scores of one chunk of the backward: 8 (sample, head) pairs at L 4096
+BACKWARD_CHUNK_BYTES = 512 * 2**20
+
 
 def self_attention_plain(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> torch.Tensor:
@@ -23,9 +33,33 @@ def self_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return torch.matmul(torch.softmax(s, dim=-1), v.float()).to(v.dtype)
 
 
-def flash_self_attention(q: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor) -> torch.Tensor:
-    """Self-attention, (B, H, L, dh) → (B, H, L, dh). No bias, no mask."""
+def self_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  do: torch.Tensor):
+    """(dQ, dK, dV) of ``softmax(QKᵀ·dh^-½)·V`` for the output gradient
+    ``do``, in the inputs' dtype. In f32, in chunks of (sample, head) pairs
+    whose (L × L) scores take about ``BACKWARD_CHUNK_BYTES``: S = QKᵀ·dh^-½
+    and P = softmax(S) recomputed, dV = PᵀdO, dP = dO·Vᵀ,
+    dS = P ⊙ (dP − rowsum(dP ⊙ P)), dQ = dS·K·dh^-½, dK = dSᵀ·Q·dh^-½."""
+    b, h, l, dh = q.shape
+    scale = dh ** -0.5
+    flat = [x.reshape(b * h, l, dh) for x in (q, k, v, do)]
+    grads = [torch.empty((b * h, l, dh), dtype=x.dtype, device=x.device)
+             for x in (q, k, v)]
+    step = max(1, BACKWARD_CHUNK_BYTES // (l * l * 4))
+    for i in range(0, b * h, step):
+        qi, ki, vi, doi = (x[i:i + step].float() for x in flat)
+        p = torch.softmax(torch.matmul(qi, ki.transpose(-1, -2)) * scale, dim=-1)
+        grads[2][i:i + step] = torch.matmul(p.transpose(-1, -2), doi)
+        dp = torch.matmul(doi, vi.transpose(-1, -2))
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        del dp, p
+        grads[0][i:i + step] = torch.matmul(ds, ki) * scale
+        grads[1][i:i + step] = torch.matmul(ds.transpose(-1, -2), qi) * scale
+    return tuple(g.reshape(b, h, l, dh) for g in grads)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The plain version on the CPU, the CUDA kernel on the card."""
     if q.device.type == "cpu":
         return self_attention_plain(q, k, v)
     check_kernel_inputs("flash_self_attention", q, k, v)
@@ -44,6 +78,28 @@ def flash_self_attention(q: torch.Tensor, k: torch.Tensor,
     cuda_build.check(err, "flash_self_attention")
     flash_self_attention.launches += 1
     return out
+
+
+class FlashSelfAttention(torch.autograd.Function):
+    """K3 under autograd: the wrapper's forward (the kernel on the card), the
+    plain backward. Saves q, k and v; the probabilities are recomputed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, do):
+        return self_attention_backward_plain(*ctx.saved_tensors, do)
+
+
+def flash_self_attention(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """Self-attention, (B, H, L, dh) → (B, H, L, dh). No bias, no mask."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashSelfAttention.apply(q, k, v)
+    return _forward(q, k, v)
 
 
 flash_self_attention.launches = 0

@@ -15,8 +15,9 @@ each group as one flat span. The wrapper takes the plain version for
 tensors on the CPU and launches the CUDA kernel (``csrc/group_norm.cu``: one
 launch, a thread-block cluster per group span, read once into shared memory
 wherever the span fits; :func:`group_norm_plan` sizes it) for contiguous
-bf16 tensors on the card; anything else raises. Launches are counted in
-``group_norm.launches``.
+bf16 tensors on the card; anything else raises, inputs that require a
+gradient under grad mode among them (the kernel has no backward). Launches
+are counted in ``group_norm.launches``.
 
 :func:`group_norm_f32` is the unfused composition (``F.group_norm`` in f32,
 another variance formula) that the models run while the kernel's knob is
@@ -150,6 +151,7 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
     if x.device.type == "cpu":
         return group_norm_plain(x, weight, bias, groups=groups, eps=eps, silu=silu,
                                 add=add, out_dtype=out_dtype)
+    cuda_build.refuse_grad("group_norm", x, weight, bias, add)
     n, c = x.shape[:2]
     hw = x[0, 0].numel()
     if x.device.type != "cuda" or x.dtype != torch.bfloat16 or not x.is_contiguous():

@@ -7,8 +7,9 @@ wrapper takes the plain version for tensors on the CPU and launches the
 CUDA kernel (``csrc/layer_norm.cu``: a group of lanes per row, each lane
 owning whole 16-byte column vectors of the row in registers, w and b loaded
 once per lane; :func:`layer_norm_plan` sizes it) for contiguous bf16
-tensors on the card; anything else raises. Launches are counted in
-``layer_norm.launches``.
+tensors on the card; anything else raises, inputs that require a gradient
+under grad mode among them (the kernel has no backward). Launches are
+counted in ``layer_norm.launches``.
 
 :func:`layer_norm_f32` is the unfused composition (``F.layer_norm`` in f32)
 that the UNet runs while the kernel's knob is off.
@@ -84,6 +85,7 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return layer_norm_plain(x, weight, bias, eps=eps, out_dtype=out_dtype)
+    cuda_build.refuse_grad("layer_norm", x, weight, bias)
     c = x.shape[-1]
     if x.device.type != "cuda" or x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise ValueError(f"layer_norm: the CUDA kernel takes contiguous bf16 on the "

@@ -74,11 +74,17 @@ def apply_textual_inversion(pipeline, path: str, token: Optional[str] = None) ->
     embedding = pipeline.clip.text_model.embeddings.token_embedding
     state, placeholder = load_learned_embed_in_clip(
         path, {TOKEN_EMBEDDING: embedding.weight.detach()}, pipeline.tokenizer, token)
-    table = state[TOKEN_EMBEDDING]
+    set_token_table(pipeline, state[TOKEN_EMBEDDING])
+    return placeholder
+
+
+def set_token_table(pipeline, table: torch.Tensor) -> None:
+    """Install ``table`` as the (first) text tower's token table, frozen;
+    ``config.clip.vocab_size`` follows it, and the encode caches are dropped."""
+    embedding = pipeline.clip.text_model.embeddings.token_embedding
     embedding.weight = torch.nn.Parameter(table, requires_grad=False)
     embedding.num_embeddings = table.shape[0]
     clip_cfg = dataclasses.replace(pipeline.config.clip, vocab_size=table.shape[0])
     pipeline.config = dataclasses.replace(pipeline.config, clip=clip_cfg)
     pipeline.clip.config = clip_cfg
     pipeline.invalidate_encode_caches()
-    return placeholder

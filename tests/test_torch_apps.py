@@ -12,8 +12,8 @@ and the examples against the JAX package's (CPU, f32).
   takes the VAE posterior's mean: images within one uint8 level, on at
   most 1% of the pixels (rounding at .5 boundaries of final latents that
   agree within 2e-5·max);
-* the runners' and examples' ``main`` on the tiny config; ``build_ui``
-  without gradio.
+* the runners' and examples' ``main`` on the tiny config (the training
+  example at 2 steps); ``build_ui`` without gradio.
 """
 import functools
 import os
@@ -34,7 +34,7 @@ from pww_tpu_torch.apps import (gradio_helpers, gradio_pww, gradio_pww_inpaint, 
                                 runner, runner_inpaint)
 from pww_tpu_torch.config import SDModelConfig  # noqa: E402
 from pww_tpu_torch.examples import (advanced_generation, controlnet_pww,  # noqa: E402
-                                    textual_inversion_pww)
+                                    textual_inversion_pww, train_textual_inversion_pww)
 from pww_tpu_torch.utils import fig  # noqa: E402
 from torch_port_cases import pipeline_pair, few_torch_threads  # noqa: E402,F401
 
@@ -169,7 +169,10 @@ def test_examples_run(tmp_path):
                                        "--out", str(tmp_path / "ti.png")]) == 0
     assert controlnet_pww.main(["--device", "cpu", "--out", str(tmp_path / "cn.png")]) == 0
     assert advanced_generation.main(["--device", "cpu", "--out-dir", str(tmp_path)]) == 0
-    assert len(os.listdir(tmp_path)) == 7
+    assert train_textual_inversion_pww.main([
+        "--device", "cpu", "--steps", "2", "--out", str(tmp_path / "learned_embeds.bin"),
+        "--sample", str(tmp_path / "ti_sample.png")]) == 0
+    assert len(os.listdir(tmp_path)) == 9
 
 
 def test_build_ui_needs_gradio(monkeypatch):
