@@ -8,6 +8,11 @@ Phases, each printing its own lines; any failure ends the run non-zero:
 1. device: the card's name and power limit, TF32 switched off for the f32
    reference products;
 2. build: nvcc compiles every kernel from pww_tpu_torch/csrc (K1-K5);
+2a. jax random: the host threefry (``pww_tpu_torch/utils/jax_random.py``,
+   the JAX package's ``jax.random`` numbers, which ``noise_mode="jax"``,
+   the default, draws) against JAX_KNOWN_ANSWERS, and the host ms of one
+   SDXL latent, a batch-8 512² latent and one batch-8 ancestral step's
+   noise;
 3. kernels: K1 pww_reduce, K2 pww_cross_attention and K3
    flash_self_attention against their plain PyTorch versions at every shape
    of SD-1.5's 512² main path, bf16 inputs from a seeded generator, with
@@ -23,11 +28,13 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    768-v's head-dim-64 shapes (SD21_SHAPES); then K4 group_norm and K5
    layer_norm at
    every site signature of the inpaint path (the tables K4_SITES and
-   K5_SITES), with ``F.group_norm`` and ``F.layer_norm`` as the library
-   yardstick where no pre-add or SiLU, K4 off the path at a streamed span
-   (1, 128, 1024, 1024) and a scalar one (1, 64, 33, 33), K4's plan per
-   case, and each kernel's loss_ms_per_run (Σ calls per 30-step run ×
-   (ms − bound)); ``--kernels-only`` stops after this phase, and
+   K5_SITES) and of SDXL-inpainting at 1024² (XL_K4_SITES, XL_K5_SITES;
+   spans up to (1, 256, 1024, 1024), 8 M elements a group, streamed),
+   with ``F.group_norm`` and ``F.layer_norm`` as the library yardstick
+   where no pre-add or SiLU, K4 off the path at a scalar span (1, 64, 33,
+   33), K4's plan per case, and each kernel's loss_ms_per_run (Σ calls
+   per 30-step SD-1.5 inpaint run × (ms − bound)); ``--kernels-only``
+   stops after this phase, and
    ``--e2e-reps R`` runs phase 5's call R times in its place, then R turns
    of it without and with a ControlNet, the host time inside the UNet's and
    the ControlNet's forward and the synchronising operations of one
@@ -178,6 +185,23 @@ Phases, each printing its own lines; any failure ends the run non-zero:
     ``lora_te1_``, ``lora_te2_``; 70/70/70 a visit, the unload bit-equal)
     and an ``ip-adapter_sdxl_vit-h``-shaped file with the ViT-H encoder
     (70 sites; 70/70/70 a visit, scale 0 bit-equal to no adapter).
+    Before the adapters, on the same base ("sdxl controlnet"): an SDXL
+    ControlNet at diffusers' published shapes (SDXL_CONTROLNET_PARAMS,
+    ``text_time``) written as an fp16 diffusers directory, attached by
+    ``load_controlnet(source=...)``, 4 LMS steps at 1024² with the map's
+    edges as the hint: K1 = K2 = K3 = (70 + 34)·4, the image unlike the
+    plain one, s/image, peak GiB, a 3-step profile;
+18a. sdxl controlnet reference (before 19): 18's reduced base with an
+    SDXL ControlNet of that config, 512², 3 LMS steps, card bf16 against
+    CPU f32 on the batched (20/20/8 a visit) and the split path (0/0/16);
+20. sdxl inpaint reference: 18's reduced base as a 9-channel UNet with
+    the norm knobs on, 512², 3 steps at strength 1.0, card against CPU;
+21. sdxl inpaint: SDXL-inpainting at published shapes (9-channel
+    ``conv_in``, synthetic weights, the norm knobs on) through
+    ``paint_with_words_inpaint``, 1024², 4 LMS steps: one step's K4/K5
+    signatures against XL_K4_SITES / XL_K5_SITES, then K1 = K2 = K3 =
+    70·4, K4 = 46·4 + 2·22 + 30, K5 = 210·4, s/image, peak GiB and a
+    2-step profile (K1 and K4 one device kernel per call).
 
 Then a JSON line with every kernel, the card's name and power limit, and
 last {"ok": true, "device": {...}}.
@@ -224,6 +248,27 @@ SDXL_PARAMS = {
              "vae": 83_653_863},
     "sdxl_refiner": {"unet": 2_259_526_660, "clip": 694_659_840, "vae": 83_653_863},
 }
+# SDXL's ControlNet at diffusers' published shapes (the base's encoder copy
+# with its own text_time add_embedding) adds to a 1024² visit its down
+# blocks' 4 sites at Lq 4096 and 20 at Lq 1024 and the mid block's 10
+# (tests/test_torch_sdxl.py traces it on the meta device against these)
+SDXL_CONTROLNET_SITES = {(10, 4096, 64): 4, (20, 1024, 64): 30}
+SDXL_CONTROLNET_LAUNCHES_PER_VISIT = (34, 34, 34)
+SDXL_CONTROLNET_PARAMS = 1_251_014_160
+# xl_reduced_configs' base at 512² per visit (its 32² stage: Lq 1024, K1-K3;
+# its 16² stage: Lq 256, K1 and K2) and what its ControlNet adds there
+XL_REDUCED_VISIT = {"base": (14, 14, 6), "controlnet": (6, 6, 2)}
+# The known answers of jax.random for PRNGKey(0) (jax 0.9.0 on the CPU,
+# jax_threefry_partitionable on), which the port draws on the host
+JAX_KNOWN_ANSWERS = {
+    "normal": [1.622642159461975, 2.0252647399902344, -0.4335944354534149,
+               -0.07861734926700592],
+    "bits": [4070199207, 4202968722, 1427181096, 2012915765],
+    "split": [[1797259609, 2579123966], [928981903, 3453687069]],
+    "fold_in": [2716826189, 292468403],
+    "randint": [789, 0, 712, 373],
+    "bf16_normal": [0.38671875, 0.1826171875, -1.0, -0.82421875],
+}
 # The inpaint path's GroupNorm sites at 512² (SD-1.5-inpainting, CFG batch 2
 # in the UNet): (shape, groups, eps, SiLU, pre-add) → calls per UNet step,
 # per VAE encode, per VAE decode. An inpaint call at strength 1.0 runs N
@@ -265,27 +310,62 @@ K4_SITES = {
 # The transformer LayerNorms: (shape, eps) → calls per UNet step (48·N).
 K5_SITES = {((2, 4096, 320), 1e-05): 15, ((2, 1024, 640), 1e-05): 15,
             ((2, 256, 1280), 1e-05): 15, ((2, 64, 1280), 1e-05): 3}
-# K4 off the path: a span larger than 16 CTAs' shared memory, and channels
-# that are not a multiple of 8 elements (the scalar path)
-K4_OFF_PATH = (((1, 128, 1024, 1024), 32, 1e-06, True, False),
-               ((1, 64, 33, 33), 32, 1e-06, False, False))
+# The same tables for SDXL-inpainting (a 9-channel SDXL-base UNet, the norm
+# knobs on) at 1024²: K4 = 46·N + 2·22 + 30, K5 = 210·N per inpaint call.
+XL_K4_SITES = {
+    ((2, 320, 128, 128), 32, 1e-05, True, False): (3, 0, 0),
+    ((2, 320, 128, 128), 32, 1e-05, True, True): (5, 0, 0),
+    ((2, 320, 64, 64), 32, 1e-05, True, False): (1, 0, 0),
+    ((2, 640, 128, 128), 32, 1e-05, True, False): (2, 0, 0),
+    ((2, 640, 64, 64), 32, 1e-06, False, False): (5, 0, 0),
+    ((2, 640, 64, 64), 32, 1e-05, True, False): (1, 0, 0),
+    ((2, 640, 64, 64), 32, 1e-05, True, True): (5, 0, 0),
+    ((2, 640, 32, 32), 32, 1e-05, True, False): (1, 0, 0),
+    ((2, 960, 128, 128), 32, 1e-05, True, False): (1, 0, 0),
+    ((2, 960, 64, 64), 32, 1e-05, True, False): (1, 0, 0),
+    ((2, 1280, 64, 64), 32, 1e-05, True, False): (1, 0, 0),
+    ((2, 1280, 32, 32), 32, 1e-06, False, False): (6, 0, 0),
+    ((2, 1280, 32, 32), 32, 1e-05, True, False): (3, 0, 0),
+    ((2, 1280, 32, 32), 32, 1e-05, True, True): (7, 0, 0),
+    ((2, 1920, 64, 64), 32, 1e-05, True, False): (1, 0, 0),
+    ((2, 1920, 32, 32), 32, 1e-05, True, False): (1, 0, 0),
+    ((2, 2560, 32, 32), 32, 1e-05, True, False): (2, 0, 0),
+    ((1, 128, 1024, 1024), 32, 1e-06, True, False): (0, 4, 6),
+    ((1, 128, 512, 512), 32, 1e-06, True, False): (0, 1, 0),
+    ((1, 256, 1024, 1024), 32, 1e-06, True, False): (0, 0, 1),
+    ((1, 256, 512, 512), 32, 1e-06, True, False): (0, 3, 5),
+    ((1, 256, 256, 256), 32, 1e-06, True, False): (0, 1, 0),
+    ((1, 512, 512, 512), 32, 1e-06, True, False): (0, 0, 1),
+    ((1, 512, 256, 256), 32, 1e-06, True, False): (0, 3, 6),
+    ((1, 512, 128, 128), 32, 1e-06, False, False): (0, 1, 1),
+    ((1, 512, 128, 128), 32, 1e-06, True, False): (0, 9, 10),
+}
+XL_K5_SITES = {((2, 4096, 640), 1e-05): 30, ((2, 1024, 1280), 1e-05): 180}
+# K4 off the paths: channels that are not a multiple of 8 elements (the
+# scalar path); the spans larger than 16 CTAs' shared memory (streamed) are
+# SDXL-inpainting's VAE sites at 1024²
+K4_OFF_PATH = (((1, 64, 33, 33), 32, 1e-06, False, False),)
 
 
-def k4_calls(site, unet_steps, encodes=2, decodes=1):
-    u, e, d = K4_SITES[site]
+def k4_calls(site, unet_steps, encodes=2, decodes=1, table=None):
+    u, e, d = (K4_SITES if table is None else table)[site]
     return u * unet_steps + e * encodes + d * decodes
 
 
 def k4_label(site, mean=0.0):
+    """The SD-1.5 inpaint path's sites as "unet"/"vae", SDXL-inpainting's
+    others as "xl unet"/"xl vae", the rest "off"."""
     (shape, groups, eps, silu, has_add) = site
-    where = "off" if site not in K4_SITES else "unet" if shape[0] == 2 else "vae"
+    part = "unet" if shape[0] == 2 else "vae"
+    where = part if site in K4_SITES else f"xl {part}" if site in XL_K4_SITES else "off"
     return (f"{where} {shape}{' add' if has_add else ''}{' silu' if silu else ''} "
             f"eps{eps:g}{f' mean{mean:g}' if mean else ''}")
 
 
 def k5_label(site, mean=0.0):
     shape, eps = site
-    return f"{shape} eps{eps:g}{f' mean{mean:g}' if mean else ''}"
+    xl = "xl " if site in XL_K5_SITES and site not in K5_SITES else ""
+    return f"{xl}{shape} eps{eps:g}{f' mean{mean:g}' if mean else ''}"
 
 # name → (source, TPU kernel it replaces, launch counter, profile group,
 #         the case whose numbers head the kernel's JSON entry)
@@ -920,6 +1000,11 @@ def phase_profile(run, tag, steps=5):
         torch.cuda.synchronize()
         time.sleep(0.2)
         prof.step()
+        # and the active step's first device kernels can go unrecorded too
+        # (2 of SDXL-inpainting's 166 K4 calls once): let them be these
+        for _ in range(32):
+            torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         run(steps)
         torch.cuda.synchronize()
@@ -1738,9 +1823,12 @@ def inpaint_pipeline():
     return pipe, kw
 
 
-def record_norm_sites(kw):
+def record_norm_sites(kw, k4_sites=None, k5_sites=None, tag="norms"):
     """Run one inpaint step, record every K4 and K5 call's signature, and
-    check them against K4_SITES and K5_SITES."""
+    check them against ``k4_sites`` and ``k5_sites`` (default K4_SITES and
+    K5_SITES)."""
+    k4_sites = K4_SITES if k4_sites is None else k4_sites
+    k5_sites = K5_SITES if k5_sites is None else k5_sites
     from pww_tpu_torch.ops import group_norm as gn
     from pww_tpu_torch.ops import layer_norm as ln
     from pww_tpu_torch.pipeline.facade import paint_with_words_inpaint
@@ -1766,12 +1854,12 @@ def record_norm_sites(kw):
         paint_with_words_inpaint(num_inference_steps=1, **kw)  # also the warm-up
     finally:
         gn.group_norm, ln.layer_norm = k4, k5
-    log(f"[norms] one inpaint step: {sum(gn_sites.values())} K4 calls at {len(gn_sites)} "
+    log(f"[{tag}] one inpaint step: {sum(gn_sites.values())} K4 calls at {len(gn_sites)} "
         f"signatures, {sum(ln_sites.values())} K5 calls at {len(ln_sites)}")
-    want_gn = {site: k4_calls(site, 1) for site in K4_SITES}
-    if gn_sites != want_gn or ln_sites != K5_SITES:
-        raise SystemExit(f"[norms] recorded sites differ from the table: K4 {gn_sites} != "
-                         f"{want_gn} or K5 {ln_sites} != {K5_SITES}")
+    want_gn = {site: k4_calls(site, 1, table=k4_sites) for site in k4_sites}
+    if gn_sites != want_gn or ln_sites != k5_sites:
+        raise SystemExit(f"[{tag}] recorded sites differ from the table: K4 {gn_sites} != "
+                         f"{want_gn} or K5 {ln_sites} != {k5_sites}")
 
 
 def phase_norm_kernels():
@@ -1799,6 +1887,8 @@ def phase_norm_kernels():
     gn_cases = [(k, 0.0) for k in K4_SITES]
     big_unet = max((k for k in K4_SITES if k[0][0] == 2), key=lambda k: (math.prod(k[0]), k[4]))
     gn_cases.append((big_unet, 8.0))  # |mean| ≫ std: the fast variance cancels
+    # SDXL-inpainting's signatures at 1024² (its VAE's largest spans streamed)
+    gn_cases += [(k, 0.0) for k in XL_K4_SITES if k not in K4_SITES]
     gn_cases += [(k, 0.0) for k in K4_OFF_PATH]
     plan_of = getattr(gn, "group_norm_plan", None)  # absent in a parent tree
     for site, mean in gn_cases:
@@ -1845,7 +1935,9 @@ def phase_norm_kernels():
                     f"{time_ms(lambda: copy.copy_(x)):.4f} ms")
         del x, got, want
         torch.cuda.empty_cache()
-    for site, mean in [(k, 0.0) for k in K5_SITES] + [(max(K5_SITES), 8.0)]:
+    k5_cases = [(k, 0.0) for k in K5_SITES] + [(max(K5_SITES), 8.0)]
+    k5_cases += [(k, 0.0) for k in XL_K5_SITES if k not in K5_SITES]
+    for site, mean in k5_cases:
         shape, eps = site
         c = shape[-1]
         x = randn(*shape, mean=mean)
@@ -1858,7 +1950,8 @@ def phase_norm_kernels():
                      time_ms(lambda: ln.layer_norm_plain(x, w, b, eps=eps)),
                      bound(2 * x.numel() * 2 + 2 * c * 2, 8 * x.numel(), F32_FLOPS_PER_S),
                      time_ms(lambda: F.layer_norm(x, (c,), w, b, eps)),
-                     calls=K5_SITES[site] * STEPS_PER_RUN if not mean else None)
+                     calls=K5_SITES[site] * STEPS_PER_RUN if site in K5_SITES and not mean
+                     else None)
     torch.cuda.empty_cache()
     for name, cs in cases.by_kernel.items():
         log(f"[norms] {name}: loss_ms_per_run {loss_ms_per_run(cs):.3f}")
@@ -2229,7 +2322,8 @@ def phase_single_file(steps, card):
         kw = dict(local_model_path=path, device="cuda", color_context=TI_CONTEXT,
                   color_map_image=cm, input_prompt=TI_PROMPT, guidance_scale=7.5,
                   output_type="np")
-        latents = make_noise(0, (1, 4, 64, 64), "torch", "cuda").permute(0, 2, 3, 1)
+        # the draw seed=0 makes in the default noise mode
+        latents = make_noise(0, (1, 4, 64, 64), "jax", "cuda").permute(0, 2, 3, 1)
         paint_with_words(num_inference_steps=2, latents=latents, **kw)  # warm-up
         counters = launch_counters()
         for c in counters:
@@ -3107,8 +3201,319 @@ def phase_sdxl(steps, card, enc_dir, tmp):
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("[sdxl] the euler call failed its launch or output checks")
+    controlnet = phase_sdxl_controlnet(pipe, dict(run_kw, prompt=prompt), card, tmp)
     adapters = phase_sdxl_adapters(pipe, dict(run_kw, prompt=prompt), card, enc_dir, tmp)
-    return launches, profiled, {"base": base_launches, "refiner": ref_launches}, adapters
+    return (launches, profiled, {"base": base_launches, "refiner": ref_launches}, adapters,
+            controlnet)
+
+
+# -- the JAX package's noise, the SDXL ControlNet and SDXL inpainting ---------------------
+
+def phase_jax_random():
+    """The host threefry (``pww_tpu_torch/utils/jax_random.py``) against
+    JAX_KNOWN_ANSWERS, then the host ms of the draws a call makes: one SDXL
+    latent, a batch-8 512² latent, and one batch-8 ancestral step's noise
+    (eight per-request streams, as ``generate_batch`` draws them)."""
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.conditioning.seeding import make_noise
+    from pww_tpu_torch.schedulers.schedules import step_noise
+    from pww_tpu_torch.utils import jax_random as jr
+
+    k = jr.PRNGKey(0)
+    got = {"normal": jr.normal(k, (4,)).tolist(), "bits": jr.bits(k, (4,)).tolist(),
+           "split": jr.split(k).tolist(), "fold_in": jr.fold_in(k, 7).tolist(),
+           "randint": jr.randint(k, (4,), 0, 1000).tolist(),
+           "bf16_normal": jr.normal(k, (4,), "bfloat16").tolist()}
+    # f32 normals within 1e-6 (XLA's log1p is not numpy's), the rest equal
+    bad = [name for name, want in JAX_KNOWN_ANSWERS.items()
+           if (np.abs(np.subtract(got[name], want)).max() > 1e-6 if name == "normal"
+               else got[name] != want)]
+    log(f"[jax random] PRNGKey(0): normal {got['normal']}, bits {got['bits']}, split "
+        f"{got['split']}, fold_in(7) {got['fold_in']}, randint [0, 1000) {got['randint']}, "
+        f"bf16 normal {got['bf16_normal']}: {'ok' if not bad else f'FAIL {bad}'}")
+    if bad:
+        raise SystemExit(f"[jax random] the host draws differ from jax.random: {bad}")
+    draws = {
+        "SDXL latent (1, 4, 128, 128)": lambda: make_noise(0, (1, 4, 128, 128), "jax", "cuda"),
+        "batch-8 512² latent (8, 4, 64, 64)": lambda: make_noise(0, (8, 4, 64, 64), "jax",
+                                                                  "cuda"),
+        "batch-8 ancestral step noise": lambda: step_noise(range(8), 5, (8, 4, 64, 64), "cuda"),
+    }
+    ms = {}
+    for label, fn in draws.items():
+        fn()
+        times = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[label] = statistics.median(times)
+    log("[jax random] host ms per draw (median of 7, to the card): " + ", ".join(
+        f"{label} {t:.3f}" for label, t in ms.items()))
+    return ms
+
+
+def xl_reduced_pipes(cfg, seed, parts=None):
+    """(card bf16, CPU f32) pipelines of ``cfg`` on the same synthetic
+    weights, std 0.1 in every tensor (a ControlNet's zero convs too)."""
+    import torch
+
+    from pww_tpu_torch.pipeline.pipeline import PwwPipeline
+    from pww_tpu_torch.weights.bridge import pipeline_parts, synthetic_params
+
+    params = synthetic_params(cfg, seed=seed, device="cuda", dtype=torch.float32,
+                              parts=pipeline_parts(cfg) + tuple(parts or ()))
+    params = {p: {k: v * 5.0 for k, v in sd.items()} for p, sd in params.items()}
+    cpu = {p: {k: v.cpu() for k, v in sd.items()} for p, sd in params.items()}
+    gpu_pipe = PwwPipeline(cfg, params=params, device="cuda", dtype=torch.bfloat16)
+    cpu_pipe = PwwPipeline(cfg, params=cpu, device="cpu", dtype=torch.float32)
+    if parts and "controlnet" in parts:
+        gpu_pipe.load_controlnet(params=params["controlnet"])
+        cpu_pipe.load_controlnet(params=cpu["controlnet"])
+    return gpu_pipe, cpu_pipe
+
+
+def phase_sdxl_controlnet_reference():
+    """xl_reduced_configs' base with a ControlNet of that config (SDXL's:
+    text_time, its own add_embedding) at 512², 3 LMS steps, the color map's
+    edges as the hint at scale 0.7, card bf16 vs CPU f32, on the batched
+    CFG path and on the split one (each half's added_cond to the net)."""
+    import numpy as np
+    import torch
+
+    base_cfg, _ = xl_reduced_configs()
+    gpu_pipe, cpu_pipe = xl_reduced_pipes(base_cfg, 7, ("controlnet",))
+    cm = sd21_color_map(512)
+    kw = dict(prompt="a cat sitting next to a dog", color_map_image=cm,
+              color_context={(255, 0, 0): "cat,0.5", (0, 0, 255): "dog,0.5"},
+              num_inference_steps=3, seed=0, return_latents=True,
+              control_image=edge_hint(cm), controlnet_conditioning_scale=0.7)
+    counters = launch_counters()[:3]
+    per_visit = [a + b for a, b in zip(*XL_REDUCED_VISIT.values())]
+    failed = []
+    for label, extra, want_launches in (
+            ("batched", {}, [n * 3 for n in per_visit]),
+            ("split", dict(weight_function=lambda w, sigma, qk: 0.4 * w * torch.log1p(sigma)),
+             [0, 0, 2 * 3 * per_visit[2]])):
+        for c in counters:
+            c.launches = 0
+        gpu = gpu_pipe.generate(**kw, **extra)
+        launched = [c.launches for c in counters]
+        ref = cpu_pipe.generate(**kw, **extra)
+        rel = float(np.linalg.norm(gpu - ref) / np.linalg.norm(ref))
+        moved = ""
+        ok = bool(np.isfinite(gpu).all()) and rel < 5e-2 and launched == want_launches
+        if not extra:  # that the net is live, once
+            plain = cpu_pipe.generate(**{k: v for k, v in kw.items() if k != "control_image"})
+            shift = float(np.linalg.norm(ref - plain) / np.linalg.norm(plain))
+            ok = ok and shift > 1e-3
+            moved = f"; the hint moves the CPU latents by {shift:.3e}"
+        log(f"[sdxl controlnet reference] {label}, 512², 3 LMS steps, SDXL widths cut in depth "
+            f"with an SDXL ControlNet of that config (K1/K2/K3 {launched}, {want_launches} "
+            f"wanted): card bf16 vs CPU f32 relative L2 error {rel:.3e} (tol 5e-2){moved} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(label)
+    del gpu_pipe, cpu_pipe
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"[sdxl controlnet reference] card run disagrees with the CPU "
+                         f"reference, or the launch counts differ: {failed}")
+
+
+def phase_sdxl_controlnet(pipe, gkw, card, tmp, steps=4):
+    """On phase 19's SDXL base: an SDXL ControlNet at diffusers' published
+    shapes (SDXL_CONTROLNET_PARAMS) written as an fp16 diffusers directory
+    and attached by ``load_controlnet(path)``, then ``steps`` LMS steps at
+    1024² with the color map's edges as the hint: K1 = K2 = K3 = (70 + 34)
+    a visit, the image unlike the plain one, s/image, peak GiB, a 3-step
+    profile. The net is detached and its directory deleted at the end."""
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.config import SDModelConfig
+    from pww_tpu_torch.weights.bridge import synthetic_params
+    from pww_tpu_torch.weights.loader import save_controlnet_checkpoint
+
+    path = os.path.join(tmp, "sdxl_controlnet")
+    t0 = time.perf_counter()
+    state = synthetic_params(SDModelConfig.sdxl(), seed=3, device="cuda", dtype=torch.float16,
+                             parts=("controlnet",))["controlnet"]
+    n_params = sum(v.numel() for v in state.values())
+    save_controlnet_checkpoint(path, SDModelConfig.sdxl(), state)
+    del state
+    gb = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e9
+    t1 = time.perf_counter()
+    pipe.load_controlnet(source=path)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    shutil.rmtree(path, ignore_errors=True)
+    log(f"[sdxl controlnet] SDXL ControlNet, {n_params} synthetic parameters "
+        f"({SDXL_CONTROLNET_PARAMS} wanted): diffusers directory of {gb:.3f} GB (fp16 "
+        f"safetensors, text_time) written in {t1 - t0:.1f} s, loaded by "
+        f"load_controlnet(source=...) to the card in {t2 - t1:.1f} s, then deleted")
+    hint = edge_hint(gkw["color_map_image"])
+    kw = dict(gkw, output_type="np", control_image=hint, controlnet_conditioning_scale=0.7)
+    counters = launch_counters()
+    try:
+        pipe.generate(**dict(kw, num_inference_steps=2))  # warm-up
+        for c in counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        img = pipe.generate(num_inference_steps=steps, **kw)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tm = pipe.timings
+        plain = pipe.generate(num_inference_steps=steps,
+                              **{k: v for k, v in kw.items() if k != "control_image"})
+        per_visit = [a + b for a, b in zip(SDXL_LAUNCHES_PER_VISIT["sdxl"],
+                                           SDXL_CONTROLNET_LAUNCHES_PER_VISIT)]
+        want = dict(zip((c.__name__ for c in counters),
+                        [n * steps for n in per_visit] + [0, 0]))
+        diff = np.abs(img.astype(int) - plain.astype(int))
+        log(f"[sdxl controlnet] generate 1024², {steps} LMS steps, CFG 7.5, the SDXL ControlNet "
+            f"at 0.7: denoise {tm['denoise']:.3f} s ({tm['denoise'] / steps * 1e3:.1f} "
+            f"ms/step), {total:.3f} s/image, peak {peak:.2f} GiB ({card}); launches "
+            f"{launches}; against the image without the hint: mean |diff| {diff.mean():.2f}")
+        problems = []
+        if n_params != SDXL_CONTROLNET_PARAMS:
+            problems.append(f"{n_params} parameters")
+        if img.shape != (1, 1024, 1024, 3) or img.dtype != np.uint8 or img.std() == 0:
+            problems.append(f"image {img.shape} {img.dtype} std {img.std():.2f}")
+        if launches != want:
+            problems.append(f"launches {launches} != {want}")
+        if not diff.any():
+            problems.append("the image equals the one without control_image")
+        if problems:
+            raise SystemExit(f"[sdxl controlnet] {problems}")
+        profiled = phase_profile(lambda n: pipe.generate(num_inference_steps=n, **kw),
+                                 "sdxl controlnet", steps=3)
+        if profiled["K1 pww_reduce"][1] != 1:
+            raise SystemExit("[profile sdxl controlnet] K1 is not one device kernel per call")
+    finally:
+        pipe.controlnets = []
+        torch.cuda.empty_cache()
+    return launches, profiled
+
+
+def xl_inpaint_config(cfg):
+    """``cfg`` with a 9-channel UNet and the norm knobs on in the UNet and
+    the VAE."""
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg, unet=dataclasses.replace(cfg.unet, in_channels=9, fused_group_norm=True,
+                                      fused_layer_norm=True),
+        vae=dataclasses.replace(cfg.vae, fused_group_norm=True))
+
+
+def phase_sdxl_inpaint_reference():
+    """xl_reduced_configs' base as a 9-channel inpainting UNet with the norm
+    knobs on, 512², 3 LMS steps at strength 1.0 (the posterior mean, since
+    the card draws the sample in bf16 and the CPU in f32), card bf16 vs
+    CPU f32; K4 and K5 must launch on the card."""
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.ops import group_norm as gn
+    from pww_tpu_torch.ops import layer_norm as ln
+
+    base_cfg, _ = xl_reduced_configs()
+    gpu_pipe, cpu_pipe = xl_reduced_pipes(xl_inpaint_config(base_cfg), 8)
+    cm = sd21_color_map(512)
+    kw = dict(prompt="a cat sitting next to a dog", color_map_image=cm,
+              color_context={(255, 0, 0): "cat,0.5", (0, 0, 255): "dog,0.5"},
+              init_image=synthetic_init_image(512), mask_image=box_mask(512), strength=1.0,
+              num_inference_steps=3, seed=0, vae_sample_mode="mean", return_latents=True)
+    gn.group_norm.launches = ln.layer_norm.launches = 0
+    gpu = gpu_pipe.generate(**kw)
+    launched = (gn.group_norm.launches, ln.layer_norm.launches)
+    ref = cpu_pipe.generate(**kw)
+    rel = float(np.linalg.norm(gpu - ref) / np.linalg.norm(ref))
+    ok = bool(np.isfinite(gpu).all()) and rel < 5e-2 and min(launched) > 0
+    log(f"[sdxl inpaint reference] 512², 3 LMS steps, SDXL widths cut in depth, 9-channel, "
+        f"norm kernels on (K4 {launched[0]}, K5 {launched[1]} launches): card bf16 vs CPU f32 "
+        f"relative L2 error {rel:.3e} (tol 5e-2) {'ok' if ok else 'FAIL'}")
+    del gpu_pipe, cpu_pipe
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("[sdxl inpaint reference] card run disagrees with the CPU reference")
+
+
+def phase_sdxl_inpaint(card, steps=4):
+    """SDXL-inpainting at diffusers' published shapes (a 9-channel SDXL-base
+    UNet, synthetic weights, the norm knobs on in the UNet and the VAE)
+    through ``paint_with_words_inpaint``, 1024², ``steps`` LMS steps at
+    strength 1.0: one recorded step's K4/K5 signatures against XL_K4_SITES
+    and XL_K5_SITES, then K1 = K2 = K3 = 70·N, K4 = 46·N + 2·22 + 30,
+    K5 = 210·N, s/image, peak GiB and a 2-step profile (K1 and K4 one device
+    kernel per call)."""
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.config import SDModelConfig
+    from pww_tpu_torch.pipeline.facade import paint_with_words_inpaint
+    from pww_tpu_torch.pipeline.pipeline import PwwPipeline
+    from pww_tpu_torch.tokenizer.clip_bpe import synthetic_tokenizer
+    from pww_tpu_torch.weights.bridge import synthetic_params
+
+    cfg = xl_inpaint_config(SDModelConfig.sdxl())
+    t0 = time.perf_counter()
+    params = synthetic_params(cfg, seed=4, device="cuda", dtype=torch.bfloat16)
+    pipe = PwwPipeline(cfg, params=params, tokenizer=synthetic_tokenizer(49408),
+                       device="cuda", dtype=torch.bfloat16, profile=True)
+    del params
+    torch.cuda.synchronize()
+    log(f"[sdxl inpaint] SDXL-inpainting (conv_in {pipe.unet.conv_in.in_channels} channels), "
+        f"fused_group_norm and fused_layer_norm on, set up in {time.perf_counter() - t0:.1f} s")
+    kw = dict(color_context={(255, 0, 0): "cat,0.5", (0, 0, 255): "dog,0.5"},
+              color_map_image=sd21_color_map(1024), init_image=synthetic_init_image(1024),
+              mask_image=box_mask(1024), input_prompt="a cat sitting next to a dog",
+              guidance_scale=7.5, seed=0, strength=1.0, preloaded_utils=pipe, device="cuda",
+              output_type="np")
+    record_norm_sites(kw, XL_K4_SITES, XL_K5_SITES, "sdxl inpaint")  # also the warm-up
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img = paint_with_words_inpaint(num_inference_steps=steps, **kw)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tm = pipe.timings
+    k1, k2, k3 = SDXL_LAUNCHES_PER_VISIT["sdxl"]
+    want = {"fused_pww_reduce": k1 * steps, "fused_pww_cross_attention": k2 * steps,
+            "flash_self_attention": k3 * steps,
+            "group_norm": sum(k4_calls(s, steps, table=XL_K4_SITES) for s in XL_K4_SITES),
+            "layer_norm": sum(XL_K5_SITES.values()) * steps}
+    log(f"[sdxl inpaint] paint_with_words_inpaint 1024², {steps} LMS steps, strength 1.0, CFG "
+        f"7.5: encode {tm['encode']:.3f} s (two VAE encodes included), denoise "
+        f"{tm['denoise']:.3f} s ({tm['denoise'] / steps * 1e3:.1f} ms/step), decode "
+        f"{tm['decode']:.3f} s, {total:.3f} s/image, peak {peak:.2f} GiB ({card}); launches "
+        f"{launches}")
+    problems = []
+    if img.shape != (1, 1024, 1024, 3) or img.dtype != np.uint8 or img.std() == 0:
+        problems.append(f"image {img.shape} {img.dtype} std {img.std():.2f}")
+    if launches != want:
+        problems.append(f"launches {launches} != {want}")
+    if problems:
+        raise SystemExit(f"[sdxl inpaint] {problems}")
+    profiled = phase_profile(lambda n: paint_with_words_inpaint(num_inference_steps=n, **kw),
+                             "sdxl inpaint", steps=2)
+    for group in ("K1 pww_reduce", "K4 group_norm"):
+        if profiled[group][1] != 1:
+            raise SystemExit(f"[profile sdxl inpaint] {group} is not one device kernel per call")
+    del pipe
+    torch.cuda.empty_cache()
+    return launches, profiled
 
 
 # -- the adapters: LoRA and the IP-Adapter (ROADMAP A.15, A.17c) ------------------------
@@ -3822,6 +4227,7 @@ def phase_train(pipe, kw, steps, card, tmp):
     from pww_tpu_torch.training import train_lora, train_textual_inversion
     from pww_tpu_torch.training.lora import LoraTrainer
     from pww_tpu_torch.training.textual_inversion import TextualInversionTrainer
+    from pww_tpu_torch.utils import jax_random
     from pww_tpu_torch.weights.textual_inversion import set_token_table
 
     problems, launches, profiled = [], {}, {}
@@ -3881,11 +4287,12 @@ def phase_train(pipe, kw, steps, card, tmp):
     }
     for name, (tr, init_fn) in trainers.items():
         state = list(init_fn(tr))
-        gen = torch.Generator().manual_seed(1)
+        key = [jax_random.PRNGKey(1)]  # the trainers' stream, as ``fit`` steps it
 
         def run(n):
             for _ in range(n):
-                _, state[0], state[1] = tr.step(state[0], state[1], tr.draws(gen, 1))
+                key[0], k = jax_random.split(key[0])
+                _, state[0], state[1] = tr.step(state[0], state[1], tr.draws(k, 1))
 
         run(1)  # warm-up
         torch.cuda.synchronize()
@@ -3965,6 +4372,7 @@ def main():
     smi = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     phase_build()
+    jax_random_ms = phase_jax_random()
     if args.e2e_reps:
         phase_e2e(args.e2e_reps, args.steps)
         print(f"card: {smi}")
@@ -4017,8 +4425,16 @@ def main():
     claunches, cprofiled = phase_controlnet(args.steps, smi)
     torch.cuda.empty_cache()
     phase_sdxl_reference()
-    xlaunches, xprofiled, ensemble, xalaunches = phase_sdxl(args.steps, smi, enc_dir, tmp)
+    phase_sdxl_controlnet_reference()
+    xlaunches, xprofiled, ensemble, xalaunches, (xclaunches, xcprofiled) = phase_sdxl(
+        args.steps, smi, enc_dir, tmp)
     alaunches.update(xalaunches)
+    from pww_tpu_torch.pipeline import facade
+
+    facade._PIPELINE_CACHE.clear()  # the SDXL base and refiner
+    torch.cuda.empty_cache()
+    phase_sdxl_inpaint_reference()
+    xilaunches, xiprofiled = phase_sdxl_inpaint(smi)
     path_kernels = [c.__name__ for c in launch_counters()[:3]]
 
     kernels = []
@@ -4041,6 +4457,10 @@ def main():
             controlnet_path_device_ms_per_call=cprofiled.get(group, (None,))[0],
             sdxl_path_launches=xlaunches[counter],
             sdxl_path_device_ms_per_call=xprofiled.get(group, (None,))[0],
+            sdxl_controlnet_path_launches=xclaunches[counter],
+            sdxl_controlnet_path_device_ms_per_call=xcprofiled.get(group, (None,))[0],
+            sdxl_inpaint_path_launches=xilaunches[counter],
+            sdxl_inpaint_path_device_ms_per_call=xiprofiled.get(group, (None,))[0],
             single_file_path_launches=flaunches[counter],
             single_file_path_device_ms_per_call=fprofiled.get(group, (None,))[0],
             batch8_path_launches=blaunches[counter],
@@ -4059,6 +4479,7 @@ def main():
             **({"train_cases": tcases} if name == "flash_self_attention" else {}),
             cases=cs,
         ))
+    log(f"[jax random] host ms per draw: {jax_random_ms}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")

@@ -7,7 +7,11 @@ UNet skip and on the mid block's output. Its blocks are the port's own
 (:class:`~pww_tpu_torch.models.unet.DownBlock`,
 :class:`~pww_tpu_torch.models.unet.UNetMidBlock2DCrossAttn`), so its
 attention goes through the same dispatch as the UNet's and reaches K1-K3 at
-the same sites and thresholds, on the same :class:`PwwState`.
+the same sites and thresholds, on the same :class:`PwwState`. An SDXL
+(``text_time``) net has the UNet's ``add_embedding`` too: the pooled text
+and the Fourier features of the micro-conditioning ``time_ids``, through a
+``TimestepEmbedding``, join the timestep embedding
+(``pww_tpu/models/controlnet.py:95-109``).
 
 Parameter names are diffusers' ``ControlNetModel``'s:
 ``controlnet_cond_embedding.{conv_in,blocks.{i},conv_out}``,
@@ -28,7 +32,7 @@ from torch import nn
 from ..config import UNetConfig
 from ..types import PwwState
 from .unet import (DownBlock, TimestepEmbedding, UNetMidBlock2DCrossAttn, skip_channels,
-                   timestep_embedding)
+                   text_time_embedding, timestep_embedding)
 
 # The zero-initialised convs: a ControlNet built with none of its own
 # weights is a no-op until they are trained (or loaded)
@@ -69,6 +73,9 @@ class ControlNetModel(nn.Module):
         temb_dim = chs[0] * cfg.time_embed_mult
         self.conv_in = nn.Conv2d(cfg.in_channels, chs[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(chs[0], temb_dim)
+        if cfg.addition_embed_type == "text_time":
+            self.add_embedding = TimestepEmbedding(
+                cfg.projection_class_embeddings_input_dim, temb_dim)
         self.controlnet_cond_embedding = ControlNetConditioningEmbedding(chs[0])
         self.down_blocks = nn.ModuleList(
             DownBlock(chs[max(i - 1, 0)], chs[i], temb_dim, cfg,
@@ -84,15 +91,20 @@ class ControlNetModel(nn.Module):
                 encoder_hidden_states: torch.Tensor, hint: torch.Tensor,
                 pww: Optional[PwwState] = None, conditioning_scale: float = 1.0,
                 added_cond: Optional[dict] = None):
-        """``sample`` (B, C, h, w) latents, ``hint`` (B, 3, 8h, 8w) in [0, 1]."""
-        if added_cond is not None:
-            raise NotImplementedError("the SDXL (text_time) ControlNet is not ported to "
-                                      "pww_tpu_torch yet (ROADMAP A.16a)")
+        """``sample`` (B, C, h, w) latents, ``hint`` (B, 3, 8h, 8w) in [0, 1];
+        ``added_cond`` = {"text_embeds", "time_ids"} for a ``text_time`` net
+        (required there, ignored elsewhere, as in the JAX ControlNet)."""
+        cfg = self.config
         dtype = self.conv_in.weight.dtype
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(sample.shape[0])
-        t_emb = timestep_embedding(timesteps, self.config.block_out_channels[0])
+        t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0])
         temb = self.time_embedding(t_emb.to(dtype))
+        if cfg.addition_embed_type == "text_time":
+            if added_cond is None:
+                raise ValueError("text_time ControlNet requires added_cond (SDXL)")
+            temb = temb + text_time_embedding(self.add_embedding, added_cond,
+                                              cfg.addition_time_embed_dim, dtype)
         ctx = encoder_hidden_states.to(dtype)
         x = self.conv_in(sample.to(dtype)) + self.controlnet_cond_embedding(hint.to(dtype))
         skips = [x]
@@ -101,6 +113,6 @@ class ControlNetModel(nn.Module):
         x = self.mid_block(x, temb, ctx, pww)
         # the scale, an f32 in the reference's pipeline, rounded to the
         # compute dtype before the product (pww_tpu/models/controlnet.py:179-183)
-        scale = float(torch.tensor(conditioning_scale, dtype=torch.float32).to(dtype))
+        scale = float(torch.tensor(conditioning_scale, dtype=torch.float32, device="cpu").to(dtype))
         down = tuple(conv(s) * scale for conv, s in zip(self.controlnet_down_blocks, skips))
         return down, self.controlnet_mid_block(x) * scale

@@ -63,6 +63,18 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
+def text_time_embedding(add_embedding: nn.Module, added_cond: dict, time_dim: int,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """SDXL's ``text_time`` addition: the pooled text ++ each micro-
+    conditioning ``time_ids`` entry's Fourier features (``time_dim`` each),
+    through ``add_embedding``."""
+    time_ids = added_cond["time_ids"]
+    add_t = timestep_embedding(time_ids.reshape(-1), time_dim)
+    add_in = torch.cat([added_cond["text_embeds"].float(),
+                        add_t.reshape(time_ids.shape[0], -1)], dim=-1)
+    return add_embedding(add_in.to(dtype))
+
+
 class TimestepEmbedding(nn.Module):
     """``cond_dim``: an LCM-distilled UNet's guidance-scale condition, whose
     bias-free projection ``cond_proj`` joins the sinusoidal embedding before
@@ -483,11 +495,8 @@ class UNet2DConditionModel(nn.Module):
             if added_cond is None:
                 raise ValueError('addition_embed_type="text_time" requires added_cond='
                                  '{"text_embeds": (B, D_pool), "time_ids": (B, 6)}')
-            time_ids = added_cond["time_ids"]
-            add_t = timestep_embedding(time_ids.reshape(-1), cfg.addition_time_embed_dim)
-            add_in = torch.cat([added_cond["text_embeds"].float(),
-                                add_t.reshape(time_ids.shape[0], -1)], dim=-1)
-            temb = temb + self.add_embedding(add_in.to(dtype))
+            temb = temb + text_time_embedding(self.add_embedding, added_cond,
+                                              cfg.addition_time_embed_dim, dtype)
         ctx = encoder_hidden_states.to(dtype)
         if ip is not None:  # the tokens and the scale in the compute dtype, once
             ip = IpState(ip.tokens.to(dtype),

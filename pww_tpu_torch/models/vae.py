@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..conditioning.seeding import normal_nchw
 from ..config import VAEConfig
 from ..ops.group_norm import group_norm_site
 
@@ -187,11 +188,12 @@ class AutoencoderKL(nn.Module):
         return self.decoder(self.post_quant_conv(z.to(self.post_quant_conv.weight.dtype)))
 
 
-def sample_from_moments(moments: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def sample_from_moments(moments: torch.Tensor, key, dtype="float32") -> torch.Tensor:
     """Sample the diagonal Gaussian posterior (log-variance clamped to
-    [-30, 20], as diffusers), f32, with standard normals drawn on the CPU
-    from ``generator`` so that a seed gives the same sample on every device."""
+    [-30, 20], as diffusers), f32, with the JAX package's standard normals:
+    ``jax.random.normal(key, NHWC, dtype)`` drawn on the host
+    (``pww_tpu/models/vae.py:176-181``; ``dtype`` is the dtype of the JAX
+    pipeline's moments, its compute dtype)."""
     mean, logvar = moments.float().chunk(2, dim=1)
     std = torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0))
-    eps = torch.randn(mean.shape, generator=generator).to(mean.device)
-    return mean + std * eps
+    return mean + std * normal_nchw(key, tuple(mean.shape), mean.device, dtype)

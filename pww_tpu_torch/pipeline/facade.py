@@ -70,7 +70,7 @@ def paint_with_words(
     init_image=None,
     strength: float = 0.5,
     num_samples: int = 1,
-    noise_mode: str = "torch",
+    noise_mode: str = "jax",
     **extra,
 ):
     """txt2img, or img2img with ``init_image``, with paint-with-words
@@ -118,7 +118,7 @@ def paint_with_words_inpaint(
     model_token: Optional[str] = None,
     strength: float = 1.0,
     num_samples: int = 1,
-    noise_mode: str = "torch",
+    noise_mode: str = "jax",
     mask_blur: float = 0.0,
     masked_content: str = "original",
     inpaint_full_res: bool = False,

@@ -72,9 +72,17 @@ CLIP vision tower and the adapter's projection (``generate(
 ip_adapter_image=, ip_adapter_scale=)``, ``generate_batch(
 ip_adapter_image=)``, one image shared by the batch).
 
+Random numbers: ``noise_mode="jax"`` (the default, as in the JAX package)
+draws every number the JAX package draws from ``jax.random``, the same
+numbers, on the host (:mod:`pww_tpu_torch.utils.jax_random`): the initial
+latent and regional seeds, the img2img posterior sample and the
+masked-content fill (from ``split(rng or PRNGKey(seed))``, in either
+noise mode), and the stochastic schedulers' step noise; ``"torch"`` draws
+the initial latent as the reference does.
+
 Everything else the JAX pipeline's ``generate`` takes raises
 ``NotImplementedError`` here (when on, for the options :data:`UNPORTED`
-lists with their ROADMAP items: a jax.random key and multi-GPU sharding).
+lists with their ROADMAP items: multi-GPU sharding).
 """
 from __future__ import annotations
 
@@ -91,15 +99,17 @@ import torch
 
 from ..conditioning.encode import (EncodedInputs, padded_ids, cache_text,
                                    encode_text_color_inputs)
-from ..conditioning.seeding import make_noise, regional_seed_latents
+from ..conditioning.seeding import (check_noise_mode, make_noise, normal_nchw,
+                                   regional_seed_latents)
 from ..config import SDModelConfig
 from ..models.vae import sample_from_moments
 from ..ops.blur import gaussian_blur
 from ..ops.resize import resize_linear_antialias, resize_nearest
 from ..ops.weight_functions import (AnyWeightFunction, CustomWeightFunction,
                                    as_weight_function)
-from ..schedulers.schedules import make_scheduler, t_start_from_strength
+from ..schedulers.schedules import make_scheduler, step_noise, t_start_from_strength
 from ..types import IpState, PwwState
+from ..utils import jax_random
 from ..weights.bridge import StateDicts, build_models, synthetic_params, synthetic_state
 from .inpaint import (blur_mask, expand_crop_region, fill_masked_region, paste_region,
                       prepare_mask_and_masked_image)
@@ -112,7 +122,6 @@ NO_STRENGTH_TRUNCATION = ("pndm", "heun", "unipc", "dpmpp_2m", "dpmpp_2m_sde")
 # leaves each off, and the ROADMAP item that decides or ports it. Off, they
 # are accepted; on, they raise.
 UNPORTED = {
-    "rng": (None, "A.10e (a jax.random key; the port draws torch noise from seed)"),
     "sharding": ("batch", "A.20 (multi-GPU)"),
 }
 
@@ -166,13 +175,6 @@ def sag_mask(probs: torch.Tensor) -> torch.Tensor:
     attention probabilities → (N, L), true where a key receives more than
     1.0 of attention summed over the queries, averaged over the heads."""
     return probs.mean(dim=1).sum(dim=1) > 1.0
-
-
-def check_noise_mode(noise_mode: str) -> None:
-    if noise_mode != "torch":
-        raise NotImplementedError(
-            f"noise_mode={noise_mode!r}: the port draws the reference's torch noise "
-            "only (noise_mode='torch'; ROADMAP A.10)")
 
 
 def resolve_device(device) -> torch.device:
@@ -247,13 +249,15 @@ def micro_time_ids(refiner: bool, original: Sequence[Tuple[int, int]],
     return torch.tensor(rows, dtype=torch.float32, device=device)
 
 
-def side_generator(seed: int, stream: int) -> torch.Generator:
-    """A CPU generator for the draws beside the latent noise (1: the VAE
-    posterior sample, 2: masked-content "latent_noise", 3: the stochastic
-    schedulers' step noise), seeded from (seed, stream) so that it shares no
-    numbers with ``make_noise(seed)``."""
-    state = np.random.SeedSequence((int(seed), stream)).generate_state(1)[0]
-    return torch.Generator(device="cpu").manual_seed(int(state))
+def image_keys(seed: int, rng=None) -> Tuple[np.ndarray, np.ndarray]:
+    """img2img's and inpaint's two keys, ``split(rng or PRNGKey(seed))``:
+    the VAE posterior sample's and the masked-content "latent_noise"
+    fill's, in either noise mode (``pww_tpu/pipeline/pipeline.py:
+    1668-1669``). ``rng`` is a (2,) uint32 key, a ``jax.random.PRNGKey``'s
+    data passing as it is."""
+    key = jax_random.PRNGKey(seed) if rng is None else np.asarray(rng)
+    k_sample, k_noise = jax_random.split(key)
+    return k_sample, k_noise
 
 
 def check_masked_content(masked_content: str, mask_blur: float, inpaint: bool) -> None:
@@ -406,12 +410,11 @@ class PwwPipeline:
         attached ones (``pww_tpu/pipeline/pipeline.py:780-812``). ``source``:
         a diffusers ControlNet directory or file; ``params``: the port's
         state dict; neither: N(0, 0.02) from ``seed`` with the zero convs
-        zero, a net that adds nothing until trained. Returns the pipeline."""
+        zero, a net that adds nothing until trained. On an SDXL config the net
+        is SDXL's (``text_time``, with its own ``add_embedding``). Returns the
+        pipeline."""
         from ..models.controlnet import ZERO_CONV_PREFIXES
 
-        if self.config.needs_pooled:
-            raise NotImplementedError("the SDXL (text_time) ControlNet is not ported to "
-                                      "pww_tpu_torch yet (ROADMAP A.16a)")
         net = build_models(self.config, parts=("controlnet",))["controlnet"]
         if params is None and source is not None:
             from ..weights.loader import load_controlnet_checkpoint
@@ -653,12 +656,14 @@ class PwwPipeline:
         return IpState(tokens, float(d["scale"] if scale is None else scale))
 
     def _control_residuals(self, control, lat: torch.Tensor, t,
-                           text_states: torch.Tensor, pww: Optional[PwwState]):
+                           text_states: torch.Tensor, pww: Optional[PwwState],
+                           added_cond: Optional[Dict] = None):
         """Every attached ControlNet on its own (hint, scale), the residuals
-        summed in order (``pww_tpu/pipeline/pipeline.py:47-70``)."""
+        summed in order (``pww_tpu/pipeline/pipeline.py:47-70``); an SDXL
+        net takes the rows' ``added_cond``."""
         down = mid = None
         for net, hint, scale in control:
-            d, m = net(lat, t, text_states, hint, pww, scale)
+            d, m = net(lat, t, text_states, hint, pww, scale, added_cond)
             if down is None:
                 down, mid = list(d), m
             else:
@@ -793,9 +798,10 @@ class PwwPipeline:
         before each UNet call the unmasked latents are reset to the init's
         trajectory at that step, and restored exactly at the end. The UNet's
         output is converted to ε per CFG half (v-prediction), and the
-        stochastic kinds draw their step noise from ``side_generator(seed, 3)``
-        of each seed in ``seeds``, which split the N rows evenly (one seed
-        for ``num_samples``, one a request for ``generate_batch``).
+        stochastic kinds draw their step noise from each seed in ``seeds``
+        (:func:`~pww_tpu_torch.schedulers.schedules.step_noise`), which
+        split the N rows evenly (one seed for ``num_samples``, one a request
+        for ``generate_batch``).
 
         ``callback(visit, float(timestep), latents)`` runs after every
         ``callback_steps`` visits counted from ``t_start`` and after the
@@ -862,9 +868,6 @@ class PwwPipeline:
         prediction_type = self.config.unet.prediction_type
         extras = dict(tome_ratio=float(tome_ratio), freeu=freeu)
         state = schedule.init_state(lat.shape, self.device)
-        step_noise = ([side_generator(s, 3) for s in seeds] if schedule.needs_noise
-                      else None)
-        noise_shape = (n // len(seeds),) + tuple(lat.shape[1:])
         t_stop = schedule.num_steps if t_end is None else t_end
         if not split:  # both CFG halves in one call: hints and features twice
             control = [(net, torch.cat([h, h]), sc) for net, h, sc in control or ()]
@@ -892,7 +895,7 @@ class PwwPipeline:
                     down = mid = None
                     if control:
                         down, mid = self._control_residuals(control, lat_c, t,
-                                                            text_states[half], p)
+                                                            text_states[half], p, ac)
                     outs.append(self.unet(lat_in, t, text_states[half], p, down, mid,
                                           adapter, ac, ip=None if ip is None else ip.rows(half),
                                           **extras).float())
@@ -901,7 +904,8 @@ class PwwPipeline:
                 lat2 = torch.cat([lat_c, lat_c])
                 down = mid = None
                 if control:
-                    down, mid = self._control_residuals(control, lat2, t, text_states, pww_t)
+                    down, mid = self._control_residuals(control, lat2, t, text_states, pww_t,
+                                                        added_cond)
                 if extra is not None:
                     lat2 = torch.cat([lat2, torch.cat([extra, extra])], dim=1)
                 args = (lat2, t, text_states, pww_t, down, mid, adapter, added_cond)
@@ -920,10 +924,8 @@ class PwwPipeline:
                 eps = eps + sag_scale * (eps_u - self._sag_degraded_eps(
                     lat, eps_u, probs[0][:n], i, schedule, t, text_states[:n], pww_t,
                     added_cond, extras, None if ip is None else ip.rows(slice(0, n))))
-            noise = None
-            if step_noise is not None:
-                noise = torch.cat([torch.randn(noise_shape, generator=g)
-                                   for g in step_noise]).to(self.device)
+            noise = (step_noise(seeds, i, tuple(lat.shape), self.device)
+                     if schedule.needs_noise else None)
             lat, state = schedule.step(eps, i, lat, state, noise)
             if callback is not None and ((i + 1 - t_start) % callback_steps == 0
                                          or i + 1 == t_stop):
@@ -1014,7 +1016,7 @@ class PwwPipeline:
         clip_skip: int = 0,  # text states k layers early (A1111 CLIP skip k + 1)
         long_prompts: bool = False,  # >77-token windowed prompts (A1111)
         num_samples: int = 1,
-        noise_mode: str = "torch",
+        noise_mode: str = "jax",
         vae_sample_mode: str = "sample",  # "mean" = the posterior mean
         output_type: str = "pil",
         latents=None,  # txt2img: caller-drawn initial noise, (N, h, w, C) NHWC
@@ -1026,6 +1028,7 @@ class PwwPipeline:
         prompt_editing: bool = False,  # A1111 [from:to:when] and [a|b] schedules
         ip_adapter_image=None,  # reference image or embeddings (load_ip_adapter first)
         ip_adapter_scale: Optional[float] = None,  # default: load_ip_adapter's scale
+        rng=None,  # img2img/inpaint: the (2,) uint32 key split for the VAE sample
         **unported,
     ):
         """txt2img, img2img and inpaint with paint-with-words. Returns PIL
@@ -1150,9 +1153,6 @@ class PwwPipeline:
                              "inpainting: the final exact restore assumes the trajectory "
                              "ran to completion, and a refiner continuation cannot carry "
                              "the mask")
-        if inpaint and not legacy_inpaint and cfg.needs_pooled:
-            raise NotImplementedError("SDXL 9-channel inpainting is not ported to "
-                                      "pww_tpu_torch yet (ROADMAP A.16b)")
         if color_map is not None:
             height, width = enc.height, enc.width
         elif init_latents is not None:
@@ -1200,7 +1200,7 @@ class PwwPipeline:
             t_start = self._t_start(num_inference_steps, strength, schedule)
             lat, extra, blend = self._image_latents(
                 preprocess_image(init_image), mask_image, mask_blur, masked_content, seed, n,
-                schedule, t_start, noise_mode, vae_sample_mode, legacy_inpaint)
+                schedule, t_start, noise_mode, vae_sample_mode, legacy_inpaint, rng)
 
         proc_hw = (lat.shape[2] * sf, lat.shape[3] * sf)
         control = None
@@ -1414,7 +1414,7 @@ class PwwPipeline:
         num_inference_steps: int = 30,
         guidance_scale: float = 7.5,
         weight_function: Optional[AnyWeightFunction] = None,
-        noise_mode: str = "torch",
+        noise_mode: str = "jax",
         output_type: str = "pil",
         strength: float = 0.5,  # img2img noise level, shared: it sets t_start
         cache_interval: int = 1,
@@ -1489,9 +1489,6 @@ class PwwPipeline:
             if mc in ("latent_noise", "latent_nothing") and inpaint and not legacy_inpaint:
                 raise ValueError(f"masked_content={mc!r} applies to the legacy "
                                  "masked-blend path (standard 4-channel checkpoints)")
-        if inpaint and not legacy_inpaint and cfg.needs_pooled:
-            raise NotImplementedError("SDXL 9-channel inpainting is not ported to "
-                                      "pww_tpu_torch yet (ROADMAP A.16b)")
 
         # img2img runs at the init image's size floored to a multiple of 32,
         # as generate does; txt2img at the color map's
@@ -1585,13 +1582,16 @@ class PwwPipeline:
 
     def _image_latents(self, init: np.ndarray, mask_image, mask_blur: float,
                        masked_content: str, seed: int, n: int, schedule, t_start: int,
-                       noise_mode: str, vae_sample_mode: str, legacy_inpaint: bool):
+                       noise_mode: str, vae_sample_mode: str, legacy_inpaint: bool,
+                       rng=None):
         """img2img and inpaint: the preprocessed init image's (1, H, W, 3)
         latents, ``n`` times, re-noised at visit ``t_start`` →
         (latents, 9-channel inpaint's extra channels or None, the legacy
         blend or None). ``generate`` and ``generate_batch`` (one request at a
         time) share it, so that a batched row starts where the request
-        served alone starts."""
+        served alone starts. The posterior sample and the "latent_noise" fill
+        draw from :func:`image_keys` (``seed``, ``rng``), the sample in the
+        dtype of the JAX pipeline's moments, its compute dtype."""
         cfg = self.config
         sf = cfg.vae.scale_factor
         inpaint = mask_image is not None
@@ -1601,10 +1601,12 @@ class PwwPipeline:
             if masked_content == "fill":
                 init = fill_masked_region(init[0], proc_mask >= 0.5)[None]
         moments = self.encode_image(init)
+        k_sample, k_noise = image_keys(seed, rng)
         if vae_sample_mode == "mean":
             init_lat = moments[:, :cfg.vae.latent_channels]
         elif vae_sample_mode == "sample":
-            init_lat = sample_from_moments(moments, side_generator(seed, 1))
+            init_lat = sample_from_moments(
+                moments, k_sample, "bfloat16" if self.dtype == torch.bfloat16 else "float32")
         else:
             raise ValueError(f"vae_sample_mode must be 'sample' or 'mean', got "
                              f"{vae_sample_mode!r}")
@@ -1616,8 +1618,8 @@ class PwwPipeline:
             m_lat = torch.clamp(m_lat, 0.0, 1.0)[None, None].expand(n, 1, -1, -1)
             hole = (m_lat >= 0.5).float()
             if masked_content == "latent_noise":
-                fresh = torch.randn(init_lat.shape, generator=side_generator(seed, 2))
-                init_lat = init_lat * (1.0 - hole) + fresh.to(self.device) * hole
+                fresh = normal_nchw(k_noise, tuple(init_lat.shape), self.device)
+                init_lat = init_lat * (1.0 - hole) + fresh * hole
             elif masked_content == "latent_nothing":
                 init_lat = init_lat * (1.0 - hole)
         noise = make_noise(seed, tuple(init_lat.shape), noise_mode, self.device)

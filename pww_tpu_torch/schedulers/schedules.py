@@ -19,9 +19,9 @@ contributes zero terms, which is diffusers' truncation of the history at
 the first steps and at an img2img start. ``heun`` and ``pndm`` visit some
 steps twice, so a loop runs over ``num_steps`` visits, not the requested
 steps. ``euler_ancestral``, ``dpmpp_2m_sde`` and ``lcm`` take fresh noise
-each step as an argument of :meth:`Schedule.step` (the JAX package draws it
-from ``jax.random``, whose bits the port does not reproduce); LCM's last
-step returns the denoised sample and ignores it.
+each step as an argument of :meth:`Schedule.step`, drawn by
+:func:`step_noise` from the JAX package's stream; LCM's last step returns
+the denoised sample and ignores it.
 """
 from __future__ import annotations
 
@@ -31,7 +31,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..conditioning.seeding import normal_nchw
 from ..config import SchedulerConfig
+from ..utils import jax_random
 
 LMS_ORDER = 4
 SIGMA_KINDS = ("lms", "euler", "euler_ancestral", "heun")
@@ -42,6 +44,26 @@ KINDS = SIGMA_KINDS + ALPHA_KINDS
 _STATE_ROWS = {"lms": LMS_ORDER, "pndm": 5, "dpmpp_2m": 1, "dpmpp_2m_sde": 1,
                "unipc": 3, "heun": 2}
 _f32 = np.float32
+
+
+# the stochastic kinds' step-noise stream is PRNGKey(seed ^ STEP_SEED_XOR)
+STEP_SEED_XOR = 0x5EED
+
+
+def step_noise(seeds, i: int, shape: Tuple[int, ...], device="cpu") -> torch.Tensor:
+    """The stochastic kinds' fresh f32 noise at visit ``i`` for (N, C, h, w)
+    latents, the JAX package's draws (``pww_tpu/pipeline/pipeline.py:
+    157-162``, ``pww_tpu/schedulers/schedules.py:91-101``): the seeds split
+    the N rows evenly (one seed for ``num_samples`` rows, one a request for
+    ``generate_batch``), and each draws its rows NHWC from
+    ``fold_in(PRNGKey(seed ^ 0x5EED), i)``. jax's bits depend only on the
+    key and the flat index, so a request's row in a batch draws what the
+    request served alone draws."""
+    n, c, h, w = shape
+    rows = n // len(seeds)
+    return torch.cat([normal_nchw(jax_random.fold_in(
+        jax_random.PRNGKey(int(s) ^ STEP_SEED_XOR), i), (rows, c, h, w), device)
+        for s in seeds])
 
 
 def make_betas(cfg: SchedulerConfig) -> np.ndarray:

@@ -103,7 +103,7 @@ def compat_key(req: Dict, tokenizer=None) -> Tuple:
         i2i,
         req.get("mask_image") is not None,
         float(req.get("strength", 0.5)) if i2i else None,
-        str(req.get("noise_mode", "torch")),  # the port's default
+        str(req.get("noise_mode", "jax")),
     )
     long_p = bool(req.get("long_prompts", False))
     n_win = 0
@@ -300,7 +300,7 @@ class Batcher:
             freeu=g0.get("freeu"),
             sag_scale=g0.get("sag_scale", 0.0),
             strength=g0.get("strength", 0.5),
-            noise_mode=g0.get("noise_mode", "torch"),
+            noise_mode=g0.get("noise_mode", "jax"),
         )
         reqs = [p.request for p in group]
         try:

@@ -10,11 +10,11 @@ the ε-prediction MSE and Adam, as in
 inference, so train → save → load gives back the trained weights.
 
 As the TI trainer, it comes in three parts (:class:`LoraTrainer`, its
-:meth:`~LoraTrainer.step`, and the loop): the initial factors are drawn by
-:meth:`LoraTrainer.init` from a CPU ``torch.Generator`` seeded from
-``seed``, and the steps' draws ``(img_idx, t, eps)`` from one seeded from
-``seed + 1``, so that a step can be held against the JAX one on its own
-draws.
+:meth:`~LoraTrainer.step`, and the loop), and draws what the JAX package
+draws (``pww_tpu/training/lora.py:134-140, 177-183, 204-207``), on the
+host: each site's initial A from ``fold_in(PRNGKey(seed), i)`` (sites in
+the JAX parameter tree's order, which is the sorted order of the port's
+keys), and the steps' ``(img_idx, t, eps)`` from ``PRNGKey(seed + 1)``.
 
 Typical use::
 
@@ -31,8 +31,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.func import functional_call
 
+from ..conditioning.seeding import normal_nchw
+from ..utils import jax_random
 from ..weights.safetensors_io import save_file
-from .textual_inversion import adam, alphas_cumprod, denoising_loss, encode_latents, fit
+from .textual_inversion import (adam, alphas_cumprod, denoising_loss, encode_latents, fit,
+                                randint)
 
 # attention linears: kohya's default UNet target set
 DEFAULT_TARGETS = ("to_q", "to_k", "to_v", "to_out")
@@ -120,14 +123,15 @@ class LoraTrainer:
         self.alphas_cumprod = alphas_cumprod(pipeline)
 
     def init(self, seed: int, learning_rate: float) -> Tuple[Factors, torch.optim.Adam]:
-        """A ~ N(0, 1)/r (in, r) and B = 0 (r, out) for every site, in the
-        sites' order from a CPU generator seeded from ``seed``; f32 leaves
-        that require a gradient, and their Adam."""
-        generator = torch.Generator().manual_seed(int(seed))
+        """A ~ N(0, 1)/r (in, r) and B = 0 (r, out) for every site, the i-th
+        site's A from ``fold_in(PRNGKey(seed), i)``, sites in sorted order;
+        f32 leaves that require a gradient, and their Adam."""
+        k0 = jax_random.PRNGKey(seed)
         factors = {}
-        for key, w in self.base.items():
-            out_dim, in_dim = w.shape
-            a = torch.randn((in_dim, self.rank), generator=generator) / self.rank
+        for i, key in enumerate(sorted(self.base)):
+            out_dim, in_dim = self.base[key].shape
+            a = torch.from_numpy(jax_random.normal(jax_random.fold_in(k0, i),
+                                                   (in_dim, self.rank))) / self.rank
             factors[key] = {"a": a.to(self.pipeline.device).requires_grad_(True),
                             "b": torch.zeros((self.rank, out_dim), device=self.pipeline.device,
                                              requires_grad=True)}
@@ -142,14 +146,14 @@ class LoraTrainer:
         return {key: (w.float() + self.scale * (factors[key]["a"] @ factors[key]["b"]).T)
                 .to(w.dtype) for key, w in self.base.items()}
 
-    def draws(self, generator: torch.Generator, batch_size: int):
-        """(img_idx, t, eps) for one step, drawn on the CPU."""
+    def draws(self, key, batch_size: int):
+        """(img_idx, t, eps) for one step from the step's key, split three
+        ways as the JAX step splits it (ε drawn NHWC, given NCHW)."""
         m, c, h, w = self.latents.shape
-        img_idx = torch.randint(0, m, (batch_size,), generator=generator)
-        t = torch.randint(0, self.pipeline.config.scheduler.num_train_timesteps,
-                          (batch_size,), generator=generator)
-        eps = torch.randn((batch_size, c, h, w), generator=generator)
-        return img_idx, t, eps
+        k_img, k_t, k_eps = jax_random.split(key, 3)
+        return (randint(k_img, batch_size, m),
+                randint(k_t, batch_size, self.pipeline.config.scheduler.num_train_timesteps),
+                normal_nchw(k_eps, (batch_size, c, h, w)))
 
     def step(self, factors: Factors, optimizer: torch.optim.Adam, draws):
         """One Adam step of the factors on ``draws``; returns (loss, factors,

@@ -9,13 +9,14 @@ the CLIP token table, which are the only tensors that require a gradient.
 The UNet, the VAE and the rest of CLIP stay frozen, as in the upstream
 recipe, and the table's other rows stay bit for bit as they were.
 
-The trainer comes in three parts, so that a step can be held against the
-JAX one on the JAX package's own random draws (the port cannot draw
-threefry bits, ROADMAP.md C.5): :class:`TextualInversionTrainer` sets up
+The trainer comes in three parts: :class:`TextualInversionTrainer` sets up
 (tokens, grown table, latents, templates), its :meth:`~TextualInversionTrainer.step`
 takes ``(rows, optimizer, draws)`` and returns ``(loss, rows, optimizer)``,
-and :func:`fit` draws ``(img_idx, tpl_idx, t, eps)`` from a CPU
-``torch.Generator`` seeded from ``seed``.
+and :func:`fit` draws ``(img_idx, tpl_idx, t, eps)`` each step from the
+JAX package's own stream (``rng, k = split(rng)`` from ``PRNGKey(seed)``,
+``k`` split four ways, ``pww_tpu/training/textual_inversion.py:172-179,
+202-205``), the same numbers, on the host
+(:mod:`pww_tpu_torch.utils.jax_random`).
 
 Typical use::
 
@@ -35,7 +36,9 @@ import torch
 from torch.func import functional_call
 
 from ..pipeline.pipeline import preprocess_image
+from ..conditioning.seeding import normal_nchw
 from ..schedulers.schedules import make_betas
+from ..utils import jax_random
 from ..weights.textual_inversion import TOKEN_EMBEDDING, set_token_table
 
 # The standard CLIP-style prompt templates from the textual-inversion paper
@@ -104,6 +107,11 @@ def denoising_loss(pipeline, unet: Callable, latents: torch.Tensor, a_cum: torch
     return torch.mean((pred.float() - target) ** 2)
 
 
+def randint(key, batch_size: int, high: int) -> torch.Tensor:
+    """``jax.random.randint(key, (batch_size,), 0, high)`` as an int64 tensor."""
+    return torch.from_numpy(jax_random.randint(key, (batch_size,), 0, high)).long()
+
+
 def adam(params: Sequence[torch.Tensor], learning_rate: float) -> torch.optim.Adam:
     """Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8, no weight decay)."""
     return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
@@ -111,12 +119,14 @@ def adam(params: Sequence[torch.Tensor], learning_rate: float) -> torch.optim.Ad
 
 def fit(trainer, trainables, optimizer, num_steps: int, batch_size: int, seed: int,
         log_every: Optional[int], tag: str) -> Tuple[object, List[float]]:
-    """``num_steps`` of ``trainer.step`` on draws from a CPU generator seeded
-    from ``seed``; returns (the trained tensors, the loss of every step)."""
-    generator = torch.Generator().manual_seed(int(seed))
+    """``num_steps`` of ``trainer.step``, each on ``trainer.draws(k)`` where
+    ``key, k = split(key)`` from ``PRNGKey(seed)``, as the JAX loops step;
+    returns (the trained tensors, the loss of every step)."""
+    key = jax_random.PRNGKey(seed)
     losses: List[float] = []
     for step in range(num_steps):
-        draws = trainer.draws(generator, batch_size)
+        key, k = jax_random.split(key)
+        draws = trainer.draws(k, batch_size)
         loss, trainables, optimizer = trainer.step(trainables, optimizer, draws)
         losses.append(float(loss))
         if log_every and (step + 1) % log_every == 0:
@@ -172,15 +182,14 @@ class TextualInversionTrainer:
         rows = self.init_rows.clone().requires_grad_(True)
         return rows, adam([rows], learning_rate)
 
-    def draws(self, generator: torch.Generator, batch_size: int):
-        """(img_idx, tpl_idx, t, eps) for one step, drawn on the CPU."""
+    def draws(self, key, batch_size: int):
+        """(img_idx, tpl_idx, t, eps) for one step from the step's key, split
+        four ways as the JAX step splits it (ε drawn NHWC, given NCHW)."""
         m, c, h, w = self.latents.shape
-        img_idx = torch.randint(0, m, (batch_size,), generator=generator)
-        tpl_idx = torch.randint(0, self.ids.shape[0], (batch_size,), generator=generator)
-        t = torch.randint(0, self.pipeline.config.scheduler.num_train_timesteps,
-                          (batch_size,), generator=generator)
-        eps = torch.randn((batch_size, c, h, w), generator=generator)
-        return img_idx, tpl_idx, t, eps
+        k_img, k_tpl, k_t, k_eps = jax_random.split(key, 4)
+        return (randint(k_img, batch_size, m), randint(k_tpl, batch_size, self.ids.shape[0]),
+                randint(k_t, batch_size, self.pipeline.config.scheduler.num_train_timesteps),
+                normal_nchw(k_eps, (batch_size, c, h, w)))
 
     def step(self, rows: torch.Tensor, optimizer: torch.optim.Adam, draws):
         """One Adam step of the new rows on ``draws``; returns (loss, rows,

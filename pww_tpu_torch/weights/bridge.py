@@ -9,7 +9,8 @@
   ``(out, in)``. The VAE encoder and ``quant_conv`` come across with the
   decoder, and a 9-channel inpainting ``conv_in`` as any other conv.
   A ControlNet tree (part "controlnet") takes the inverse of
-  ``controlnet_key`` (``pww_tpu/weights/loader.py:239-257``), and a
+  ``controlnet_key`` (``pww_tpu/weights/loader.py:239-257``; an SDXL
+  net's ``add_embedding`` keeps the UNet's names), and a
   T2I-Adapter tree (part "t2i_adapter") the inverse of
   ``pww_tpu/models/t2i_adapter.py``'s ``t2i_adapter_key``. SDXL's second
   text tower is part "clip2"; a projected tower's ``text_projection``

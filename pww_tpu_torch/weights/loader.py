@@ -26,9 +26,10 @@ ControlNet checkpoints (a diffusers ``ControlNetModel`` directory or one
 file) load through :func:`load_controlnet_checkpoint`, T2I-Adapter state
 dicts (bare or ``adapter.``-prefixed keys) through
 :func:`t2i_adapter_state_dict`; :func:`save_controlnet_checkpoint` writes
-the former. The SDXL (``text_time``) ControlNet and SDXL 9-channel
-inpainting raise ``NotImplementedError`` naming their ROADMAP items (A.16a,
-A.16b).
+the former, SDXL's (``addition_embed_type: "text_time"``, with its
+``add_embedding`` and diffusers' 3×3 ``conv_out``) included: the JAX
+reader raises on every such file, since its ``eval_shape`` passes no
+``added_cond`` (``pww_tpu/weights/loader.py:266-274``; ROADMAP C.19).
 
 A parameter missing from the checkpoint raises ``KeyError`` naming the
 first few; any other key left over makes the pipeline's
@@ -349,13 +350,16 @@ def load_controlnet_checkpoint(path: str, config: SDModelConfig) -> Dict[str, to
     :data:`WEIGHT_FILES`) or a single ``.safetensors``/``.bin`` file → the
     port's ControlNet state dict for ``config`` (``pww_tpu/weights/loader.py:
     260-278``). The conditioning embedding's ``conv_out`` may be diffusers'
-    3×3 kernel or the JAX package's 1×1 one (ROADMAP C.8); an SDXL
-    (``text_time``) ControlNet raises."""
+    3×3 kernel or the JAX package's 1×1 one (ROADMAP C.8). An SDXL
+    (``text_time``) ControlNet loads for an SDXL config (ROADMAP C.19: the
+    JAX reader cannot load one); a directory whose ``addition_embed_type``
+    is not the config's raises ``ValueError``."""
     if os.path.isdir(path):
         cn_cfg = _read_json(os.path.join(path, "config.json")) or {}
-        if cn_cfg.get("addition_embed_type") is not None:
-            raise NotImplementedError(f"{path}: SDXL ControlNets are not ported to "
-                                      "pww_tpu_torch yet (ROADMAP A.16a)")
+        kind = cn_cfg.get("addition_embed_type")
+        if kind != config.unet.addition_embed_type:
+            raise ValueError(f"{path}: a ControlNet with addition_embed_type={kind!r} for a "
+                             f"UNet with {config.unet.addition_embed_type!r}")
         path = _find_weights_file(path)
     state = dict(read_state_dict(path))
     t = state.get(COND_EMBEDDING_OUT)

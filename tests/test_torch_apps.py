@@ -116,6 +116,8 @@ def test_run_pww_matches_the_jax_callback(monkeypatch):
     monkeypatch.setattr(gradio_pww, "_PIPE", tp)
     monkeypatch.setattr(jax_gradio_pww, "paint_with_words",
                         functools.partial(jax_gradio_pww.paint_with_words, noise_mode="torch"))
+    monkeypatch.setattr(gradio_pww, "paint_with_words",
+                        functools.partial(gradio_pww.paint_with_words, noise_mode="torch"))
     args = (sketch(64), CONTENT, "a cat and a dog", "ugly", None, 64, 64, 2, 2, 7.5, 5, 0.5)
     want = jax_gradio_pww.run_pww(*args)
     got = gradio_pww.run_pww(*args, device="cpu")
@@ -134,6 +136,8 @@ def test_run_pww_inpaint_matches_the_jax_callback(monkeypatch):
     monkeypatch.setattr(gradio_pww_inpaint, "_PIPE", tp)
     monkeypatch.setattr(jax_gradio_inpaint, "paint_with_words_inpaint", functools.partial(
         jax_gradio_inpaint.paint_with_words_inpaint, noise_mode="torch"))
+    monkeypatch.setattr(gradio_pww_inpaint, "paint_with_words_inpaint", functools.partial(
+        gradio_pww_inpaint.paint_with_words_inpaint, noise_mode="torch"))
     init = np.random.default_rng(0).integers(0, 255, (64, 64, 3), dtype=np.uint8)
     mask = np.zeros((64, 64, 3), np.uint8)
     mask[16:48, 16:48] = 255

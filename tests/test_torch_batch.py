@@ -72,11 +72,23 @@ def test_generate_batch_matches_jax(pair, wf):
     jwf, twf = WEIGHT_FUNCTIONS[wf]
     want = np.asarray(jp.generate_batch(REQS, num_inference_steps=STEPS, noise_mode="torch",
                                         weight_function=jwf, output_type="np"))
-    got = tp.generate_batch(REQS, num_inference_steps=STEPS, weight_function=twf,
-                            output_type="np")
+    got = tp.generate_batch(REQS, num_inference_steps=STEPS, noise_mode="torch",
+                            weight_function=twf, output_type="np")
     assert got.shape == (3, 64, 64, 3)
     _close_images(got, want)
     assert not np.array_equal(got[0], got[1]) and not np.array_equal(got[1], got[2])
+
+
+def test_generate_batch_in_the_default_noise_mode_matches_jax(pair):
+    """The three requests with both packages' defaults (``noise_mode=
+    "jax"``): each row's latent and regional seeds from its own
+    ``PRNGKey(seed)``."""
+    jp, tp = pair
+    want = np.asarray(jp.generate_batch(REQS, num_inference_steps=STEPS, output_type="np"))
+    got = tp.generate_batch(REQS, num_inference_steps=STEPS, output_type="np")
+    _close_images(got, want)
+    assert not np.array_equal(got, tp.generate_batch(REQS, num_inference_steps=STEPS,
+                                                     noise_mode="torch", output_type="np"))
 
 
 def test_callback_sequence_matches_jax(pair):
@@ -242,7 +254,7 @@ BATCH_REFUSALS = {  # requests, generate_batch's options, the error, its message
             "batched CFG"),
     "IP-Adapter": (lambda: REQS, dict(ip_adapter_image=np.zeros((8, 8, 3), np.uint8)),
                    ValueError, "load_ip_adapter"),
-    "jax noise": (lambda: REQS, dict(noise_mode="jax"), NotImplementedError, "A.10"),
+    "unknown noise mode": (lambda: REQS, dict(noise_mode="numpy"), ValueError, "noise_mode"),
     "unknown option": (lambda: REQS, dict(sharding="spatial"), NotImplementedError,
                        "sharding"),
 }
@@ -252,7 +264,8 @@ BATCH_REFUSALS = {  # requests, generate_batch's options, the error, its message
 def test_generate_batch_refusals(pair, case):
     """The JAX ``generate_batch``'s refusals (the extras' since ROADMAP
     A.14); the options the port lacks raise NotImplementedError naming
-    their ROADMAP item; an IP-Adapter image without an adapter attached
+    their ROADMAP item; a noise mode other than "jax" and "torch" raises
+    ValueError; an IP-Adapter image without an adapter attached
     raises ValueError (the JAX one ignores it; tests/test_torch_ip_adapter.py
     runs the batch with one)."""
     _, tp = pair

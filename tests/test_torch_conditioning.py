@@ -147,11 +147,13 @@ def test_gaussian_blur_matches_jax(sigma):
 
 
 def test_make_noise_torch_mode_is_bit_identical():
+    """The reference's draw, asked for by name (the default is the JAX
+    package's "jax", tests/test_torch_jax_random.py); an unknown mode raises."""
     want = np.asarray(jseed.make_noise(7, (2, 16, 12, 4), "torch"))  # NHWC
-    got = tseed.make_noise(7, (2, 4, 16, 12))  # NCHW
+    got = tseed.make_noise(7, (2, 4, 16, 12), "torch")  # NCHW
     np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), want)
-    with pytest.raises(NotImplementedError):
-        tseed.make_noise(7, (1, 4, 8, 8), noise_mode="jax")
+    with pytest.raises(ValueError, match="noise_mode"):
+        tseed.make_noise(7, (1, 4, 8, 8), noise_mode="numpy")
 
 
 def test_regional_seed_latents_match_jax():

@@ -46,7 +46,7 @@ def random_controlnet_tree(cfg, seed: int, scale: float = 0.1):
     shapes = jax.eval_shape(
         cn.init, jax.random.PRNGKey(0), jnp.zeros((1, side, side, cfg.unet.in_channels)),
         jnp.zeros((1,)), jnp.zeros((1, 77, cfg.unet.cross_attention_dim)),
-        jnp.zeros((1, side * sf, side * sf, 3)))
+        jnp.zeros((1, side * sf, side * sf, 3)), added_cond=jax_loader.init_added_cond(cfg))
     rng = np.random.default_rng(seed)
 
     def fill(path, s):
@@ -150,10 +150,12 @@ def test_controlnet_matches_jax(head_dim, monkeypatch):
                                    atol=ATOL, rtol=RTOL)
     want_calls = 1 if head_dim == 40 else 0
     assert calls == {"flash": want_calls, "reduce": want_calls, "xattn": want_calls}
-    with pytest.raises(NotImplementedError, match="A.16"):
-        net(torch.from_numpy(lat).permute(0, 3, 1, 2), torch.tensor(1.0),
-            torch.from_numpy(ctx), torch.from_numpy(hint).permute(0, 3, 1, 2),
-            added_cond={"time_ids": None})
+    # an SD net ignores SDXL's added_cond, as the JAX one does
+    with torch.inference_mode():
+        again, _ = net(torch.from_numpy(lat).permute(0, 3, 1, 2), torch.tensor(801.0),
+                       torch.from_numpy(ctx), torch.from_numpy(hint).permute(0, 3, 1, 2),
+                       tpww, 0.7, added_cond={"time_ids": None})
+    assert all(torch.equal(a, b) for a, b in zip(again, down))
 
 
 @pytest.fixture(scope="module")
@@ -434,3 +436,103 @@ def test_control_arguments_are_checked(pair, nets, case):
         _attach_port(tp, nets[:k])
     with pytest.raises(exc, match=match):
         tp.generate(**dict(KW, num_inference_steps=1), **kw)
+
+
+# -- the SDXL (text_time) ControlNet (ROADMAP A.16a) --------------------------------------
+
+def _xl_added_cond(rng, n):
+    return {"text_embeds": rng.standard_normal((n, 64)).astype(np.float32),
+            "time_ids": np.tile(np.float32([[128, 128, 0, 0, 128, 128]]), (n, 1))}
+
+
+def test_xl_controlnet_matches_jax():
+    """The tiny SDXL net's residuals with ``added_cond`` (the pooled text
+    and the Fourier ``time_ids`` through its own ``add_embedding``) at
+    scale 0.7 against the JAX net; other ``added_cond`` gives other
+    residuals, and none raises as in JAX."""
+    jcfg, tcfg = JaxSDModelConfig.tiny_xl(), SDModelConfig.tiny_xl()
+    tree = random_controlnet_tree(jcfg, seed=41)
+    rng = np.random.default_rng(42)
+    lat = rng.standard_normal((2, 16, 16, 4)).astype(np.float32)
+    ctx = rng.standard_normal((2, 77, tcfg.unet.cross_attention_dim)).astype(np.float32)
+    hint = rng.uniform(size=(2, 128, 128, 3)).astype(np.float32)
+    added = _xl_added_cond(rng, 2)
+    cn = JaxControlNet(jcfg.unet)
+    want_down, want_mid = cn.apply(tree, jnp.asarray(lat), jnp.float32(801.0), jnp.asarray(ctx),
+                                   jnp.asarray(hint), conditioning_scale=0.7,
+                                   added_cond={k: jnp.asarray(v) for k, v in added.items()})
+    net = torch_controlnet(tcfg, tree)
+    assert "add_embedding.linear_1.weight" in net.state_dict()
+    args = (torch.from_numpy(lat).permute(0, 3, 1, 2), torch.tensor(801.0),
+            torch.from_numpy(ctx), torch.from_numpy(hint).permute(0, 3, 1, 2), None, 0.7)
+    with torch.inference_mode():
+        down, mid = net(*args, added_cond={k: torch.from_numpy(v) for k, v in added.items()})
+        other, _ = net(*args, added_cond={"text_embeds": torch.zeros(2, 64),
+                                          "time_ids": torch.from_numpy(added["time_ids"])})
+    for got, want in zip(down + (mid,), tuple(want_down) + (want_mid,)):
+        np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(want),
+                                   atol=ATOL, rtol=RTOL)
+    assert not torch.allclose(other[-1], down[-1], atol=1e-4)
+    with pytest.raises(ValueError, match="requires added_cond"):
+        net(*args)
+
+
+@pytest.fixture(scope="module")
+def xl_pair():
+    return pipeline_pair(JaxSDModelConfig.tiny_xl(), SDModelConfig.tiny_xl(), seed=43)
+
+
+@pytest.fixture(scope="module")
+def xl_tree():
+    return random_controlnet_tree(JaxSDModelConfig.tiny_xl(), seed=44)
+
+
+XL_CASES = {"batched": ({}, {}),
+            "split": (dict(weight_function=_jax_lambda), dict(weight_function=_torch_lambda))}
+
+
+@pytest.mark.parametrize("case", list(XL_CASES))
+def test_tiny_xl_controlnet_pipeline_matches_jax(xl_pair, xl_tree, case):
+    """2 LMS steps of the tiny SDXL pipeline with the net at scale 0.7, in
+    the default noise mode: the batched path gives the net all 2N rows of
+    ``added_cond``, the split path each CFG half its own; unlike the run
+    without control."""
+    jp, tp = xl_pair
+    _attach(jp, tp, [xl_tree])
+    kw = dict(KW, num_inference_steps=2, control_image=hints(128)[0],
+              controlnet_conditioning_scale=0.7, color_map_image=color_map(128))
+    del kw["noise_mode"]
+    jside, tside = XL_CASES[case]
+    want = np.asarray(jp.generate(**kw, **jside))
+    got = tp.generate(**kw, **tside)
+    _close(got, want)
+    plain = {k: v for k, v in kw.items() if k != "control_image"}
+    assert not np.allclose(got, tp.generate(**plain, **tside), atol=1e-4)
+
+
+def test_xl_controlnet_file_loads_in_the_port_alone(xl_pair, xl_tree, tmp_path):
+    """ROADMAP C.19: a diffusers SDXL ControlNet directory (``text_time``,
+    its ``add_embedding``, the 3×3 ``conv_out``) loads bit-equal through
+    the port's ``load_controlnet(path)``; the JAX reader cannot load any
+    SDXL ControlNet (its ``eval_shape`` passes no ``added_cond``). The
+    loaded net's pipeline matches JAX run on the same tree (``params=``)."""
+    jp, tp = xl_pair
+    want_state = _state(xl_tree)
+    d = str(tmp_path / "xl_cn")
+    loader.save_controlnet_checkpoint(d, SDModelConfig.tiny_xl(), want_state)
+    import json
+
+    with open(f"{d}/config.json") as f:
+        assert json.load(f)["addition_embed_type"] == "text_time"
+    with pytest.raises(ValueError, match="requires added_cond"):
+        jax_loader.load_controlnet_checkpoint(d, JaxSDModelConfig.tiny_xl())
+    got_state = loader.load_controlnet_checkpoint(d, SDModelConfig.tiny_xl())
+    assert set(got_state) == set(want_state)
+    assert all(torch.equal(got_state[k], want_state[k]) for k in want_state)
+    with pytest.raises(ValueError, match="addition_embed_type"):
+        loader.load_controlnet_checkpoint(d, SDModelConfig.tiny())
+    jp.load_controlnet(params=xl_tree)
+    tp.load_controlnet(d)
+    kw = dict(KW, num_inference_steps=2, control_image=hints(128)[1],
+              color_map_image=color_map(128))
+    _close(tp.generate(**kw), np.asarray(jp.generate(**kw)))

@@ -211,11 +211,11 @@ def test_pipeline_extras_match_jax(pair, case):
     jp, tp = pair
     kw = dict(KW, **PIPELINE_CASES[case])
     want = np.asarray(jp.generate(noise_mode="torch", **kw))
-    got = tp.generate(**kw)
+    got = tp.generate(noise_mode="torch", **kw)
     _close(got, want)
     off = {k: v for k, v in kw.items()
            if k not in ("cache_interval", "tome_ratio", "freeu", "sag_scale", "prompt_editing")}
-    assert not np.allclose(got, tp.generate(**off), atol=1e-4)
+    assert not np.allclose(got, tp.generate(noise_mode="torch", **off), atol=1e-4)
 
 
 def test_sag_masks_match_jax_bit_for_bit(pair):

@@ -203,7 +203,8 @@ def test_tiny_img2img_matches_jax(pair):
     via_facade = paint_with_words(
         color_context=KW["color_context"], color_map_image=KW["color_map_image"],
         input_prompt=KW["prompt"], num_inference_steps=4, device="cpu", preloaded_utils=tp,
-        init_image=_init_image(), strength=0.75, vae_sample_mode="mean", return_latents=True)
+        init_image=_init_image(), strength=0.75, vae_sample_mode="mean", noise_mode="torch",
+        return_latents=True)
     np.testing.assert_array_equal(via_facade, got)
 
 

@@ -406,8 +406,8 @@ def test_generate_batch_with_one_reference_image_matches_jax(standard):
                  seed=1, color_context={(255, 0, 0): "dog,1.0", (0, 0, 255): "cat,0.5"})]
     want = np.asarray(jp.generate_batch(reqs, num_inference_steps=2, noise_mode="torch",
                                         output_type="np", ip_adapter_image=IMAGE))
-    got = tp.generate_batch(reqs, num_inference_steps=2, output_type="np",
-                            ip_adapter_image=IMAGE)
+    got = tp.generate_batch(reqs, num_inference_steps=2, noise_mode="torch",
+                            output_type="np", ip_adapter_image=IMAGE)
     diff = np.abs(got.astype(int) - want.astype(int))
     assert got.shape == (2, 64, 64, 3) and diff.max() <= 1 and (diff > 0).mean() < 2e-2
     assert not np.array_equal(got[0], got[1])

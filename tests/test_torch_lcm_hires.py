@@ -122,7 +122,7 @@ def test_lcm_one_step_pipeline_matches_jax(lcm_pair):
     for g in (8.0, 2.0):
         kw = dict(KW, num_inference_steps=1, guidance_scale=g, return_latents=True)
         want = np.asarray(jp.generate(noise_mode="torch", **kw))
-        got = tp.generate(**kw)
+        got = tp.generate(noise_mode="torch", **kw)
         np.testing.assert_allclose(got, want, rtol=0, atol=LAT_TOL * np.abs(want).max())
         outs.append(got)
     assert not np.allclose(outs[0], outs[1], atol=1e-4)
@@ -168,7 +168,7 @@ def test_generate_hires_matches_jax(pair, mode):
     kw = dict(KW, num_inference_steps=3, guidance_scale=5.0, upscale_mode=mode,
               hires_strength=0.7, output_type="np", vae_sample_mode="mean")
     want = np.asarray(jp.generate_hires(noise_mode="torch", **kw))
-    got = tp.generate_hires(**kw)
+    got = tp.generate_hires(noise_mode="torch", **kw)
     assert got.shape == (1, 128, 128, 3)
     _close_images(got, want)
 
@@ -200,9 +200,10 @@ def test_tiny_xl_deepcache_matches_jax(xl):
     jp, tp = xl
     kw = dict(KW, num_inference_steps=4, cache_interval=2, return_latents=True)
     want = np.asarray(jp.generate(noise_mode="torch", **kw))
-    got = tp.generate(**kw)
+    got = tp.generate(noise_mode="torch", **kw)
     np.testing.assert_allclose(got, want, rtol=0, atol=LAT_TOL * np.abs(want).max())
-    assert not np.allclose(got, tp.generate(**dict(kw, cache_interval=1)), atol=1e-4)
+    assert not np.allclose(got, tp.generate(**dict(kw, cache_interval=1, noise_mode="torch")),
+                           atol=1e-4)
     reqs = [dict(KW, seed=1), dict(KW, seed=2, prompt="a fox and a dog")]
     batch = tp.generate_batch(reqs, num_inference_steps=4, cache_interval=2, output_type="np")
     assert batch.shape == (2, 64, 64, 3)

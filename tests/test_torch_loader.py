@@ -296,7 +296,7 @@ def test_pww_load_tools_matches_the_jax_pipeline(dirs, monkeypatch):
         color_context=KWARGS["color_context"], num_inference_steps=3, seed=0,
         noise_mode="torch", return_latents=True))
     got = paint_with_words(local_model_path=path, device="cpu", return_latents=True,
-                           **KWARGS)
+                           noise_mode="torch", **KWARGS)
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-5 * np.abs(want).max())
     pipe = pww_load_tools("cpu", local_model_path=path)
     assert pipe is pww_load_tools("cpu", local_model_path=path)  # cached

@@ -257,3 +257,48 @@ def test_norm_site_tables_match_the_models(monkeypatch):
     assert {k: v for k, v in calls.items() if len(k) == 2} == chip_smoke.K5_SITES
     assert [sum(v[i] for v in chip_smoke.K4_SITES.values()) for i in range(3)] == [61, 22, 30]
     assert sum(chip_smoke.K5_SITES.values()) == 48
+
+
+def test_sdxl_inpaint_norm_site_tables_match_the_models(monkeypatch):
+    """``chip_smoke.py``'s SDXL-inpainting tables: the K4 and K5 calls of a
+    9-channel SDXL-base UNet step at 1024² (CFG batch 2) with the norm
+    knobs on, a VAE encode and a decode, traced on the meta device; the
+    spans reach (1, 256, 1024, 1024), 8 M elements a group."""
+    import pww_tpu_torch.models.unet as unet_mod
+    from pww_tpu_torch.config import SDModelConfig
+    from pww_tpu_torch.ops import group_norm as gn
+    from pww_tpu_torch.ops import layer_norm as ln
+    from pww_tpu_torch.weights.bridge import build_models
+
+    calls, part = {}, [0]
+
+    def gn_rec(x, weight, bias, *, groups, eps, silu=False, add=None, out_dtype=None):
+        key = (tuple(x.shape), groups, eps, silu, add is not None)
+        calls.setdefault(key, [0, 0, 0])[part[0]] += 1
+        return torch.empty_like(x)
+
+    def ln_rec(x, weight, bias, *, eps, out_dtype=None):
+        key = (tuple(x.shape), eps)
+        calls[key] = calls.get(key, 0) + 1
+        return torch.empty_like(x)
+
+    monkeypatch.setattr(gn, "group_norm", gn_rec)
+    monkeypatch.setattr(ln, "layer_norm", ln_rec)
+    monkeypatch.setattr(unet_mod, "flash_self_attention", lambda q, k, v: torch.empty_like(q))
+    cfg = chip_smoke.xl_inpaint_config(SDModelConfig.sdxl())
+    models = build_models(cfg, parts=("unet", "vae"))
+    with torch.device("meta"):
+        models["unet"](torch.empty(2, 9, 128, 128), torch.tensor(1.0),
+                       torch.empty(2, 77, 2048),
+                       added_cond={"text_embeds": torch.empty(2, 1280),
+                                   "time_ids": torch.empty(2, 6)})
+        part[0] = 1
+        models["vae"].encode_moments(torch.empty(1, 3, 1024, 1024))
+        part[0] = 2
+        models["vae"].decode(torch.empty(1, 4, 128, 128))
+    assert {k: tuple(v) for k, v in calls.items() if len(k) == 5} == chip_smoke.XL_K4_SITES
+    assert {k: v for k, v in calls.items() if len(k) == 2} == chip_smoke.XL_K5_SITES
+    assert [sum(v[i] for v in chip_smoke.XL_K4_SITES.values()) for i in range(3)] == \
+        [46, 22, 30]
+    assert sum(chip_smoke.XL_K5_SITES.values()) == 210
+    assert max(math.prod(k[0][1:]) // k[1] for k in chip_smoke.XL_K4_SITES) == 8 * 2 ** 20

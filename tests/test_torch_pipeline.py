@@ -76,7 +76,7 @@ def test_tiny_txt2img_matches_live_jax_run(pair):
     want_img = np.asarray(run_decode(jp.vae, jp.params["vae"], jnp.asarray(want)))
     img = paint_with_words(
         color_context=KWARGS["color_context"], color_map_image=KWARGS["color_map_image"],
-        input_prompt=KWARGS["prompt"], num_inference_steps=3, seed=0,
+        input_prompt=KWARGS["prompt"], num_inference_steps=3, seed=0, noise_mode="torch",
         device="cpu", preloaded_utils=tp, output_type="np",
     )
     assert img.shape == (1, 128, 128, 3) and img.dtype == np.uint8
@@ -108,8 +108,9 @@ def test_txt2img_bias_and_seed_change_the_result(pair):
 
 
 def test_unported_options_raise(pair):
-    """What the port does not have yet: jax.random noise and hub downloads;
-    and an IP-Adapter image without an adapter attached, a ValueError as in
+    """What the port does not have: hub downloads; a noise mode other than
+    "jax" (the default; tests/test_torch_jax_random.py) and "torch"
+    raises ValueError; and an IP-Adapter image without an adapter attached, a ValueError as in
     the JAX pipeline, whose ``ip_adapter_scale`` alone changes nothing
     (the IP-Adapter came with tests/test_torch_ip_adapter.py; the LCM scheduler came with the sampling extras,
     tests/test_torch_lcm_hires.py; per-step callbacks came with the
@@ -125,8 +126,8 @@ def test_unported_options_raise(pair):
     with pytest.raises(ValueError, match="load_ip_adapter"):
         paint_with_words(preloaded_utils=tp, device="cpu",
                          ip_adapter_image=np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError):
-        tp.generate(**{**KWARGS, "noise_mode": "jax"})
+    with pytest.raises(ValueError, match="noise_mode"):
+        tp.generate(**{**KWARGS, "noise_mode": "numpy"})
     kw = {**KWARGS, "num_inference_steps": 1, "return_latents": True}
     np.testing.assert_array_equal(tp.generate(**kw, ip_adapter_scale=0.5), tp.generate(**kw))
     with pytest.raises(NotImplementedError):

@@ -348,14 +348,74 @@ def test_denoising_arguments_are_checked_as_in_jax():
 
 
 def test_xl_refusals_name_their_roadmap_items(xl):
+    """What raised A.16a and A.16b runs: a fresh SDXL ControlNet (zero
+    convs zero) leaves the latents as they are, and a 9-channel SDXL UNet
+    inpaints (against JAX in test_tiny_xl_inpaint_nine_channel_matches_jax;
+    the SDXL ControlNet in tests/test_torch_controlnet.py)."""
     _, tp = xl
-    with pytest.raises(NotImplementedError, match="A.16a"):
-        tp.load_controlnet()
-    nine = PwwPipeline(dataclasses.replace(SDModelConfig.tiny_xl(), unet=dataclasses.replace(
-        SDModelConfig.tiny_xl().unet, in_channels=9)), device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="A.16b"):
-        nine.generate(init_image=np.zeros((128, 128, 3), np.uint8),
-                      mask_image=np.ones((128, 128), np.float32), **KW)
+    hint = np.zeros((128, 128, 3), np.uint8)
+    hint[32:96, 32:96] = 255
+    kw = dict(KW, num_inference_steps=2)
+    base = tp.generate(**kw)
+    tp.load_controlnet()
+    np.testing.assert_array_equal(tp.generate(control_image=hint, **kw), base)
+    tp.controlnets = []
+    nine = PwwPipeline(_nine_channel(SDModelConfig.tiny_xl()), device="cpu", dtype=torch.float32)
+    out = nine.generate(init_image=np.zeros((128, 128, 3), np.uint8),
+                        mask_image=np.ones((128, 128), np.float32), **kw)
+    assert out.shape == (1, 16, 16, 4) and np.isfinite(out).all()
+
+
+def _nine_channel(cfg):
+    return dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, in_channels=9))
+
+
+@pytest.fixture(scope="module")
+def xl9():
+    return pipeline_pair(_nine_channel(JaxSDModelConfig.tiny_xl()),
+                         _nine_channel(SDModelConfig.tiny_xl()), seed=13)
+
+
+def _xl_init(size=128):
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    return (np.stack([xx, yy, 0.5 + 0.5 * np.sin(xx * 9.0)], -1) * 220.0).astype(np.uint8)
+
+
+def _xl_mask(size=128):
+    m = np.zeros((size, size), np.float32)
+    m[size // 4: 3 * size // 4, size // 4: 3 * size // 4] = 1.0
+    return m
+
+
+def test_tiny_xl_inpaint_nine_channel_matches_jax(xl9):
+    """SDXL 9-channel inpainting (ROADMAP A.16b) composes with the XL
+    ``added_cond`` and the pooled text, as
+    ``tests/test_sdxl.py::test_tiny_xl_inpaint_nine_channel`` runs it:
+    ``generate`` in the default noise mode (the posterior sample from
+    ``split(PRNGKey(seed))``) against JAX, then ``paint_with_words_inpaint``
+    on the same pipeline (the same latents), and ``generate_batch``'s two
+    rows against the JAX batch."""
+    jp, tp = xl9
+    kw = dict(KW, init_image=_xl_init(), mask_image=_xl_mask(), strength=1.0,
+              num_inference_steps=2)
+    del kw["noise_mode"]
+    want = np.asarray(jp.generate(**kw))
+    got = tp.generate(**kw)
+    _close(got, want)
+    via = facade.paint_with_words_inpaint(
+        color_context=kw["color_context"], color_map_image=kw["color_map_image"],
+        init_image=kw["init_image"], mask_image=kw["mask_image"], input_prompt=kw["prompt"],
+        num_inference_steps=2, seed=0, device="cpu", preloaded_utils=tp, return_latents=True)
+    np.testing.assert_array_equal(via, got)
+    reqs = [dict(prompt=kw["prompt"], color_map_image=kw["color_map_image"], seed=s,
+                 color_context=kw["color_context"], init_image=_xl_init(),
+                 mask_image=_xl_mask()) for s in (0, 4)]
+    bw = np.asarray(jp.generate_batch(reqs, num_inference_steps=2, strength=1.0,
+                                      output_type="np"))
+    bg = tp.generate_batch(reqs, num_inference_steps=2, strength=1.0, output_type="np")
+    diff = np.abs(bg.astype(int) - bw.astype(int))
+    assert bg.shape == (2, 128, 128, 3) and diff.max() <= 1 and (diff > 0).mean() < 1e-2
+    assert not np.array_equal(bg[0], bg[1])
 
 
 # -- loading ---------------------------------------------------------------------------
@@ -432,18 +492,25 @@ def test_pww_load_tools_on_an_xl_directory_matches_jax(xl_dirs, monkeypatch):
     got = paint_with_words(local_model_path=path, device="cpu", input_prompt=KW["prompt"],
                            color_map_image=KW["color_map_image"],
                            color_context=KW["color_context"], num_inference_steps=3,
-                           return_latents=True)
+                           noise_mode="torch", return_latents=True)
     _close(got, want)
     pipe = facade.pww_load_tools("cpu", local_model_path=path)
     assert pipe.config.is_xl and pipe.tokenizer_2.pad_token_id == 0
 
 
 def test_xl_controlnet_directory_still_raises(tmp_path):
+    """An SDXL ControlNet directory loads for an SDXL config (ROADMAP C.19,
+    tests/test_torch_controlnet.py); for an SD-1.x config it raises, and so
+    does an SD-1.x ControlNet for an SDXL config."""
     import json
 
     with open(tmp_path / "config.json", "w") as f:
         json.dump({"addition_embed_type": "text_time"}, f)
-    with pytest.raises(NotImplementedError, match="A.16a"):
+    with pytest.raises(ValueError, match="addition_embed_type"):
+        loader.load_controlnet_checkpoint(str(tmp_path), SDModelConfig.tiny())
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump({"addition_embed_type": None}, f)
+    with pytest.raises(ValueError, match="addition_embed_type"):
         loader.load_controlnet_checkpoint(str(tmp_path), SDModelConfig.tiny_xl())
 
 
@@ -473,9 +540,9 @@ def test_published_sdxl_unet_config_json_reads_as_sdxl(tmp_path):
         SDModelConfig.sdxl(), parts=("unet",))["unet"].state_dict().items()}
 
 
-def _sites(cfg, hw):
-    """K1/K2/K3 wrapper calls of one CFG-batched UNet visit on a hw² latent,
-    traced on the meta device (shapes only)."""
+def _sites(cfg, hw, part="unet"):
+    """K1/K2/K3 wrapper calls of one CFG-batched UNet (or ControlNet) visit
+    on a hw² latent, traced on the meta device (shapes only)."""
     calls = {"fused_pww_reduce": [], "fused_pww_cross_attention": [],
              "flash_self_attention": []}
 
@@ -485,7 +552,7 @@ def _sites(cfg, hw):
             return out(q)
         return fn
 
-    unet = build_models(cfg, parts=("unet",))["unet"]
+    net = build_models(cfg, parts=(part,))[part]
     with torch.device("meta"):
         sizes = [(hw >> i) ** 2 for i in range(len(cfg.unet.block_out_channels))]
         pww = PwwState(weights={q: torch.empty(2, q, 77) for q in sizes}, weight_orig=None,
@@ -497,11 +564,40 @@ def _sites(cfg, hw):
                        rec("fused_pww_cross_attention", torch.empty_like))
             mp.setattr(tunet, "flash_self_attention",
                        rec("flash_self_attention", torch.empty_like))
-            unet(torch.empty(2, 4, hw, hw), torch.tensor(1.0),
-                 torch.empty(2, 77, cfg.unet.cross_attention_dim), pww,
-                 added_cond={"text_embeds": torch.empty(2, cfg.pooled_dim),
-                             "time_ids": torch.empty(2, cfg.num_time_ids)})
+            added = {"text_embeds": torch.empty(2, cfg.pooled_dim),
+                     "time_ids": torch.empty(2, cfg.num_time_ids)}
+            args = (torch.empty(2, 4, hw, hw), torch.tensor(1.0),
+                    torch.empty(2, 77, cfg.unet.cross_attention_dim))
+            if part == "controlnet":
+                net(*args, torch.empty(2, 3, 8 * hw, 8 * hw), pww, 1.0, added)
+            else:
+                net(*args, pww, added_cond=added)
     return calls
+
+
+def _per_kernel(calls):
+    return {k: {s: sites.count(s) for s in set(sites)} for k, sites in calls.items()}
+
+
+def test_published_sdxl_controlnet_shapes_and_kernel_sites():
+    """The SDXL ControlNet at diffusers' published shapes: its parameter
+    count, and per 1024² visit (CFG batch 2) its K1-K3 sites, 34 of each
+    (4 at Lq 4096, 30 at Lq 1024): chip_smoke.py's SDXL_CONTROLNET_SITES
+    and launch gates; at xl_reduced_configs' widths and 512², the base's
+    and the net's visits of XL_REDUCED_VISIT."""
+    cfg = SDModelConfig.sdxl()
+    net = build_models(cfg, parts=("controlnet",))["controlnet"]
+    assert sum(t.numel() for t in net.state_dict().values()) == \
+        chip_smoke.SDXL_CONTROLNET_PARAMS
+    assert net.add_embedding.linear_1.in_features == cfg.unet.projection_class_embeddings_input_dim
+    per_kernel = _per_kernel(_sites(cfg, 128, "controlnet"))
+    assert all(sites == chip_smoke.SDXL_CONTROLNET_SITES for sites in per_kernel.values())
+    assert tuple(sum(s.values()) for s in per_kernel.values()) == \
+        chip_smoke.SDXL_CONTROLNET_LAUNCHES_PER_VISIT
+    base, _ = chip_smoke.xl_reduced_configs()
+    for part, name in (("unet", "base"), ("controlnet", "controlnet")):
+        calls = _sites(base, 64, part)
+        assert tuple(len(v) for v in calls.values()) == chip_smoke.XL_REDUCED_VISIT[name]
 
 
 @pytest.mark.parametrize("name", ["sdxl", "sdxl_refiner"])

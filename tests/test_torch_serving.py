@@ -87,9 +87,8 @@ KEY_CASES = {
 
 @pytest.mark.parametrize("case", list(KEY_CASES))
 def test_compat_key_and_singleton_match_jax(case):
-    """Equal keys, modulo the pipeline's default noise mode ("torch" in the
-    port, "jax" in the JAX package): given explicitly, it is equal too."""
-    req = dict(KEY_CASES[case], noise_mode="torch")
+    """Equal keys, the default noise mode ("jax") included."""
+    req = dict(KEY_CASES[case])
     jreq = dict(req, weight_function=JWeightFunction(0.3)) if "weight" in case else req
     if "weight" in case:
         req = dict(req, weight_function=WeightFunction(0.3))
@@ -101,7 +100,7 @@ def test_compat_key_and_singleton_match_jax(case):
         assert key != compat_key(req)  # a singleton matches nothing
     else:
         assert key == want
-        assert compat_key(KEY_CASES[case])[-1][-1] == "torch"  # the port's default
+        assert compat_key(KEY_CASES[case])[-1][-1] == "jax"  # both packages' default
 
 
 @pytest.mark.parametrize("w,h", [(64, 64), (500, 300), (100, 2000), (1023, 257), (0, 0),

@@ -203,12 +203,17 @@ def test_latents_are_ignored_with_an_init_image_as_in_jax(pair):
 
 
 def test_rng_and_sharding_name_their_items(pair):
+    """``rng=`` (a jax key's (2,) uint32 data) is accepted: txt2img draws
+    nothing from it, as in the JAX pipeline (img2img's draws from it are in
+    tests/test_torch_jax_random.py); ``sharding`` still names A.20."""
+    import jax
+
     _, tp = pair
     kw = dict(prompt="a cat", color_map_image=color_map(64), num_inference_steps=1,
               color_context={(255, 0, 0): "cat,1.0", (0, 0, 255): "cat,0.5"},
               return_latents=True)
-    with pytest.raises(NotImplementedError, match="A.10e"):
-        tp.generate(rng=object(), **kw)
+    np.testing.assert_array_equal(tp.generate(rng=jax.random.PRNGKey(5), **kw),
+                                  tp.generate(**kw))
     with pytest.raises(NotImplementedError, match="A.20"):
         tp.generate(sharding="spatial", **kw)
     assert tp.generate(rng=None, sharding="batch", **kw).shape == (1, 8, 8, 4)

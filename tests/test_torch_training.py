@@ -7,12 +7,13 @@ against the JAX package (CPU, f32 on both sides).
   at the self-attention sites, against ``jax.grad`` through the JAX UNet
   with ``flash_attention=False`` (the JAX K3 has no gradient: ROADMAP.md
   C.18, recorded by the last test);
-* three steps of each trainer's step on the JAX loop's own draws
-  (``jax.random``, split as ``pww_tpu/training/textual_inversion.py:
-  172-179, 202-206`` and ``pww_tpu/training/lora.py:134-141, 177-183,
-  204-208`` split them; the port draws from a torch generator, ROADMAP.md
-  C.5) against the JAX trainers on the tiny config: losses, trained
-  tensors, tokenizer ids, the saved files; the refusals of both packages.
+* each trainer's draws (LoRA's initial A, every step's indices,
+  timesteps and noise) against ``jax.random`` split as
+  ``pww_tpu/training/textual_inversion.py:172-179, 202-206`` and
+  ``pww_tpu/training/lora.py:134-141, 177-183, 204-208`` split them;
+* three steps of each port trainer, end to end from the seed, against the
+  JAX trainers on the tiny config: losses, trained tensors, tokenizer ids,
+  the saved files; the refusals of both packages.
 
 One JAX training compile per trainer, in a module-scoped fixture.
 """
@@ -39,7 +40,7 @@ from pww_tpu_torch.ops import cuda_build
 from pww_tpu_torch.ops import flash_attention as fa
 from pww_tpu_torch.pipeline.pipeline import PwwPipeline
 from pww_tpu_torch.training import (DEFAULT_TARGETS, DEFAULT_TEMPLATES, LoraTrainResult,
-                                    TIResult, train_lora, train_textual_inversion)
+                                    train_lora, train_textual_inversion)
 from pww_tpu_torch.training.lora import LoraTrainer, target_sites
 from pww_tpu_torch.training.textual_inversion import TextualInversionTrainer
 from pww_tpu_torch.weights.bridge import unet_key
@@ -196,26 +197,50 @@ def test_jax_flash_attention_has_no_gradient_where_the_ports_has_one():
 
 @pytest.fixture(scope="module")
 def ti_runs():
-    """The JAX trainer's 3 steps, and the port's step on its draws, on one
-    tiny pipeline pair."""
+    """Both packages' trainers, 3 steps from seed 0, on one tiny pipeline
+    pair."""
     jp, tp = pipeline_pair(seed=6)
     images = _images()
     table0 = tp.clip.text_model.embeddings.token_embedding.weight.clone()
     want = jax_train_textual_inversion(jp, images, "<my-thing>", initializer_token="thing",
                                        num_steps=STEPS, batch_size=BATCH,
                                        learning_rate=TI_LR, seed=0)
-    trainer = TextualInversionTrainer(tp, images, "<my-thing>", "thing")
-    rows, opt = trainer.init(TI_LR)
-    losses = []
-    shape = (BATCH, *trainer.latents.shape[2:], 4)
-    for k_img, k_tpl, k_t, k_eps in _split_draws(jax.random.PRNGKey(0), 4):
-        draws = (_randint(k_img, len(images)), _randint(k_tpl, len(DEFAULT_TEMPLATES)),
-                 _randint(k_t, tp.config.scheduler.num_train_timesteps), _eps(k_eps, shape))
-        loss, rows, opt = trainer.step(rows, opt, draws)
-        losses.append(float(loss))
-    trainer.install(rows)
-    got = TIResult(trainer.phrase, rows.detach().clone(), losses)
+    got = train_textual_inversion(tp, images, "<my-thing>", initializer_token="thing",
+                                  num_steps=STEPS, batch_size=BATCH, learning_rate=TI_LR,
+                                  seed=0)
     return jp, tp, want, got, table0
+
+
+def test_trainer_draws_match_jax():
+    """Every step's draws of both port trainers equal the JAX loops' (the
+    indices and timesteps exactly, ε within 1e-6), and LoRA's initial A
+    equals ``normal(fold_in(PRNGKey(seed), i))/r`` in the JAX tree's site
+    order (within 1e-6)."""
+    from pww_tpu_torch.utils import jax_random
+
+    jp, tp = pipeline_pair(seed=6)
+    images = _images()
+    ti = TextualInversionTrainer(tp, images, "<drawn>", "thing")
+    lora = LoraTrainer(tp, images, "a photo", rank=RANK)
+    shape = (BATCH, *ti.latents.shape[2:], 4)
+    for trainer, seed, n_keys in ((ti, 0, 4), (lora, 1, 3)):
+        key = jax_random.PRNGKey(seed)
+        for keys in _split_draws(jax.random.PRNGKey(seed), n_keys):
+            key, k = jax_random.split(key)
+            got = trainer.draws(k, BATCH)
+            highs = ([len(images), len(DEFAULT_TEMPLATES)] if n_keys == 4 else [len(images)])
+            highs.append(tp.config.scheduler.num_train_timesteps)
+            for g, kk, hi in zip(got[:-1], keys[:-1], highs):
+                assert torch.equal(g, _randint(kk, hi))
+            np.testing.assert_allclose(got[-1].numpy(), _eps(keys[-1], shape).numpy(),
+                                       atol=1e-6, rtol=0)
+    factors, _ = lora.init(0, LORA_LR)
+    for i, (_, path) in enumerate(_target_paths(jp.params["unet"], DEFAULT_TARGETS)):
+        key = unet_key(path[:-1]) + ".weight"
+        w = lora.base[key]
+        want = np.asarray(jax.random.normal(jax.random.fold_in(jax.random.PRNGKey(0), i),
+                                            (w.shape[1], RANK), jnp.float32)) / RANK
+        np.testing.assert_allclose(factors[key]["a"].detach().numpy(), want, atol=1e-6)
 
 
 def test_textual_inversion_steps_match_jax(ti_runs):
@@ -281,27 +306,11 @@ def lora_runs():
     unet0 = {k: v.clone() for k, v in tp.unet.state_dict().items()}
     want = jax_train_lora(jp, images, caption, rank=RANK, num_steps=STEPS, batch_size=BATCH,
                           learning_rate=LORA_LR, seed=0)
-    trainer = LoraTrainer(tp, images, caption, rank=RANK)
-    k0 = jax.random.PRNGKey(0)
-    factors = {}
-    for i, (_, path) in enumerate(_target_paths(jp.params["unet"], DEFAULT_TARGETS)):
-        key = unet_key(path[:-1]) + ".weight"
-        w = trainer.base[key]
-        a = np.asarray(jax.random.normal(jax.random.fold_in(k0, i), (w.shape[1], RANK),
-                                         jnp.float32)) / RANK
-        factors[key] = {"a": torch.from_numpy(a).requires_grad_(True),
-                        "b": torch.zeros((RANK, w.shape[0]), requires_grad=True)}
+    factors, _ = LoraTrainer(tp, images, caption, rank=RANK).init(0, LORA_LR)
     a0 = {key: f["a"].detach().clone() for key, f in factors.items()}
-    assert list(factors) == sorted(trainer.base) and set(factors) == set(trainer.base)
-    opt = LoraTrainer.optimizer(factors, LORA_LR)
-    losses = []
-    shape = (BATCH, *trainer.latents.shape[2:], 4)
-    for k_img, k_t, k_eps in _split_draws(jax.random.PRNGKey(1), 3):
-        draws = (_randint(k_img, len(images)),
-                 _randint(k_t, tp.config.scheduler.num_train_timesteps), _eps(k_eps, shape))
-        loss, factors, opt = trainer.step(factors, opt, draws)
-        losses.append(float(loss))
-    return jp, tp, want, trainer.result(factors, losses), unet0, a0
+    got = train_lora(tp, images, caption, rank=RANK, num_steps=STEPS, batch_size=BATCH,
+                     learning_rate=LORA_LR, seed=0)
+    return jp, tp, want, got, unet0, a0
 
 
 def test_lora_steps_match_jax(lora_runs):
