@@ -55,6 +55,24 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    kernels per wrapper call, which must be 1 for K1;
 7. img2img: one full-width ``paint_with_words`` call with an init image at
    strength 0.5 on the same pipeline (N/2 steps, counts checked);
+7a. utils: the native host library (``pww_tpu_torch/native``, built with
+   g++) on phase 5's color map, equal to its numpy versions; ``PhaseTimer``
+   on the card; ``trace`` writing a Chrome trace of a 2-step call that
+   holds K1-K3's device kernels; ``enable_nan_checks`` catching a NaN
+   planted before the UNet's ``conv_in``; ``lpips_distance`` (random
+   weights) on the card against the CPU within 1e-4 relative;
+7b. mesh: ``PwwPipeline(mesh=make_mesh(dp, tp))`` at SD-1.5 width
+   (synthetic weights from phase 5's seed), 512², MESH_STEPS LMS steps,
+   MESH_SAMPLES samples, on two ranks that share the card over gloo
+   (``parallel.mesh.spawn``), at dp 2 and at tp 2: both ranks' images and
+   latents bit-equal, each within MESH_TOL relative L2 of phase 5's
+   pipeline's call alone; per rank K1 = K2 = 15 and K3 = 10 launches a
+   visit, K1 at B·H 16, and at tp 2 three sums a transformer block (48)
+   and one reduce a PwW cross-attention (16) a visit; at tp 2 the first K1
+   site's r, combined, within MESH_R_TOL of the one-process r, and some
+   rank's own r outside it (the control); ms/step printed as
+   gloo with two ranks on one card (no scaling number). Then one NCCL group at world
+   size 1 (``init_multihost``), bit-equal to the call without a mesh;
 8. serve: on phase 5's pipeline with no per-phase syncs, a
    ``Batcher(max_batch=8)`` takes 16 concurrent txt2img requests from 16
    threads (distinct prompts, seeds and color maps on one 512² grid), N
@@ -1089,6 +1107,297 @@ def phase_img2img(pipe, kw, steps):
     if launches != want or img.shape != (1, 512, 512, 3) or img.std() == 0:
         raise SystemExit(f"[img2img] launches {launches} != {want}, or image "
                          f"{img.shape} std {img.std():.2f}")
+
+
+# The mesh phase: two ranks share the card over gloo, at SD-1.5 width, 512²,
+# MESH_STEPS LMS steps, MESH_SAMPLES samples. Each rank's decoded images
+# against the one-process call's, relative L2: dp 2 only splits the batch; at
+# tp 2 the to_out / ff.net.2 partial products are summed in bf16. Set before
+# the first run on the card.
+MESH_STEPS = 4
+MESH_SAMPLES = 2
+MESH_TOL = {(2, 1): 5e-3, (1, 2): 1e-2}
+# At tp 2 the first K1 site's per-sample reduction r, combined over the two
+# ranks, against the one-process r, relative per sample; and the control:
+# some rank's own r (before the combine) must miss the one-process r by more,
+# so that this gate can see a missing combine, which the rank-equality check
+# cannot (the to_out sum makes both ranks' images equal either way).
+MESH_R_TOL = 1e-2
+SD15_BLOCKS, SD15_PWW_SITES = 16, 16  # transformer blocks; PwW cross-attentions (15 K1 + 1 dense)
+
+
+def mesh_kwargs(steps):
+    """The main path's prompt and color map, MESH_SAMPLES samples."""
+    import numpy as np
+
+    cm = np.zeros((512, 512, 3), np.uint8)
+    cm[:, :256] = (255, 0, 0)
+    cm[:, 256:] = (0, 0, 255)
+    return dict(prompt="a cat sitting next to a dog, realistic photo", color_map_image=cm,
+                color_context={(255, 0, 0): "cat,0.5", (0, 0, 255): "dog,0.5"},
+                guidance_scale=7.5, seed=0, num_samples=MESH_SAMPLES,
+                num_inference_steps=steps)
+
+
+def sd15_pipeline(mesh=None, profile=True):
+    """phase_main_path's SD-1.5 pipeline (synthetic weights from seed 0), on
+    ``mesh``."""
+    import torch
+
+    from pww_tpu_torch.config import SDModelConfig
+    from pww_tpu_torch.pipeline.pipeline import PwwPipeline
+    from pww_tpu_torch.tokenizer.clip_bpe import synthetic_tokenizer
+    from pww_tpu_torch.weights.bridge import synthetic_params
+
+    cfg = SDModelConfig.sd15()
+    params = synthetic_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    return PwwPipeline(cfg, params=params, tokenizer=synthetic_tokenizer(49408), device="cuda",
+                       dtype=torch.bfloat16, profile=profile, mesh=mesh)
+
+
+def mesh_run(pipe, steps):
+    """One warm-up, then the timed call with every counter zeroed before it
+    and read after it: (images, latents, launches, collectives, K1's B·H
+    set, ms per step, r), r the timed call's first K1 site's reduction
+    (B,) on the host as (this rank's, combined over tp); without tp the two
+    are the same."""
+    import torch
+
+    import pww_tpu_torch.models.unet as unet_mod
+    from pww_tpu_torch.parallel import mesh as pmesh
+    from pww_tpu_torch.parallel.tp import TensorParallel
+
+    pipe.generate(output_type="np", **mesh_kwargs(2))
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    pmesh.COLLECTIVES.clear()
+    k1, combine, bh, first = unet_mod.fused_pww_reduce, TensorParallel.combine_reduce, set(), {}
+
+    def spy(q, *args):
+        bh.add(q.shape[0] * q.shape[1])
+        r = k1(q, *args)
+        if "local" not in first:  # before an in-place combine; once, not a sync a call
+            first["local"] = r.cpu().numpy()
+        return r
+
+    def combine_spy(self, *args):
+        r = combine(self, *args)
+        if "combined" not in first:
+            first["combined"] = r.cpu().numpy()
+        return r
+
+    unet_mod.fused_pww_reduce, TensorParallel.combine_reduce = spy, combine_spy
+    try:
+        images = pipe.generate(output_type="np", **mesh_kwargs(steps))
+    finally:
+        unet_mod.fused_pww_reduce, TensorParallel.combine_reduce = k1, combine
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    collectives = dict(pmesh.COLLECTIVES)
+    ms = pipe.timings["denoise"] / steps * 1e3
+    latents = pipe.generate(return_latents=True, **mesh_kwargs(steps))
+    r = (first["local"], first.get("combined", first["local"]))
+    return images, latents, launches, collectives, sorted(bh), ms, r
+
+
+def mesh_rank(rank, steps):
+    """A gloo rank on the shared card: the (2, 1) and the (1, 2) mesh."""
+    import torch
+
+    from pww_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for dp, tp in MESH_TOL:
+        pipe = sd15_pipeline(make_mesh(dp, tp, device_type="cuda"))
+        out[dp, tp] = mesh_run(pipe, steps)
+        del pipe
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(pipe, card, steps=MESH_STEPS):
+    """PwwPipeline(mesh=...) on two gloo ranks sharing the card at dp 2 and
+    at tp 2, held against the one-process call on ``pipe`` (phase 5's, the
+    same weights); then NCCL at world size 1. Returns {run: launches}."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pww_tpu_torch.parallel.mesh import init_multihost, make_mesh, spawn
+
+    t0 = time.perf_counter()
+    want_img, want_lat, ref_launches, _, ref_bh, ref_ms, (want_r, _) = mesh_run(pipe, steps)
+    log(f"[mesh] one process: {steps} LMS steps, {MESH_SAMPLES} samples, {ref_ms:.1f} ms/step, "
+        f"K1 B·H {ref_bh}, launches {ref_launches} | card: {card}")
+    ranks = spawn(mesh_rank, 2, "gloo", steps)
+    problems, out = [], {}
+    for (dp, tp), tol in MESH_TOL.items():
+        per = [r[dp, tp] for r in ranks]
+        tag = f"dp={dp} tp={tp}"
+        for r, (img, lat, launches, coll, bh, ms, _) in enumerate(per):
+            err_img, err_lat = rel_l2(img, want_img), rel_l2(lat, want_lat)
+            log(f"[mesh] {tag} rank {r} (gloo, two ranks on one card): {ms:.1f} ms/step, "
+                f"image rel L2 {err_img:.3e} (tol {tol:g}), latents rel L2 {err_lat:.3e}, "
+                f"K1 B·H {bh}, launches {launches}, collectives {coll} | card: {card}")
+            want_launch = {"fused_pww_reduce": 15 * steps, "fused_pww_cross_attention": 15 * steps,
+                           "flash_self_attention": 10 * steps, "group_norm": 0, "layer_norm": 0}
+            want_coll = ({} if tp == 1 else {"sum": 3 * SD15_BLOCKS * steps,
+                                             "reduce": SD15_PWW_SITES * steps})
+            want_bh = [2 * MESH_SAMPLES // dp * 8 // tp]
+            if launches != want_launch or coll != want_coll or bh != want_bh:
+                problems.append(f"{tag} rank {r}: launches {launches} != {want_launch}, "
+                                f"collectives {coll} != {want_coll} or B·H {bh} != {want_bh}")
+            if not (err_img <= tol and err_lat <= tol and np.isfinite(lat).all()
+                    and img.shape == want_img.shape):
+                problems.append(f"{tag} rank {r}: image {img.shape} rel L2 {err_img:.3e}, "
+                                f"latents {err_lat:.3e} > {tol}")
+        if not (np.array_equal(per[0][0], per[1][0]) and np.array_equal(per[0][1], per[1][1])):
+            problems.append(f"{tag}: the two ranks' results differ")
+        if tp > 1:
+            def rel(a):
+                return float(np.max(np.abs(a - want_r) / np.abs(want_r)))
+
+            err_comb = [rel(res[6][1]) for res in per]
+            err_own = [rel(res[6][0]) for res in per]
+            log(f"[mesh] {tag}: first K1 site's r against the one-process r, per-sample "
+                f"relative: combined {err_comb}, each rank's own {err_own} "
+                f"(tol {MESH_R_TOL:g}; the own r must miss it on some rank)")
+            if max(err_comb) > MESH_R_TOL or max(err_own) <= MESH_R_TOL:
+                problems.append(f"{tag}: K1's r combined {err_comb} > {MESH_R_TOL}, or no "
+                                f"rank's own r {err_own} misses it (the gate cannot see a "
+                                f"missing combine)")
+        out[f"dp{dp}_tp{tp}"] = per[0][2]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    init_multihost(f"localhost:{port}", num_processes=1, process_id=0, backend="nccl")
+    try:
+        mesh_pipe = sd15_pipeline(make_mesh(1, 1, device_type="cuda"))
+        img, lat, launches, coll, _, ms, _ = mesh_run(mesh_pipe, steps)
+        log(f"[mesh] NCCL world size 1 (dp=1 tp=1): {ms:.1f} ms/step, bit-equal images "
+            f"{np.array_equal(img, want_img)}, latents {np.array_equal(lat, want_lat)}, "
+            f"launches {launches} | card: {card}")
+        if not (np.array_equal(img, want_img) and np.array_equal(lat, want_lat)):
+            problems.append("NCCL world size 1: not bit-equal to the call without a mesh")
+        out["nccl_dp1_tp1"] = launches
+        del mesh_pipe
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"[mesh] {time.perf_counter() - t0:.1f} s in all")
+    if problems:
+        raise SystemExit(f"[mesh] {problems}")
+    return out
+
+
+def phase_utils(pipe, kw, card):
+    """The native host library on the main path's color map against its
+    numpy versions; PhaseTimer, trace and the NaN checks on the card; LPIPS
+    on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch import native
+    from pww_tpu_torch.metrics import lpips
+    from pww_tpu_torch.native import plain
+    from pww_tpu_torch.pipeline.facade import paint_with_words
+    from pww_tpu_torch.utils.profiling import PhaseTimer, enable_nan_checks, trace
+
+    problems = []
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    cm = kw["color_map_image"]
+    colors = np.array([(255, 0, 0), (0, 0, 255), (7, 7, 7)], np.uint8)
+    strengths = np.array([0.5, 0.5, 1.0], np.float32)
+    ids = pipe.tokenizer(kw["input_prompt"])["input_ids"]
+    checks = {
+        "color_masks": lambda m: m.color_masks(cm, colors, strengths),
+        "color_mask_sqdist": lambda m: m.color_mask_sqdist(cm, (250, 3, 3), 30),
+        "unique_colors": lambda m: m.unique_colors(cm, 0.01, 8),
+        "token_match_row": lambda m: m.token_match_row(ids, ids[2:4]),
+    }
+    for name, call in checks.items():
+        got, want = call(native), call(plain)
+        if isinstance(got, tuple):
+            same = all(np.array_equal(g, w) for g, w in zip(got, want))
+        elif isinstance(got, list):  # the map's two colors tie: their order is free
+            same = sorted(got) == sorted(want) and [n for _, n in got] == [n for _, n in want]
+        else:
+            same = np.array_equal(got, want)
+        t1 = time.perf_counter()
+        call(native)
+        t_lib = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        call(plain)
+        t_np = time.perf_counter() - t1
+        log(f"[utils] native {name} on the 512² map: equal to numpy {same}, "
+            f"{t_lib * 1e3:.3f} ms (numpy {t_np * 1e3:.3f} ms, host)")
+        if not same:
+            problems.append(f"native {name} differs from numpy")
+    log(f"[utils] native library built and loaded in {build_s:.2f} s")
+
+    timer = PhaseTimer()
+    x = torch.randn(4096, 4096, device="cuda", dtype=torch.bfloat16)
+    for _ in range(3):
+        with timer.phase("matmul", sync=x):
+            x = (x @ x).clamp_(-1, 1)
+    s = timer.summary()["matmul"]
+    log(f"[utils] PhaseTimer: 3 synchronised 4096² bf16 matmuls, p50 {s['p50_s'] * 1e3:.3f} ms "
+        f"| card: {card}")
+    if s["count"] != 3 or not s["p50_s"] > 0:
+        problems.append(f"PhaseTimer {s}")
+
+    tdir = tempfile.mkdtemp(prefix="pww_trace_")
+    try:
+        with trace(tdir):
+            paint_with_words(num_inference_steps=2, **kw)
+        path = os.path.join(tdir, "trace.json")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        pww = sum("pww" in e.get("name", "") or "flash" in e.get("name", "") for e in kernels)
+        log(f"[utils] trace: {os.path.getsize(path)} bytes, {len(events)} events, "
+            f"{len(kernels)} device kernels ({pww} of K1-K3) in a 2-step call")
+        if not kernels or not pww:
+            problems.append("the trace holds no device kernels of the port")
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+
+    bad = torch.zeros(1, 4, 64, 64, device="cuda", dtype=torch.bfloat16)
+    bad[0, 0, 3, 3] = float("nan")
+    enable_nan_checks(True)
+    try:
+        pipe.unet.conv_in(bad)
+        caught = None
+    except FloatingPointError as e:
+        caught = str(e)
+    finally:
+        enable_nan_checks(False)
+    log(f"[utils] enable_nan_checks on a planted NaN: {caught!r}")
+    if caught is None or "Conv2d" not in caught:
+        problems.append("enable_nan_checks missed a planted NaN")
+
+    rng = np.random.default_rng(0)
+    a = rng.uniform(-1, 1, (2, 256, 256, 3)).astype(np.float32)
+    b = rng.uniform(-1, 1, (2, 256, 256, 3)).astype(np.float32)
+    gpu_params = lpips.init_random_lpips(0, device="cuda")
+    got = lpips.lpips_distance(gpu_params, a, b).cpu().numpy()
+    want = lpips.lpips_distance(lpips.init_random_lpips(0, device="cpu"), a, b).numpy()
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    ms = time_ms(lambda: lpips.lpips_distance(gpu_params, a, b), reps=5, trials=3, warmup=1)
+    log(f"[utils] lpips_distance (random weights, not a calibrated metric) on 2 × 256²: card "
+        f"{got.tolist()} vs CPU {want.tolist()}, rel {rel:.2e} (tol 1e-4), {ms:.3f} ms "
+        f"(host arrays in) | card: {card}")
+    if rel > 1e-4:
+        problems.append(f"lpips card vs CPU rel {rel:.2e}")
+    if problems:
+        raise SystemExit(f"[utils] {problems}")
 
 
 # Rows of a served group against the same requests through generate alone:
@@ -4393,6 +4702,8 @@ def main():
     if profiled["K1 pww_reduce"][1] != 1:
         raise SystemExit("[profile main] K1 is not one device kernel per call")
     phase_img2img(pipe, kw, args.steps)
+    phase_utils(pipe, kw, smi)
+    mlaunches = phase_mesh(pipe, smi)
     blaunches, bprofiled = phase_serve(pipe, args.steps)
     phase_extras_reference()
     elaunches, eprofiled = phase_extras(pipe, kw, args.steps)
@@ -4474,6 +4785,7 @@ def main():
                                 for part, n in ensemble.items()}
                                if counter in path_kernels else None),
             train_path_launches={run: n[counter] for run, n in tlaunches.items()},
+            mesh_path_launches={run: n[counter] for run, n in mlaunches.items()},
             train_path_device_ms_per_call={
                 trainer: p.get(group, (None,))[0] for trainer, p in tprofiled.items()},
             **({"train_cases": tcases} if name == "flash_self_attention" else {}),

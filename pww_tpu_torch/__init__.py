@@ -7,15 +7,16 @@ names: the configs (and the IP-Adapter's ``CLIPVisionConfig`` and
 (``paint_with_words``, ``paint_with_words_inpaint``, ``pww_load_tools``),
 ``PwwPipeline``, ``PwwState``, ``apply_textual_inversion`` and
 ``train_textual_inversion`` (:mod:`pww_tpu_torch.training` also trains
-LoRAs). Not yet exported: ``MeshConfig`` and ``make_mesh`` (multi-GPU,
-ROADMAP A.20). The kernels build at their first launch on a card, not at
-import.
+LoRAs), and ``MeshConfig`` and ``make_mesh`` (multi-GPU,
+:mod:`pww_tpu_torch.parallel`). The kernels build at their first launch on
+a card, not at import.
 """
 __version__ = "0.1.0"
 
 from .config import (  # noqa: F401
     CLIPTextConfig,
     CLIPVisionConfig,
+    MeshConfig,
     SchedulerConfig,
     SDModelConfig,
     UNetConfig,
@@ -26,6 +27,7 @@ from .ops.weight_functions import (  # noqa: F401
     WeightFunction,
     as_weight_function,
 )
+from .parallel.mesh import make_mesh  # noqa: F401
 from .pipeline.facade import (  # noqa: F401
     paint_with_words,
     paint_with_words_inpaint,

@@ -296,6 +296,16 @@ class SchedulerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout for data/tensor parallel execution."""
+
+    data_axis: str = "dp"
+    model_axis: str = "tp"
+    data_parallel: int = 1
+    tensor_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class SDModelConfig:
     """A model family bundle: SD-1.x, SD-1.x inpainting, SD-2.x, SDXL base
     and refiner."""

@@ -29,9 +29,23 @@ The IP-Adapter (``UNetConfig.ip_adapter_tokens``,
 ``to_v_ip``, and adds ``scale`` times a dense attention of its queries over
 the image-prompt tokens (:class:`~pww_tpu_torch.types.IpState`) to the text
 branch's output. The PwW bias and the K1/K2 route stay on the text branch.
+
+Tensor parallelism (:func:`pww_tpu_torch.parallel.mesh.shard_params`): a
+transformer block whose head count the mesh's tp divides runs H/tp heads
+on each rank (``to_q``/``to_k``/``to_v`` and the IP branch's projections
+cut by rows, K1-K3 at B·H/tp) and 1/tp of GEGLU's inner width (each half
+of ``proj`` cut alike); ``to_out`` and ``ff.net.2``, cut by columns, are
+summed over tp in the activation dtype before their bias. The weight
+function still sees every head: K1's and the dense path's reductions are
+combined over tp, a callable gets the gathered scores, SAG the gathered
+probabilities. Blocks whose head count tp does not divide run whole on
+every rank with no collective: SD-2.1's 5-head level at tp 2 (at tp 4
+its 5- and 10-head levels), SDXL's 10-head level at tp 4, the tiny
+configs (4 heads) at tp 8.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -48,6 +62,7 @@ from ..ops.group_norm import group_norm_site
 from ..ops.layer_norm import layer_norm_site
 from ..ops.tome import build_token_merge
 from ..ops.weight_functions import CustomWeightFunction
+from ..parallel.tp import row_parallel
 from ..types import IpState, PwwState
 
 
@@ -131,9 +146,10 @@ class FeedForward(nn.Module):
         # diffusers layout: net.0 GEGLU, net.1 dropout (no params), net.2 out
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(),
                                   nn.Linear(dim * mult, dim)])
+        self.tp = None  # parallel.mesh.shard_params: 1/tp of the inner width
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net[2](self.net[0](x))
+        return row_parallel(self.net[2], self.net[0](x), self.tp)
 
 
 class Attention(nn.Module):
@@ -152,6 +168,7 @@ class Attention(nn.Module):
             self.to_v_ip = nn.Linear(ctx_dim, dim, bias=False)
         self.has_ip = ip
         self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
+        self.tp = None  # parallel.mesh.shard_params: this rank's heads only
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 pww: Optional[PwwState] = None,
@@ -163,10 +180,11 @@ class Attention(nn.Module):
         ``pww_tpu/models/unet.py:163-176``, on every path. ``ip``: the
         image-prompt tokens, in the compute dtype, and the scale, rounded to
         it, where this site has the IP branch."""
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
         is_self = context is None
         ctx = x if is_self else context
-        q, k, v = (split_heads(t, self.heads)
+        heads = self.heads if tp is None else self.heads // tp.size
+        q, k, v = (split_heads(t, heads)
                    for t in (self.to_q(x), self.to_k(ctx), self.to_v(ctx)))
         lq, dh = q.shape[2], q.shape[3]
         bias_w = weight_fn = sigma = None
@@ -176,25 +194,39 @@ class Attention(nn.Module):
         if is_self and sag_probs is not None:
             s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * dh ** -0.5
             probs = torch.softmax(s, dim=-1)
-            sag_probs.append(probs)
+            sag_probs.append(probs if tp is None else tp.gather_heads(probs))
             out = torch.matmul(probs, v.float()).to(v.dtype)
         elif is_self and cfg.flash_attention and lq >= cfg.flash_min_seq and dh in HEAD_DIMS:
             out = flash_self_attention(q, k, v)
         elif (bias_w is not None and cfg.fused_cross_attention
               and lq >= cfg.fused_cross_min_seq and dh in HEAD_DIMS
               and not isinstance(weight_fn, CustomWeightFunction)):
-            coef = weight_fn.sigma_coef(sigma) * fused_pww_reduce(q, k, weight_fn)
-            out = fused_pww_cross_attention(q, k, v, bias_w, coef)
+            r = fused_pww_reduce(q, k, weight_fn)
+            if tp is not None:
+                mean_fn = dataclasses.replace(weight_fn, reduce_mode="mean")
+                r = tp.combine_reduce(weight_fn.reduce_mode, r, heads * lq * k.shape[2],
+                                      lambda: fused_pww_reduce(q, k, mean_fn))
+            out = fused_pww_cross_attention(q, k, v, bias_w, weight_fn.sigma_coef(sigma) * r)
+        elif tp is not None and bias_w is not None and isinstance(weight_fn, CustomWeightFunction):
+            # the callable sees every head: the site runs whole, each rank keeps its heads
+            out = tp.local_heads(pww_attention(*map(tp.gather_heads, (q, k, v)), bias_w=bias_w,
+                                               weight_fn=weight_fn, sigma=sigma))
         else:
+            reduce = None
+            if tp is not None and weight_fn is not None:
+                def reduce(s):  # this rank's heads' reduction, combined over tp
+                    r = weight_fn.reduce_qk(s, batch_axes=1)
+                    return tp.combine_reduce(weight_fn.reduce_mode, r.reshape(-1), s[0].numel(),
+                                             lambda: s.mean(dim=(1, 2, 3))).reshape(r.shape)
             out = pww_attention(q, k, v, bias_w=bias_w, weight_fn=weight_fn,
-                                sigma=sigma)
+                                sigma=sigma, reduce=reduce)
         if self.has_ip:
             if ip is None:
                 raise ValueError("ip_adapter_tokens is set: pass an IpState operand")
-            out_ip = pww_attention(q, split_heads(self.to_k_ip(ip.tokens), self.heads),
-                                   split_heads(self.to_v_ip(ip.tokens), self.heads))
+            out_ip = pww_attention(q, split_heads(self.to_k_ip(ip.tokens), heads),
+                                   split_heads(self.to_v_ip(ip.tokens), heads))
             out = out + ip.scale * out_ip
-        return self.to_out[0](merge_heads(out))
+        return row_parallel(self.to_out[0], merge_heads(out), tp)
 
 
 class BasicTransformerBlock(nn.Module):

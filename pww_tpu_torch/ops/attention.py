@@ -13,7 +13,7 @@ Numerics preserved from the reference:
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -41,11 +41,17 @@ def pww_attention(
     weight_fn: Optional[AnyWeightFunction] = None,
     sigma: Optional[torch.Tensor] = None,
     causal: bool = False,
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Scaled-dot-product attention with an optional PwW additive logit bias.
 
     q, k, v: (B, H, Lq, dh) / (B, H, Lk, dh); ``bias_w``: (B, Lq, Lk) weight
     map broadcast over heads. Scores and softmax in f32; returns v's dtype.
+
+    ``reduce``: scores (B, H, Lq, Lk) f32 → the structured weight function's
+    per-sample reduction (B, 1, 1, 1); default ``weight_fn.reduce_qk``. The
+    tensor-parallel UNet passes one that combines its heads' reduction with
+    the other ranks'.
     """
     scale = q.shape[-1] ** -0.5
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
@@ -57,7 +63,8 @@ def pww_attention(
                 weight_fn(wi, sigma, si) for wi, si in zip(w, scores)
             ])
         else:
-            r = weight_fn.reduce_qk(scores, batch_axes=1)  # (B,1,1,1)
+            r = (weight_fn.reduce_qk(scores, batch_axes=1) if reduce is None
+                 else reduce(scores))  # (B,1,1,1)
             bias = weight_fn.sigma_coef(sigma).to(scores.device) * r * w
         scores = scores + bias
     if causal:

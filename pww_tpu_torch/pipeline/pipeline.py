@@ -80,9 +80,15 @@ masked-content fill (from ``split(rng or PRNGKey(seed))``, in either
 noise mode), and the stochastic schedulers' step noise; ``"torch"`` draws
 the initial latent as the reference does.
 
+Multi-GPU (``pww_tpu/pipeline/pipeline.py:1876-1912, 2634-2670``):
+``PwwPipeline(mesh=make_mesh(dp, tp))`` on every rank of a process group;
+``generate(sharding="batch")`` and ``generate_batch`` draw the whole
+batch's noise, run each rank's samples (dp) on its heads (tp), and return
+the gathered result on every rank.
+
 Everything else the JAX pipeline's ``generate`` takes raises
 ``NotImplementedError`` here (when on, for the options :data:`UNPORTED`
-lists with their ROADMAP items: multi-GPU sharding).
+lists with their ROADMAP items: spatial sharding).
 """
 from __future__ import annotations
 
@@ -107,9 +113,11 @@ from ..ops.blur import gaussian_blur
 from ..ops.resize import resize_linear_antialias, resize_nearest
 from ..ops.weight_functions import (AnyWeightFunction, CustomWeightFunction,
                                    as_weight_function)
+from ..parallel.mesh import full_state, gather_batch, shard_batch, shard_params
 from ..schedulers.schedules import make_scheduler, step_noise, t_start_from_strength
 from ..types import IpState, PwwState
 from ..utils import jax_random
+from ..utils.profiling import PhaseTimer
 from ..weights.bridge import StateDicts, build_models, synthetic_params, synthetic_state
 from .inpaint import (blur_mask, expand_crop_region, fill_masked_region, paste_region,
                       prepare_mask_and_masked_image)
@@ -122,7 +130,7 @@ NO_STRENGTH_TRUNCATION = ("pndm", "heun", "unipc", "dpmpp_2m", "dpmpp_2m_sde")
 # leaves each off, and the ROADMAP item that decides or ports it. Off, they
 # are accepted; on, they raise.
 UNPORTED = {
-    "sharding": ("batch", "A.20 (multi-GPU)"),
+    "sharding": ("batch", "A.20b (spatial sharding)"),
 }
 
 
@@ -287,6 +295,42 @@ def _to_output(images: np.ndarray, output_type: str, single: bool):
     return pil[0] if single else pil
 
 
+class BatchRows:
+    """This dp rank's samples of an N-sample call on a mesh, and the gathers
+    back: each rank takes its contiguous block of the samples, from each
+    CFG half of the 2N rows [uncond*N, cond*N] alike, so that its uncond
+    and cond rows are those of the same samples; where dp does not divide N
+    every rank takes all of them (:func:`~pww_tpu_torch.parallel.mesh.
+    shard_batch`). Without a mesh (``mesh`` None) every cut and gather is
+    the identity."""
+
+    def __init__(self, mesh, n: int):
+        self.mesh, self.n = mesh, n
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """N rows → this rank's."""
+        return x if self.mesh is None else shard_batch(x, self.mesh)
+
+    def cfg(self, x: torch.Tensor) -> torch.Tensor:
+        """2N rows [uncond*N, cond*N] → this rank's of each half."""
+        if self.mesh is None:
+            return x
+        n = x.shape[0] // 2
+        return torch.cat([self.rows(x[:n]), self.rows(x[n:])])
+
+    def pww(self, pww: PwwState) -> PwwState:
+        return dataclasses.replace(
+            pww, weights={k: self.cfg(v) for k, v in pww.weights.items()},
+            weight_orig=None if pww.weight_orig is None else self.cfg(pww.weight_orig))
+
+    def added(self, added_cond: Optional[Dict]) -> Optional[Dict]:
+        return None if added_cond is None else {k: self.cfg(v) for k, v in added_cond.items()}
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows → all N, on every rank."""
+        return x if self.mesh is None else gather_batch(x, self.mesh, self.n)
+
+
 class PwwPipeline:
     """Stable-Diffusion paint-with-words pipeline (txt2img, img2img, inpaint).
 
@@ -298,6 +342,16 @@ class PwwPipeline:
     ``seed``). ``device`` defaults to the card; on it the compute dtype is
     bf16. Latents and scheduler state stay f32 either way. ``tokenizer_2``:
     SDXL-base's second tokenizer (default: ``tokenizer``).
+
+    ``mesh``: a (dp, tp) ``DeviceMesh`` (:func:`~pww_tpu_torch.parallel.
+    mesh.make_mesh`); every rank builds the pipeline and calls it with the
+    same arguments, and each gets the whole result. The UNet's transformer
+    blocks are cut over tp at construction and after :meth:`load_lora`,
+    :meth:`unload_loras` and :meth:`load_ip_adapter`, where the JAX
+    pipeline re-shards (``pww_tpu/pipeline/pipeline.py:676-680, 915-918,
+    1051-1054, 1153-1156``); the text towers, the VAE, ControlNets and the
+    T2I-Adapter stay whole, as the JAX rules reach none of them. A call's
+    samples are cut over dp (:class:`BatchRows`).
     """
 
     def __init__(
@@ -309,8 +363,9 @@ class PwwPipeline:
         device="cuda",
         dtype: torch.dtype = torch.bfloat16,
         seed: int = 0,
-        profile: bool = False,  # record per-phase seconds in self.timings
+        profile: bool = False,  # record per-phase seconds in self.timings / timers
         tokenizer_2=None,
+        mesh=None,  # a ("dp", "tp") DeviceMesh (parallel.mesh.make_mesh) for multi-GPU
     ):
         self.config = config or SDModelConfig.sd15()
         self.device = resolve_device(device)
@@ -341,12 +396,15 @@ class PwwPipeline:
             self._place(module, params[part])
         self.unet, self.clip, self.vae = models["unet"], models["clip"], models["vae"]
         self.clip2 = models.get("clip2")
+        self.mesh = mesh
+        if mesh is not None:
+            shard_params(self.unet, mesh)
         self.controlnets: List[torch.nn.Module] = []  # more than one: multi-ControlNet
         self.t2i_adapter: Optional[torch.nn.Module] = None
         self._lora_saved: Dict[str, Dict[str, torch.Tensor]] = {}  # pre-LoRA tensors
         self._ip: Optional[Dict] = None  # the attached IP-Adapter (load_ip_adapter)
         self.profile = profile
-        self.timings: Dict[str, float] = {}
+        self.timers = PhaseTimer()  # every profiled call's seconds per phase
         # encode caches (pww_tpu/pipeline/pipeline.py:1213-1355): one lock
         # guards both and the warnings capture, which swaps process-wide filters
         self._encode_cache: Dict = {}  # LRU of 32 encodes, with their warnings
@@ -484,7 +542,10 @@ class PwwPipeline:
         diffusers/peft layouts. Calls stack, each at its own scale. Returns
         the number of modules merged; :meth:`unload_loras` restores the
         weights bit for bit. The encode caches are dropped when a text
-        tower's weights changed."""
+        tower's weights changed. On a mesh each rank merges into its slices
+        of the cut UNet weights the same slice of ``up @ down``, from
+        ``up``'s rows (a weight cut by rows) or ``down``'s columns (by
+        columns)."""
         from ..weights.lora import LoraWeights, load_lora_file, merge_lora, parse_lora_state
 
         if isinstance(source, str):
@@ -493,6 +554,8 @@ class PwwPipeline:
             lora = source
         else:
             lora = parse_lora_state(source)
+        if getattr(self.unet, "tp_cuts", None):
+            lora = self._lora_for_cut_unet(lora)
         towers = self._towers()
         params = {name: m.state_dict() for name, m in towers.items()}
         merged, n, touched = merge_lora(params, lora, scale=scale, saved=self._lora_saved)
@@ -506,6 +569,22 @@ class PwwPipeline:
         if text_changed:
             self.invalidate_encode_caches()
         return n
+
+    def _lora_for_cut_unet(self, lora):
+        """``lora`` with each UNet entry on a cut weight cut like it."""
+        from ..parallel.mesh import cut_index, tp_of
+        from ..weights.lora import LoraWeights
+
+        rank, size, _ = tp_of(self.mesh)
+        entries = dict(lora.towers.get("unet", {}))
+        for name, (dim, full) in self.unet.tp_cuts.items():
+            flat = name[:-len(".weight")].replace(".", "_")
+            if not name.endswith(".weight") or flat not in entries:
+                continue
+            e, idx = entries[flat], cut_index(name, full, rank, size)
+            entries[flat] = (dataclasses.replace(e, up=e.up.index_select(0, idx)) if dim == 0
+                             else dataclasses.replace(e, down=e.down.index_select(1, idx)))
+        return LoraWeights({**lora.towers, "unet": entries})
 
     def unload_loras(self) -> None:
         """Put back the exact pre-LoRA weights that :meth:`load_lora` saved,
@@ -564,8 +643,10 @@ class PwwPipeline:
                 proj = Resampler(**rcfg, embedding_dim=image_embed_dim)
             else:
                 proj = ImageProjection(cfg.unet.cross_attention_dim, num_tokens, image_embed_dim)
-        base = {k: v for k, v in self.unet.state_dict().items()
-                if not k.endswith(ipw.IP_LEAVES)}
+        unet_now = (self.unet.state_dict() if self.mesh is None
+                    else full_state(self.unet, self.mesh))  # the whole weights on a mesh
+        base = {k: v for k, v in unet_now.items() if not k.endswith(ipw.IP_LEAVES)}
+        del unet_now
         g = torch.Generator(device=self.device).manual_seed(int(seed))
         if sites_state is not None:
             unet_state = ipw.install_ip_adapter(base, unet.state_dict(), unet_cfg, sites_state)
@@ -589,6 +670,8 @@ class PwwPipeline:
         elif encoder is not None:
             encoder = encoder.to(device=self.device, dtype=self.dtype).eval().requires_grad_(False)
         self.unet = self._place(unet, unet_state)
+        if self.mesh is not None:
+            shard_params(self.unet, self.mesh)
         self.config = dataclasses.replace(cfg, unet=unet_cfg)
         self._ip = {"proj": self._place(proj, proj_params), "num_tokens": num_tokens,
                     "scale": scale, "image_encoder": encoder, "embed_dim": image_embed_dim,
@@ -786,7 +869,7 @@ class PwwPipeline:
                 t_end: Optional[int] = None, callback: Optional[Callable] = None,
                 callback_steps: int = 1, cache_interval: int = 1, tome_ratio: float = 0.0,
                 freeu=None, sag_scale: float = 0.0, conds: Optional[Dict] = None,
-                ip: Optional[IpState] = None):
+                ip: Optional[IpState] = None, shard: Optional[BatchRows] = None):
         """The scheduler's loop from visit ``t_start`` to ``t_end`` (default:
         the last); latents (N, C, h, w) f32 in and out.
 
@@ -833,7 +916,21 @@ class PwwPipeline:
         DeepCache passes, each CFG half's rows on the split path, the uncond
         rows to SAG's degraded pass; the ControlNet takes none
         (``pww_tpu/pipeline/pipeline.py:60-63, 147-148, 291, 361-369``).
+
+        ``shard``: on a mesh, this rank's cut of the N samples (default: no
+        mesh). Every input comes whole and is cut here, the step noise is
+        drawn for all N rows and cut, and the callback sees the gathered
+        latents; the loop returns this rank's rows.
         """
+        if shard is None:
+            shard = BatchRows(None, latents.shape[0])
+        latents, extra = shard.rows(latents), None if extra is None else shard.rows(extra)
+        blend = None if blend is None else tuple(shard.rows(x) for x in blend)
+        control = [(net, shard.rows(h), sc) for net, h, sc in control or ()]
+        adapter = None if adapter is None else [shard.rows(a) for a in adapter]
+        text_states, pww, added_cond = (shard.cfg(text_states), shard.pww(pww),
+                                        shard.added(added_cond))
+        ip = None if ip is None else IpState(shard.cfg(ip.tokens), ip.scale)
         split = isinstance(pww.weight_fn, CustomWeightFunction)
         sag = sag_scale > 0
         if blend is not None and sag:
@@ -876,6 +973,8 @@ class PwwPipeline:
         for i in range(t_start, t_stop):
             if conds is not None:
                 text_states, pww, added_cond = conds[i]
+                text_states, pww, added_cond = (shard.cfg(text_states), shard.pww(pww),
+                                                shard.added(added_cond))
             if blend is not None:
                 mask, init, noise = blend
                 lat = schedule.add_noise(init, noise, i) * (1.0 - mask) + lat * mask
@@ -924,12 +1023,13 @@ class PwwPipeline:
                 eps = eps + sag_scale * (eps_u - self._sag_degraded_eps(
                     lat, eps_u, probs[0][:n], i, schedule, t, text_states[:n], pww_t,
                     added_cond, extras, None if ip is None else ip.rows(slice(0, n))))
-            noise = (step_noise(seeds, i, tuple(lat.shape), self.device)
+            noise = (shard.rows(step_noise(seeds, i, (shard.n, *lat.shape[1:]), self.device))
                      if schedule.needs_noise else None)
             lat, state = schedule.step(eps, i, lat, state, noise)
             if callback is not None and ((i + 1 - t_start) % callback_steps == 0
                                          or i + 1 == t_stop):
-                callback(i, float(schedule.timesteps[i]), lat.permute(0, 2, 3, 1).contiguous())
+                callback(i, float(schedule.timesteps[i]),
+                         shard.gather(lat).permute(0, 2, 3, 1).contiguous())
         if blend is not None:
             mask, init, _ = blend
             lat = init * (1.0 - mask) + lat * mask
@@ -966,15 +1066,16 @@ class PwwPipeline:
         img = torch.round(img * 255.0).to(torch.uint8)
         return img.permute(0, 2, 3, 1).contiguous()
 
-    def decode_uint8(self, latents: torch.Tensor) -> np.ndarray:
-        """Latents (N, C, h, w) → (N, H, W, 3) uint8 on the host."""
-        return self.decode_uint8_device(latents).cpu().numpy()
+    @property
+    def timings(self) -> Dict[str, float]:
+        """The last profiled seconds of each phase, from :attr:`timers`."""
+        return {name: times[-1] for name, times in self.timers.times.items()}
 
     def _phase(self, name, t0):
         if self.profile:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            self.timings[name] = time.perf_counter() - t0
+            self.timers.record(name, time.perf_counter() - t0)
         return time.perf_counter()
 
 
@@ -1257,21 +1358,23 @@ class PwwPipeline:
                 dict(color_map=color_map, color_context=color_context or {},
                      weight_function=weight_function, prompt_weighting=prompt_weighting,
                      clip_skip=clip_skip, long_prompts=long_prompts))
+        shard = BatchRows(self.mesh, n)
         t0 = self._phase("encode", t0)
         lat = self.denoise(lat, text_states, pww, schedule, float(guidance_scale),
                            t_start=t_start, extra=extra, blend=blend, seeds=[seed],
                            control=control, adapter=adapter, added_cond=added_cond,
                            t_end=t_end, callback=callback, callback_steps=int(callback_steps),
                            cache_interval=int(cache_interval), tome_ratio=tome_ratio,
-                           freeu=freeu, sag_scale=float(sag_scale), conds=conds, ip=ip)
+                           freeu=freeu, sag_scale=float(sag_scale), conds=conds, ip=ip,
+                           shard=shard)
         t0 = self._phase("denoise", t0)
         if return_latents:
-            return lat.permute(0, 2, 3, 1).cpu().numpy()
+            return shard.gather(lat).permute(0, 2, 3, 1).cpu().numpy()
+        images = shard.gather(self.decode_uint8_device(lat))
         if output_type == "device":
-            images = self.decode_uint8_device(lat)
             self._phase("decode", t0)
             return images
-        images = self.decode_uint8(lat)
+        images = images.cpu().numpy()
         if ifr_state is not None:
             full, m_full, region = ifr_state
             images = np.stack([paste_region(full, im, region, m_full) for im in images])
@@ -1561,14 +1664,15 @@ class PwwPipeline:
             lat = lat * schedule.init_noise_sigma
         added_cond, guidance_scale = self._lcm_guidance(added_cond, guidance_scale, n)
         ip = self._ip_for_call(ip_adapter_image, n)
+        shard = BatchRows(self.mesh, n)
         t0 = self._phase("encode", t0)
         lat = self.denoise(lat, text_states, pww, schedule, float(guidance_scale),
                            t_start=t_start, extra=extra, blend=blend, seeds=seeds,
                            added_cond=added_cond, cache_interval=int(cache_interval),
                            tome_ratio=tome_ratio, freeu=freeu, sag_scale=float(sag_scale),
-                           ip=ip)
+                           ip=ip, shard=shard)
         t0 = self._phase("denoise", t0)
-        images = self.decode_uint8_device(lat)
+        images = shard.gather(self.decode_uint8_device(lat))
         if output_type != "device":
             images = _to_output(images.cpu().numpy(), output_type, single=False)
         self._phase("decode", t0)

@@ -133,7 +133,7 @@ class Batcher:
 
     Args:
       pipeline: a :class:`~pww_tpu_torch.pipeline.pipeline.PwwPipeline`
-        (on the card unless it was built on the CPU).
+        (on the card unless it was built on the CPU), without a mesh.
       max_batch: the most requests fused into one call.
       max_wait_ms: how long the first request of a group waits for company
         while the device is idle.
@@ -143,6 +143,10 @@ class Batcher:
 
     def __init__(self, pipeline, max_batch: int = 8, max_wait_ms: float = 25.0,
                  max_batch_pixels: Optional[int] = None):
+        if getattr(pipeline, "mesh", None) is not None:
+            raise NotImplementedError(
+                "serving a pipeline on a mesh is not ported to pww_tpu_torch yet (ROADMAP "
+                "A.20b): every rank would have to run the groups that rank 0's Batcher forms")
         self.pipeline = pipeline
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1000.0

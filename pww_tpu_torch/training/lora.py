@@ -35,7 +35,7 @@ from ..conditioning.seeding import normal_nchw
 from ..utils import jax_random
 from ..weights.safetensors_io import save_file
 from .textual_inversion import (adam, alphas_cumprod, denoising_loss, encode_latents, fit,
-                                randint)
+                                randint, refuse_tp_cut)
 
 # attention linears: kohya's default UNet target set
 DEFAULT_TARGETS = ("to_q", "to_k", "to_v", "to_out")
@@ -102,6 +102,7 @@ class LoraTrainer:
                 "train_lora targets single-encoder SD models (the XL micro-conditioning "
                 "path is inference-only here); train on SD-1.x/2.x or use an XL LoRA "
                 "through load_lora")
+        refuse_tp_cut(pipeline, "train_lora")
         self.pipeline = pipeline
         self.rank = rank
         self.alpha = float(rank if alpha is None else alpha)

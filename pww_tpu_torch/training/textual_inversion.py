@@ -73,6 +73,17 @@ class TIResult:
         torch.save({self.placeholder: vec.detach().cpu().clone()}, path)
 
 
+def refuse_tp_cut(pipeline, what: str) -> None:
+    """Training through a UNet cut over a mesh's tp axis is not ported: its
+    collectives carry no gradient (ROADMAP A.20b). A dp-only mesh leaves
+    the UNet whole, and every rank trains on the whole batch."""
+    if getattr(pipeline.unet, "tp_cuts", None):
+        raise NotImplementedError(
+            f"{what} on a pipeline whose UNet is cut over tp is not ported to "
+            f"pww_tpu_torch yet (ROADMAP A.20b): the tp collectives carry no gradient; "
+            f"train on a pipeline without a mesh, or with tp 1")
+
+
 def encode_latents(pipeline, images: Sequence) -> torch.Tensor:
     """Images → scaled VAE latents (the posterior mean), (M, 4, h, w) f32,
     made outside autograd and outside inference mode."""
@@ -151,6 +162,7 @@ class TextualInversionTrainer:
                 "dual-encoder and micro-conditioning path is inference-only here); "
                 "train on SD-1.x/2.x or inject an XL embedding with "
                 "apply_textual_inversion")
+        refuse_tp_cut(pipeline, "train_textual_inversion")
         self.pipeline = pipeline
         tokenizer = pipeline.tokenizer
         self.table = pipeline.clip.text_model.embeddings.token_embedding.weight.detach()

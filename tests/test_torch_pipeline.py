@@ -166,22 +166,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_the_port_exports_the_jax_packages_public_names():
-    """Every public name of ``pww_tpu/__init__.py`` but the two that wait
-    for their ROADMAP item: ``MeshConfig`` and ``make_mesh`` (A.20,
-    multi-GPU). ``train_textual_inversion`` (A.18, training) came with the
-    training slice."""
+    """Every public name of ``pww_tpu/__init__.py``; nothing waits for a
+    ROADMAP item any more: ``train_textual_inversion`` (A.18) came with the
+    training slice, ``MeshConfig`` and ``make_mesh`` (A.20) with the
+    multi-GPU one."""
     import pww_tpu
     import pww_tpu_torch
 
     assert pww_tpu_torch.train_textual_inversion.__module__ == \
         "pww_tpu_torch.training.textual_inversion"
-    waiting = {"MeshConfig": "A.20", "make_mesh": "A.20"}
+    assert pww_tpu_torch.make_mesh.__module__ == "pww_tpu_torch.parallel.mesh"
+    assert pww_tpu_torch.MeshConfig() == pww_tpu_torch.MeshConfig(
+        data_axis="dp", model_axis="tp", data_parallel=1, tensor_parallel=1)
     public = {n for n in vars(pww_tpu) if not n.startswith("_")
               and not isinstance(getattr(pww_tpu, n), type(pww_tpu))}
-    assert set(waiting) <= public
-    missing = sorted(n for n in public - set(waiting) if not hasattr(pww_tpu_torch, n))
+    assert {"MeshConfig", "make_mesh"} <= public
+    missing = sorted(n for n in public if not hasattr(pww_tpu_torch, n))
     assert not missing, missing
-    assert not any(hasattr(pww_tpu_torch, n) for n in waiting)
-    doc = pww_tpu_torch.__doc__
-    assert all(n in doc and item in doc for n, item in waiting.items())
+    assert "Not yet exported" not in pww_tpu_torch.__doc__
     assert pww_tpu_torch.PwwPipeline.__module__ == "pww_tpu_torch.pipeline.pipeline"
