@@ -363,6 +363,12 @@ XL_K5_SITES = {((2, 4096, 640), 1e-05): 30, ((2, 1024, 1280), 1e-05): 180}
 # scalar path); the spans larger than 16 CTAs' shared memory (streamed) are
 # SDXL-inpainting's VAE sites at 1024²
 K4_OFF_PATH = (((1, 64, 33, 33), 32, 1e-06, False, False),)
+# K4's split form at dp 2 (a spatially sharded call): the inpaint path's
+# largest UNet site with its pre-add and the VAE's largest, split in two
+# halves of rows; their calls per 30-step run at dp 2 (a pair of launches
+# each, on each rank)
+SPLIT_K4_SITES = {((2, 320, 64, 64), 32, 1e-05, True, True): 5 * STEPS_PER_RUN,
+                  ((1, 256, 512, 512), 32, 1e-06, True, False): 1}
 
 
 def k4_calls(site, unet_steps, encodes=2, decodes=1, table=None):
@@ -579,16 +585,18 @@ def phase_kernels():
                time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)),
                flops=4 * B * H * lq * lk * dh, calls=calls)
 
-    def flash_case(l, dh, label, calls=None, H=H, B=B, plain_pairs=None):
+    def flash_case(l, dh, label, calls=None, H=H, B=B, plain_pairs=None, lq=None):
         """``plain_pairs``: the (sample, head) pairs, flat, that the plain
-        version checks and is timed on (all by default)."""
-        q, k, v = randn(B, H, l, dh), randn(B, H, l, dh), randn(B, H, l, dh)
+        version checks and is timed on (all by default); ``lq``: fewer
+        queries than the ``l`` keys (a spatially sharded site's rows)."""
+        lq = l if lq is None else lq
+        q, k, v = randn(B, H, lq, dh), randn(B, H, l, dh), randn(B, H, l, dh)
         got = fa.flash_self_attention(q, k, v)
         pq, pk, pv = q, k, v
         if plain_pairs is not None:
             pick = list(plain_pairs)
-            pq, pk, pv = (x.reshape(B * H, 1, l, dh)[pick] for x in (q, k, v))
-            got = got.reshape(B * H, 1, l, dh)[pick]
+            pq, pk, pv = (x.reshape(B * H, 1, x.shape[2], dh)[pick] for x in (q, k, v))
+            got = got.reshape(B * H, 1, lq, dh)[pick]
         want = fa.self_attention_plain(pq, pk, pv)
         # As K2: P rounded to bf16 for the P·V product, about 2^-9 of each
         # term, 2-3e-3 of the output in relative L2, so 1e-2 there; a wrong
@@ -598,9 +606,9 @@ def phase_kernels():
                2**-6 * want.float().abs().max().item(), 1e-2,
                time_ms(lambda: fa.flash_self_attention(q, k, v)),
                time_ms(lambda: fa.self_attention_plain(pq, pk, pv), reps=3),
-               bound(4 * q.numel() * 2, 4 * B * H * l * l * dh),
+               bound((2 * q.numel() + 2 * k.numel()) * 2, 4 * B * H * lq * l * dh),
                time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
-               flops=4 * B * H * l * l * dh, calls=calls)
+               flops=4 * B * H * lq * l * dh, calls=calls)
         del q, k, v, pq, pk, pv, got, want
         torch.cuda.empty_cache()
 
@@ -649,6 +657,12 @@ def phase_kernels():
     flash_case(1024, 64, "L1024 dh64")
     flash_case(1024, 160, "L1024 dh160")
     flash_case(4000, 40, "L4000 dh40")
+    # spatial sharding at dp 2 (phase_mesh): each rank's query rows against
+    # the whole image's keys at the 512² flash sites, 5 each a visit; and a
+    # ragged pair (keys past Lk masked, rows past Lq not stored)
+    for lq, l, dh in ((2048, 4096, 40), (512, 1024, 80)):
+        flash_case(l, dh, f"dp2 Lq{lq} Lk{l} dh{dh}", lq=lq, calls=5 * STEPS_PER_RUN)
+    flash_case(4000, 64, "Lq1000 Lk4000 dh64", lq=1000)
     xattn_case(randn(B, H, 4000, 40), randn(B, H, LK, 40), randn(B, H, LK, 40), "Lq4000 dh40")
     xattn_case(randn(B, H, 4096, 40), randn(B, H, 2 * LK, 40), randn(B, H, 2 * LK, 40),
                "Lq4096 dh40 Lk154")
@@ -1202,7 +1216,10 @@ def mesh_run(pipe, steps):
 
 
 def mesh_rank(rank, steps):
-    """A gloo rank on the shared card: the (2, 1) and the (1, 2) mesh."""
+    """A gloo rank on the shared card: the (2, 1) mesh (batch sharding, then
+    spatial txt2img and serving), the (1, 2) mesh (batch sharding, then
+    textual inversion and LoRA through the tp cut), and SD-1.5-inpainting
+    on the (2, 1) mesh (spatial, the norm kernels on)."""
     import torch
 
     from pww_tpu_torch.parallel.mesh import make_mesh
@@ -1213,15 +1230,26 @@ def mesh_rank(rank, steps):
     for dp, tp in MESH_TOL:
         pipe = sd15_pipeline(make_mesh(dp, tp, device_type="cuda"))
         out[dp, tp] = mesh_run(pipe, steps)
+        if dp == 2:
+            out["spatial"] = spatial_run(pipe, mesh_kwargs(steps))
+            out["serve"] = mesh_serve(pipe, rank, steps)
+        else:
+            out["train"] = mesh_train(pipe)
         del pipe
         torch.cuda.empty_cache()
+    pipe, _ = inpaint_pipeline(make_mesh(2, 1, device_type="cuda"))
+    out["spatial inpaint"] = spatial_run(pipe, inpaint_kwargs(steps))
+    del pipe
+    torch.cuda.empty_cache()
     return out
 
 
-def phase_mesh(pipe, card, steps=MESH_STEPS):
+def phase_mesh(pipe, card, train_ref, steps=MESH_STEPS):
     """PwwPipeline(mesh=...) on two gloo ranks sharing the card at dp 2 and
     at tp 2, held against the one-process call on ``pipe`` (phase 5's, the
-    same weights); then NCCL at world size 1. Returns {run: launches}."""
+    same weights); spatial sharding, serving and tp training on the same
+    ranks (:func:`check_spatial_serve_train`; ``train_ref``: phase_train's
+    runs); then NCCL at world size 1. Returns {run: launches}."""
     import socket
 
     import numpy as np
@@ -1234,8 +1262,10 @@ def phase_mesh(pipe, card, steps=MESH_STEPS):
     want_img, want_lat, ref_launches, _, ref_bh, ref_ms, (want_r, _) = mesh_run(pipe, steps)
     log(f"[mesh] one process: {steps} LMS steps, {MESH_SAMPLES} samples, {ref_ms:.1f} ms/step, "
         f"K1 B·H {ref_bh}, launches {ref_launches} | card: {card}")
+    s_img, s_lat, _, _, _, (s_r, _), s_qk = spatial_run(pipe, mesh_kwargs(steps), spatial=False)
     ranks = spawn(mesh_rank, 2, "gloo", steps)
-    problems, out = [], {}
+    problems, out = check_spatial_serve_train(pipe, ranks, card, steps,
+                                              (s_img, s_lat, s_r, s_qk), train_ref)
     for (dp, tp), tol in MESH_TOL.items():
         per = [r[dp, tp] for r in ranks]
         tag = f"dp={dp} tp={tp}"
@@ -1293,6 +1323,328 @@ def phase_mesh(pipe, card, steps=MESH_STEPS):
     if problems:
         raise SystemExit(f"[mesh] {problems}")
     return out
+
+
+# -- spatial sharding, serving and training over the mesh ---------------------------
+
+# dp 2 spatial calls (phase_mesh) against the one-process call on the same
+# weights, relative L2 of images and latents: MESH_TOL's tp limit, the halo
+# convolutions and the moments combined over rows reorder bf16 work as the
+# tp sums do. Set before the first run on the card.
+SPATIAL_TOL = 1e-2
+# tp-2 training (3 TI and 3 LoRA steps, bf16) against phase_train's
+# one-process runs on the same weights, images and seeds: each step's loss,
+# relative; the trained rows' and the gathered factors' updates (trained
+# minus initial), relative L2. Set before the first run on the card.
+MESH_TRAIN_TOL = {"loss": 2e-2, "update": 2e-1}
+MESH_SERVE_REQUESTS = 4
+
+
+def spatial_collectives(cfg, unet_visits, decodes):
+    """Collectives of a sharding="spatial" call whose every level dp
+    divides, by kind, from the config: per UNet visit a halo exchange for
+    each 3×3 convolution (conv_in, two per resnet, each upsampler, conv_out)
+    and each downsample, a moments combine for each GroupNorm (two per
+    resnet, one per transformer, conv_norm_out), a K/V gather and a PwW
+    reduction combine for each transformer block; per decode the VAE
+    decoder's (conv_in, two per resnet, the upsamplers, conv_out; two
+    GroupNorms per resnet, the mid attention's, conv_norm_out; one K/V
+    gather)."""
+    u = cfg.unet
+    n, per = len(u.block_out_channels), u.layers_per_block
+    resnets = n * per + 2 + n * (per + 1)
+    attn = ([(i, per) for i in range(n) if u.down_block_has_attn[i]]
+            + [(n - 1, 1)] + [(n - 1 - i, per + 1) for i in range(n) if u.up_block_has_attn[i]])
+    sites = sum(k for _, k in attn)
+    blocks = sum(k * u.depth_for(level) for level, k in attn)
+    v = cfg.vae
+    m = len(v.block_out_channels)
+    vres = 2 + m * (v.layers_per_block + 1)
+    return {"halo": (2 + 2 * resnets + 2 * (n - 1)) * unet_visits
+            + (2 + 2 * vres + m - 1) * decodes,
+            "norm": (2 * resnets + sites + 1) * unet_visits + (2 * vres + 2) * decodes,
+            "kv": blocks * unet_visits + decodes, "r": blocks * unet_visits}
+
+
+def inpaint_kwargs(steps):
+    """The inpaint path's call (inpaint_pipeline's) as ``generate`` takes it."""
+    import numpy as np
+
+    cm = np.zeros((512, 512, 3), np.uint8)
+    cm[:, :256] = (255, 0, 0)
+    cm[:, 256:] = (0, 0, 255)
+    return dict(prompt="a cat sitting next to a dog, realistic photo", color_map_image=cm,
+                color_context={(255, 0, 0): "cat,0.5", (0, 0, 255): "dog,0.5"},
+                init_image=synthetic_init_image(), mask_image=box_mask(), strength=1.0,
+                guidance_scale=7.5, seed=0, num_inference_steps=steps)
+
+
+def spatial_run(pipe, kw, spatial=True):
+    """A sharding="spatial" call (``spatial=False``: the same call in one
+    process) with every counter zeroed before it and read after it:
+    (images, latents, launches incl. split K4's, collectives, ms per step,
+    (this rank's r, r combined over dp) at the first K1 site, and that
+    site's q and k in one process)."""
+    import torch
+
+    import pww_tpu_torch.models.unet as unet_mod
+    from pww_tpu_torch.ops import group_norm as gn
+    from pww_tpu_torch.parallel import mesh as pmesh
+    from pww_tpu_torch.parallel.spatial import Spatial
+
+    extra = dict(sharding="spatial") if spatial else {}
+    counters = launch_counters() + (gn.group_norm_stats, gn.group_norm_apply)
+    for c in counters:
+        c.launches = 0
+    pmesh.COLLECTIVES.clear()
+    k1, combine, first = unet_mod.fused_pww_reduce, Spatial.combine_reduce, {}
+
+    def spy(q, k, *args):
+        r = k1(q, k, *args)
+        if "local" not in first:  # a copy: the combine over dp is in place
+            first["local"], first["qk"] = r.clone().cpu().numpy(), (q.clone(), k.clone())
+        return r
+
+    def combine_spy(self, *args):
+        r = combine(self, *args)
+        if "combined" not in first:
+            first["combined"] = r.cpu().numpy()
+        return r
+
+    unet_mod.fused_pww_reduce, Spatial.combine_reduce = spy, combine_spy
+    try:
+        images = pipe.generate(output_type="np", **extra, **kw)
+    finally:
+        unet_mod.fused_pww_reduce, Spatial.combine_reduce = k1, combine
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    coll = dict(pmesh.COLLECTIVES)
+    ms = pipe.timings["denoise"] / kw["num_inference_steps"] * 1e3
+    latents = pipe.generate(return_latents=True, **extra, **kw)
+    qk = None if spatial else first["qk"]
+    return (images, latents, launches, coll, ms,
+            (first["local"], first.get("combined", first["local"])), qk)
+
+
+def mesh_serve(pipe, rank, steps):
+    """Rank 0: a Batcher over the (2, 1) mesh pipeline, 4 requests submitted
+    together, then one POST /generate through make_handler on a localhost
+    server; rank 1 follows. Returns rank 0's (images, the POST's image,
+    launches, Batcher stats), rank 1's follow counts."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    from PIL import Image
+
+    from pww_tpu_torch.serving.batcher import Batcher, follow
+    from pww_tpu_torch.serving.server import make_handler
+
+    if rank != 0:
+        return follow(pipe)
+    reqs = serve_requests(steps, n=MESH_SERVE_REQUESTS + 1)
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    batcher = Batcher(pipe, max_batch=MESH_SERVE_REQUESTS, max_wait_ms=1000.0)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(batcher))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        futs = [batcher.submit(dict(r)) for r in reqs[:MESH_SERVE_REQUESTS]]
+        images = np.stack([np.asarray(f.result(timeout=600)) for f in futs])
+        req = reqs[-1]
+        buf = io.BytesIO()
+        Image.fromarray(req["color_map_image"]).save(buf, format="PNG")
+        body = {"prompt": req["prompt"], "seed": req["seed"], "steps": steps,
+                "guidance_scale": req["guidance_scale"],
+                "color_context": {str(k): v for k, v in req["color_context"].items()},
+                "color_map_png_b64": base64.b64encode(buf.getvalue()).decode()}
+        post = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/generate",
+            data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(post, timeout=600) as r:
+            out = json.loads(r.read())
+        posted = np.asarray(Image.open(io.BytesIO(base64.b64decode(out["image_png_b64"]))))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+        batcher.close()
+    return images, posted, {c.__name__: c.launches for c in counters}, dict(batcher.stats)
+
+
+def mesh_train(pipe):
+    """phase_train's textual inversion and LoRA runs on the (1, 2) mesh: the
+    UNet cut over tp 2. Returns (TI losses, trained rows, LoRA losses,
+    gathered factors, {trainer: K3 launches})."""
+    from pww_tpu_torch.ops import flash_attention as fa
+    from pww_tpu_torch.training import train_lora, train_textual_inversion
+
+    images, k3 = train_images(), {}
+    fa.flash_self_attention.launches = 0
+    ti = train_textual_inversion(pipe, images, "<pww-toy>", initializer_token="toy",
+                                 num_steps=TRAIN_STEPS, seed=0)
+    k3["ti"] = fa.flash_self_attention.launches
+    fa.flash_self_attention.launches = 0
+    lora = train_lora(pipe, images, "a photo of a pww toy", rank=8, num_steps=TRAIN_STEPS,
+                      learning_rate=TRAIN_LORA_LR, seed=0)
+    k3["lora"] = fa.flash_self_attention.launches
+    return ti.losses, ti.embedding.numpy(), lora.losses, {
+        k: {n: t.numpy() for n, t in f.items()} for k, f in lora.factors.items()}, k3
+
+
+def head_cut_combine(q, k):
+    """The tp-2 combine of phase_mesh's r gate on one process's whole q and
+    k of the first K1 site, only the heads cut: per mode, the largest
+    per-sample relative difference from K1 on all heads."""
+    import torch
+
+    from pww_tpu_torch.ops.cross_attention_kernel import fused_pww_reduce
+    from pww_tpu_torch.ops.weight_functions import WeightFunction
+
+    h = q.shape[1] // 2
+    out = {}
+    for mode in ("max", "mean", "std"):
+        wf = WeightFunction(0.1, "log1p_sigma", mode)
+        whole = fused_pww_reduce(q, k, wf).double()
+        parts = [(q[:, i * h:(i + 1) * h].contiguous(), k[:, i * h:(i + 1) * h].contiguous())
+                 for i in range(2)]
+        rs = [fused_pww_reduce(qq, kk, wf).double() for qq, kk in parts]
+        if mode == "max":
+            got = torch.maximum(rs[0], rs[1])
+        elif mode == "mean":
+            got = (rs[0] / 2 + rs[1] / 2)
+        else:  # Chan's rule over the two halves' (mean, M2), as parallel.tp.combine
+            n = h * q.shape[2] * k.shape[2]
+            mwf = WeightFunction(0.1, "log1p_sigma", "mean")
+            means = [fused_pww_reduce(qq, kk, mwf).double() for qq, kk in parts]
+            mean = (means[0] + means[1]) / 2
+            m2 = sum(r * r * (n - 1) for r in rs) + n * sum((m - mean) ** 2 for m in means)
+            got = (m2 / (2 * n - 1)).sqrt()
+        out[mode] = ((got - whole) / whole).abs().max().item()
+    return out
+
+
+def check_spatial_serve_train(pipe, ranks, card, steps, want, train_ref):
+    """The checks of the last slice on phase_mesh's two ranks: spatial txt2img
+    (against ``want``, phase_mesh's one-process run) and inpaint (against a
+    one-process inpaint call here), serving, tp training (against
+    ``train_ref``, phase_train's runs). Returns (problems, {run: launches})."""
+    import numpy as np
+    import torch
+
+    want_img, want_lat, want_r, want_qk = want
+    problems, out = [], {}
+    # -- the tp combine of the r gate: the whole q and k, only the heads cut
+    err = head_cut_combine(*want_qk)
+    log(f"[mesh] first K1 site, one process's whole bf16 q and k, heads cut in two and the "
+        f"r combined as over tp: largest per-sample relative difference from K1 on all heads "
+        f"{err} | card: {card}")
+    if max(err.values()) > 1e-5:
+        problems.append(f"the head-cut combine alone misses the one-process r: {err}")
+    # -- spatial txt2img and inpaint at dp 2
+    ipipe, _ = inpaint_pipeline()
+    ikw = inpaint_kwargs(steps)
+    spatial_run(ipipe, dict(ikw, num_inference_steps=1), spatial=False)  # warm-up
+    i_img, i_lat, i_launches, _, i_ms, _, _ = spatial_run(ipipe, ikw, spatial=False)
+    del ipipe
+    torch.cuda.empty_cache()
+    log(f"[mesh] inpaint one process: {steps} steps, {i_ms:.1f} ms/step, launches "
+        f"{i_launches} | card: {card}")
+    from pww_tpu_torch.config import SDModelConfig
+
+    cfg_t, cfg_i = SDModelConfig.sd15(), inpaint_config()
+    for tag, ref_img, ref_lat, cfg in (("spatial", want_img, want_lat, cfg_t),
+                                       ("spatial inpaint", i_img, i_lat, cfg_i)):
+        per = [r[tag] for r in ranks]
+        inpaint = tag.endswith("inpaint")
+        want_coll = spatial_collectives(cfg, steps, 1)
+        norms = want_coll["norm"] if inpaint else 0
+        want_launch = {"fused_pww_reduce": 15 * steps, "fused_pww_cross_attention": 15 * steps,
+                       "flash_self_attention": 10 * steps,
+                       "group_norm": sum(e for _, e, _ in K4_SITES.values()) * 2 if inpaint
+                       else 0,
+                       "layer_norm": sum(K5_SITES.values()) * steps if inpaint else 0,
+                       "group_norm_stats": norms, "group_norm_apply": norms}
+        for r, (img, lat, launches, coll, ms, rr, _) in enumerate(per):
+            err_img, err_lat = rel_l2(img, ref_img), rel_l2(lat, ref_lat)
+            got_coll = {kind: coll.get(kind, 0) for kind in want_coll}
+            log(f"[mesh] {tag} dp=2 rank {r} (gloo, two ranks on one card; not a scaling "
+                f"number): {ms:.1f} ms/step, image rel L2 {err_img:.3e}, latents rel L2 "
+                f"{err_lat:.3e} (tol {SPATIAL_TOL:g}), launches {launches}, collectives "
+                f"{coll} (want {want_coll}) | card: {card}")
+            if launches != want_launch or got_coll != want_coll:
+                problems.append(f"{tag} rank {r}: launches {launches} != {want_launch} or "
+                                f"collectives {got_coll} != {want_coll}")
+            if not (err_img <= SPATIAL_TOL and err_lat <= SPATIAL_TOL
+                    and np.isfinite(lat).all() and img.shape == ref_img.shape):
+                problems.append(f"{tag} rank {r}: image rel L2 {err_img:.3e}, latents "
+                                f"{err_lat:.3e} > {SPATIAL_TOL}")
+        if not (np.array_equal(per[0][0], per[1][0]) and np.array_equal(per[0][1], per[1][1])):
+            problems.append(f"{tag}: the two ranks' results differ")
+        out[tag.replace(" ", "_")] = per[0][2]
+        if not inpaint:  # K1's r over the rows: combined, and each rank's own
+            def rel(a):
+                return float(np.max(np.abs(a - want_r) / np.abs(want_r)))
+
+            comb, own = [rel(p[5][1]) for p in per], [rel(p[5][0]) for p in per]
+            log(f"[mesh] spatial dp=2: first K1 site's r against the one-process r, "
+                f"per-sample relative: combined over dp {comb}, each rank's own {own} "
+                f"(tol {MESH_R_TOL:g}; the own r must miss it on some rank)")
+            if max(comb) > MESH_R_TOL or max(own) <= MESH_R_TOL:
+                problems.append(f"spatial: K1's r combined {comb} > {MESH_R_TOL}, or no "
+                                f"rank's own r {own} misses it")
+    # -- serving at dp 2
+    images, posted, launches, stats = ranks[0]["serve"]
+    reqs = serve_requests(steps, n=MESH_SERVE_REQUESTS + 1)
+    ref = pipe.generate_batch([dict(r) for r in reqs[:MESH_SERVE_REQUESTS]],
+                              num_inference_steps=steps, guidance_scale=7.5, output_type="np")
+    ref_post = pipe.generate_batch([dict(reqs[-1])], num_inference_steps=steps,
+                                   guidance_scale=7.5, output_type="np")[0]
+    errs = [rel_l2(a, b) for a, b in zip(images, ref)] + [rel_l2(posted, ref_post)]
+    log(f"[mesh] serve dp=2: rank 0's Batcher ({MESH_SERVE_REQUESTS} requests together, "
+        f"then one POST /generate), rank 1 following {ranks[1]['serve']}; stats {stats}, "
+        f"launches {launches}; each image against one process's generate_batch, rel L2 "
+        f"{[f'{e:.3e}' for e in errs]} (tol {SERVE_IMAGE_TOL:g}) | card: {card}")
+    want_launch = path_launches(steps)
+    want_launch = {k: 2 * v for k, v in want_launch.items()}  # the group and the POST
+    if (max(errs) > SERVE_IMAGE_TOL or ranks[1]["serve"] != {"calls": 2, "errors": 0}
+            or stats["batches"] != 2 or launches != want_launch):
+        problems.append(f"serve: rel L2 {errs}, follower {ranks[1]['serve']}, stats {stats}, "
+                        f"launches {launches} != {want_launch}")
+    out["serve"] = launches
+    # -- training at tp 2
+    ti_w, emb_w, lora_w, fac_w, init_w = train_ref
+    keys = sorted(fac_w)
+
+    def update(fac, init):
+        return np.concatenate([(fac[k][n] - init[k][n]).ravel() for k in keys for n in "ab"])
+
+    ranks_train = [x["train"] for x in ranks]
+    for r, (ti_l, emb, lora_l, fac, k3) in enumerate(ranks_train):
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(ti_l + lora_l, ti_w + lora_w))
+        emb_err = rel_l2(emb - init_w["emb"], emb_w - init_w["emb"])
+        fac_err = rel_l2(update(fac, init_w["lora"]), update(fac_w, init_w["lora"]))
+        log(f"[mesh] train tp=2 rank {r}: TI losses {ti_l} (one process {ti_w}), LoRA losses "
+            f"{lora_l} (one process {lora_w}), largest relative loss difference "
+            f"{loss_err:.3e} (tol {MESH_TRAIN_TOL['loss']:g}); trained rows' update rel L2 "
+            f"{emb_err:.3e}, gathered factors' update rel L2 {fac_err:.3e} (tol "
+            f"{MESH_TRAIN_TOL['update']:g}); K3 launches under autograd {k3} | card: {card}")
+        if (loss_err > MESH_TRAIN_TOL["loss"] or emb_err > MESH_TRAIN_TOL["update"]
+                or fac_err > MESH_TRAIN_TOL["update"] or sorted(fac) != keys
+                or k3 != {"ti": TRAIN_K3_PER_STEP * TRAIN_STEPS,
+                          "lora": TRAIN_K3_PER_STEP * TRAIN_STEPS}):
+            problems.append(f"train rank {r}: losses {loss_err:.3e}, rows {emb_err:.3e}, "
+                            f"factors {fac_err:.3e}, K3 {k3}")
+    t0, t1 = ranks_train
+    if not (np.array_equal(t0[1], t1[1]) and all(
+            np.array_equal(t0[3][k][n], t1[3][k][n]) for k in keys for n in "ab")):
+        problems.append("train: the ranks' trained rows or gathered factors differ")
+    return problems, out
 
 
 def phase_utils(pipe, kw, card):
@@ -1505,9 +1857,9 @@ def phase_serve(pipe, steps):
             second_launched.set()
         return out
 
-    def checked_decode(lat):
+    def checked_decode(lat, *args):
         finite.append(torch.isfinite(lat).all())
-        return decode(lat)
+        return decode(lat, *args)
 
     def captured_denoise(lat, text_states, pww, *args, **kwargs):
         inputs.append(dict(lat=lat.clone(), text=text_states, weights=pww.weights))
@@ -1964,10 +2316,10 @@ def phase_extras(pipe, kw, steps):
     finite, visits, finals = [], [], []
     decode, denoise = pipe.decode_uint8_device, pipe.denoise
 
-    def checked_decode(lat):
+    def checked_decode(lat, *args):
         finite.append(bool(torch.isfinite(lat).all()))
         finals.append(lat.float().clone())
-        return decode(lat)
+        return decode(lat, *args)
 
     def counted_denoise(*args, **kwargs):
         before = [c.launches for c in counters[:3]]
@@ -2097,26 +2449,33 @@ def phase_extras(pipe, kw, steps):
     return launches, profiled
 
 
-def inpaint_pipeline():
-    """SD-1.5-inpainting at full width, the norm kernels on, synthetic weights."""
+def inpaint_config():
+    """SD-1.5-inpainting at full width, the norm kernels on."""
     import dataclasses
 
+    from pww_tpu_torch.config import SDModelConfig, UNetConfig, VAEConfig
+
+    return SDModelConfig(
+        unet=dataclasses.replace(UNetConfig.sd15_inpaint(), fused_group_norm=True,
+                                 fused_layer_norm=True),
+        vae=dataclasses.replace(VAEConfig.sd15(), fused_group_norm=True))
+
+
+def inpaint_pipeline(mesh=None):
+    """SD-1.5-inpainting at full width, the norm kernels on, synthetic weights
+    (on ``mesh``)."""
     import numpy as np
     import torch
 
-    from pww_tpu_torch.config import SDModelConfig, UNetConfig, VAEConfig
     from pww_tpu_torch.pipeline.pipeline import PwwPipeline
     from pww_tpu_torch.tokenizer.clip_bpe import synthetic_tokenizer
     from pww_tpu_torch.weights.bridge import synthetic_params
 
-    cfg = SDModelConfig(
-        unet=dataclasses.replace(UNetConfig.sd15_inpaint(), fused_group_norm=True,
-                                 fused_layer_norm=True),
-        vae=dataclasses.replace(VAEConfig.sd15(), fused_group_norm=True))
+    cfg = inpaint_config()
     t0 = time.perf_counter()
     params = synthetic_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     pipe = PwwPipeline(cfg, params=params, tokenizer=synthetic_tokenizer(49408),
-                       device="cuda", dtype=torch.bfloat16, profile=True)
+                       device="cuda", dtype=torch.bfloat16, profile=True, mesh=mesh)
     del params
     torch.cuda.synchronize()
     log(f"[inpaint] SD-1.5-inpainting (conv_in {pipe.unet.conv_in.in_channels} channels), "
@@ -2243,6 +2602,58 @@ def phase_norm_kernels():
                 log(f"[norms]   a copy of x (one read, one write): "
                     f"{time_ms(lambda: copy.copy_(x)):.4f} ms")
         del x, got, want
+        torch.cuda.empty_cache()
+    # K4's split form (a spatially sharded site at dp 2): each half of the
+    # rows' statistics kernel, the halves combined (Chan's rule, in order),
+    # each half's apply kernel; held against the plain version on the whole
+    # tensor and against the one-launch K4 on it, at K4's limits. Timed: one
+    # rank's work, the statistics and the apply on its half.
+    from pww_tpu_torch.parallel.spatial import chan_moments
+
+    for site in SPLIT_K4_SITES:
+        shape, groups, eps, silu, has_add = site
+        n, c = shape[:2]
+        x = randn(*shape)
+        w, b = randn(c, mean=1.0, std=0.1), randn(c, std=0.1)
+        add = randn(n, c) if has_add else None
+        halves = [h.contiguous() for h in x.chunk(2, dim=2)]
+
+        def split(stats_fn, apply_fn, parts=halves):
+            st = torch.stack([stats_fn(h, groups=groups, add=add).movedim(-1, 0)
+                              for h in parts])
+            mean, var = chan_moments(st, parts[0][0].numel() // groups)
+            ms = torch.stack([mean, torch.rsqrt(torch.clamp(var, min=0.0) + eps)], dim=-1)
+            return torch.cat([apply_fn(h, w, b, ms, groups=groups, silu=silu, add=add)
+                              for h in parts], dim=2)
+
+        got = split(gn.group_norm_stats, gn.group_norm_apply)
+        want = gn.group_norm_plain(x, w, b, groups=groups, eps=eps, silu=silu, add=add)
+        one = gn.group_norm(x, w, b, groups=groups, eps=eps, silu=silu, add=add)
+        half = halves[0]
+
+        def rank_split(stats_fn, apply_fn):
+            st = stats_fn(half, groups=groups, add=add)
+            m = st[..., 0]
+            ms = torch.stack([m, torch.rsqrt(st[..., 1] / (half[0].numel() // groups) + eps)],
+                             dim=-1)
+            return apply_fn(half, w, b, ms, groups=groups, silu=silu, add=add)
+
+        nbytes = 2 * half.numel() * 2 + (n * c * 2 if has_add else 0) + 2 * c * 2
+        label = f"split {k4_label(site)} halves"
+        tol = 2**-6 * want.float().abs().max().item()
+        cases.record("group_norm_split", label, got, want, tol, 1e-3,
+                     time_ms(lambda: rank_split(gn.group_norm_stats, gn.group_norm_apply)),
+                     time_ms(lambda: rank_split(gn.group_norm_stats_plain,
+                                                gn.group_norm_apply_plain), reps=5),
+                     bound(nbytes, (12 if silu else 8) * half.numel(), F32_FLOPS_PER_S), None,
+                     calls=SPLIT_K4_SITES[site])
+        diff = (got.float() - one.float())
+        err, rel = diff.abs().max().item(), (diff.norm() / one.float().norm()).item()
+        log(f"[norms]   {label} against the one-launch K4 on the whole tensor: max_abs_err "
+            f"{err:.3e} (tol {tol:.3e}), rel_l2 {rel:.3e} (tol 0.001)")
+        if not (err <= tol and rel <= 1e-3):
+            cases.failed.append(f"group_norm_split {label} against the one-launch K4")
+        del x, halves, half, got, want, one
         torch.cuda.empty_cache()
     k5_cases = [(k, 0.0) for k in K5_SITES] + [(max(K5_SITES), 8.0)]
     k5_cases += [(k, 0.0) for k in XL_K5_SITES if k not in K5_SITES]
@@ -4529,7 +4940,8 @@ def phase_train(pipe, kw, steps, card, tmp):
     and LoRA through their entry points, each gated; the trained concept and
     the saved LoRA through ``generate``; ms per step, peak GiB and a profiled
     step of each. Puts the pipeline's tokenizer and token table back as it
-    found them. Returns ({run: launches}, {trainer: profile})."""
+    found them. Returns ({run: launches}, {trainer: profile}, the runs'
+    results as phase_mesh holds the tp-2 runs against them)."""
     import numpy as np
     import torch
 
@@ -4663,7 +5075,13 @@ def phase_train(pipe, kw, steps, card, tmp):
     set_token_table(pipe, table0)
     if problems:
         raise SystemExit(f"[train] {problems}")
-    return launches, profiled
+    factors = {k: {n: t.numpy() for n, t in f.items()} for k, f in lora.factors.items()}
+    init = {"emb": table0[init_id].float().cpu().numpy()[None],
+            "lora": {k: {"a": jax_random.normal(jax_random.fold_in(jax_random.PRNGKey(0), i),
+                                                f["a"].shape) / 8.0,
+                         "b": np.zeros_like(f["b"])}
+                     for i, (k, f) in enumerate(sorted(factors.items()))}}
+    return launches, profiled, (ti.losses, ti.embedding.numpy(), lora.losses, factors, init)
 
 
 def main():
@@ -4703,13 +5121,13 @@ def main():
         raise SystemExit("[profile main] K1 is not one device kernel per call")
     phase_img2img(pipe, kw, args.steps)
     phase_utils(pipe, kw, smi)
-    mlaunches = phase_mesh(pipe, smi)
+    tmp = tempfile.mkdtemp(prefix="pww_adapters_")
+    atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+    tlaunches, tprofiled, train_ref = phase_train(pipe, kw, args.steps, smi, tmp)
+    mlaunches = phase_mesh(pipe, smi, train_ref)
     blaunches, bprofiled = phase_serve(pipe, args.steps)
     phase_extras_reference()
     elaunches, eprofiled = phase_extras(pipe, kw, args.steps)
-    tmp = tempfile.mkdtemp(prefix="pww_adapters_")
-    atexit.register(shutil.rmtree, tmp, ignore_errors=True)
-    tlaunches, tprofiled = phase_train(pipe, kw, args.steps, smi, tmp)
     phase_adapters_reference()
     alaunches, aprofiled, enc_dir = phase_adapters(pipe, kw, args.steps, smi, tmp)
     del pipe, kw
@@ -4791,6 +5209,20 @@ def main():
             **({"train_cases": tcases} if name == "flash_self_attention" else {}),
             cases=cs,
         ))
+    # K4's split form: launched on the spatial inpaint path (phase_mesh, dp 2,
+    # rank 0's count: one statistics and one apply launch per GroupNorm site)
+    split = cases["group_norm_split"]
+    top = split[0]
+    kernels.append(dict(
+        name="group_norm_split", route="cuda", source="pww_tpu_torch/csrc/group_norm.cu",
+        replaces="pww_tpu/ops/group_norm.py:231",
+        launches=mlaunches["spatial_inpaint"]["group_norm_stats"],
+        apply_launches=mlaunches["spatial_inpaint"]["group_norm_apply"],
+        max_abs_err=max(c["max_abs_err"] for c in split),
+        rel_l2_err=max(c["rel_l2_err"] for c in split),
+        ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by=top["bound_by"], library_ms=top["library_ms"], shape=top["case"],
+        loss_ms_per_run=loss_ms_per_run(split), cases=split))
     log(f"[jax random] host ms per draw: {jax_random_ms}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

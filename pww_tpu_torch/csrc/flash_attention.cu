@@ -26,9 +26,12 @@
 // between the two products touches shared memory. Tiles are 16-column slabs
 // with the 32-byte swizzle (one TMA box per slab), so each k16 step of
 // Q K^T is one slab: dh 40 takes three, the last one's columns 40-47
-// zero-filled by the copy as lying outside the tensor. A 3-D tensor map over
-// (B·H, L, dh) zero-fills keys and queries past L too; those keys are masked
-// to -inf and those rows are not stored.
+// zero-filled by the copy as lying outside the tensor. The queries and the
+// keys may differ in length (Lq, Lk: a spatially sharded site's rows against
+// the whole image's keys): the Q map and the grid take Lq, the K/V maps and
+// the key-tile loop Lk. 3-D tensor maps over (B·H, Lq or Lk, dh) zero-fill
+// queries past Lq and keys past Lk; those keys are masked to -inf (a zero
+// fill would score 0) and those rows are not stored.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,12 +66,13 @@ struct Cfg {
 template <class C>
 __global__ void __launch_bounds__(C::THREADS) flash_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int L, float scale_log2e) {
+    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int Lq, int Lk,
+    float scale_log2e) {
   extern __shared__ __align__(1024) unsigned char smem[];
   // slabs on 1 KB boundaries, so the swizzle pattern starts where wgmma expects
   const uint32_t base = (pww::smem_u32(smem) + 1023) & ~1023u;
   const uint32_t qbar = base + C::BAR_OFF, full = qbar + 8, empty = full + 8 * C::STAGES;
-  const int tiles = (L + C::BN - 1) / C::BN;
+  const int tiles = (Lk + C::BN - 1) / C::BN;
   const int bh = blockIdx.y, q0 = blockIdx.x * C::BM;
 
   if (threadIdx.x == 0) {
@@ -126,7 +130,7 @@ __global__ void __launch_bounds__(C::THREADS) flash_kernel(
     pww::wgmma_wait<0>();
     pww::fence_regs(sf);
 
-    if ((j + 1) * C::BN > L) pww::mask_keys<C::NT>(s, j * C::BN, L, lane);
+    if ((j + 1) * C::BN > Lk) pww::mask_keys<C::NT>(s, j * C::BN, Lk, lane);
     pww::softmax_step<C::NT>(s, m, l, alpha, scale_log2e);
     pww::rescale<C::NO>(o, alpha);
     uint32_t p[C::NT / 2][4];
@@ -145,7 +149,8 @@ __global__ void __launch_bounds__(C::THREADS) flash_kernel(
     pww::fence_regs(of);
     pww::mbar_arrive(empty + 8 * st);
   }
-  pww::store_rows<C::NO>(out + (size_t)bh * L * C::DH, o, l, q0 + wg * 64 + warp * 16, L, lane);
+  pww::store_rows<C::NO>(out + (size_t)bh * Lq * C::DH, o, l, q0 + wg * 64 + warp * 16, Lq,
+                         lane);
 }
 
 // cuTensorMapEncodeTiled looked up through the runtime, so that the
@@ -184,19 +189,19 @@ bool slab_map(CUtensorMap* map, const void* ptr, int BH, int L, int dh, int rows
 }
 
 template <class C>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int BH, int L,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int BH, int Lq,
+                   int Lk, float scale, cudaStream_t stream) {
   static std::atomic<unsigned long long> smem_set{0};
   cudaError_t e = pww::allow_max_shared_memory(reinterpret_cast<const void*>(flash_kernel<C>),
                                                smem_set);
   if (e != cudaSuccess) return e;
   CUtensorMap tq, tk, tv;
-  if (!slab_map(&tq, q, BH, L, C::DH, C::BM) || !slab_map(&tk, k, BH, L, C::DH, C::BN) ||
-      !slab_map(&tv, v, BH, L, C::DH, C::BN))
+  if (!slab_map(&tq, q, BH, Lq, C::DH, C::BM) || !slab_map(&tk, k, BH, Lk, C::DH, C::BN) ||
+      !slab_map(&tv, v, BH, Lk, C::DH, C::BN))
     return cudaErrorInvalidValue;
-  const dim3 grid((L + C::BM - 1) / C::BM, BH);
+  const dim3 grid((Lq + C::BM - 1) / C::BM, BH);
   flash_kernel<C><<<grid, C::THREADS, C::SMEM, stream>>>(tq, tk, tv, static_cast<bf16*>(out),
-                                                         L, scale * 1.4426950408889634f);
+                                                         Lq, Lk, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -204,16 +209,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 
 extern "C" {
 
-// q, k, v, out: contiguous (B·H, L, dh) bf16, 16-byte aligned; dh one of
-// 40, 64, 80, 160.
+// q, out: contiguous (B·H, Lq, dh) bf16; k, v: (B·H, Lk, dh); 16-byte
+// aligned; dh one of 40, 64, 80, 160. Lq = Lk is the self-attention of one
+// process, with the same launch as before Lk existed.
 int flash_self_attention(const void* q, const void* k, const void* v, void* out,
-                         int BH, int L, int dh, float scale, void* stream) {
+                         int BH, int Lq, int Lk, int dh, float scale, void* stream) {
+  if (BH <= 0 || Lq <= 0 || Lk <= 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 40: return launch<Cfg<40, 64, 3, 3>>(q, k, v, out, BH, L, scale, st);
-    case 64: return launch<Cfg<64, 128, 2, 2>>(q, k, v, out, BH, L, scale, st);
-    case 80: return launch<Cfg<80, 128, 2, 2>>(q, k, v, out, BH, L, scale, st);
-    case 160: return launch<Cfg<160, 64, 2, 2>>(q, k, v, out, BH, L, scale, st);
+    case 40: return launch<Cfg<40, 64, 3, 3>>(q, k, v, out, BH, Lq, Lk, scale, st);
+    case 64: return launch<Cfg<64, 128, 2, 2>>(q, k, v, out, BH, Lq, Lk, scale, st);
+    case 80: return launch<Cfg<80, 128, 2, 2>>(q, k, v, out, BH, Lq, Lk, scale, st);
+    case 160: return launch<Cfg<160, 64, 2, 2>>(q, k, v, out, BH, Lq, Lk, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -42,12 +42,27 @@
 // no bulk copies (kVectors = false): the threads fill the shared memory.
 // The pre-add is rounded to bf16 before the statistics, as the unfused
 // `h + t` in bf16 is (pww_tpu/ops/group_norm.py:96-100).
+//
+// The split form, for a site whose rows are cut over ranks (a spatially
+// sharded call, pww_tpu_torch/parallel/spatial.py), as the JAX package's
+// chunked scheme (the sums kernel _gn_stats_kernel, a group combine, the
+// apply kernel _gn_apply_kernel) is split:
+//   * gn_stats: a cluster of up to 8 CTAs per (sample, group) streams the
+//     rank's span once and folds the CTAs' (Σv, Σv²) in rank order through
+//     distributed shared memory, as gn_cluster does; CTA 0 writes the f32
+//     (mean, M2) of the span, M2 = count·max(E[v²] − mean², 0).
+//   * the caller combines the ranks' pairs (Chan's rule, in rank order) and
+//     forms (mean, rstd) per (sample, group);
+//   * gn_apply: y = (v − mean)·rstd·w[c] + b[c] (then SiLU), elementwise
+//     over x with 16-byte loads and stores, a grid-stride loop.
+// Both read x + add rounded to bf16, as gn_cluster does.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <atomic>
 
 #include "common.cuh"
@@ -371,6 +386,140 @@ cudaError_t launch(const void* x, const void* add, const void* weight, const voi
   return cudaGetLastError();
 }
 
+// grid: cluster · N·G CTAs in clusters of `cluster` (1-8) along x; 256
+// threads; dynamic shared memory: the group's add per channel (f32).
+template <bool kVectors>
+__global__ void __launch_bounds__(256) gn_stats(const __nv_bfloat16* __restrict__ x,
+                                                const __nv_bfloat16* __restrict__ add, int C,
+                                                int HW, int G, int cluster, int piece,
+                                                float2* __restrict__ stats) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float2 warp_part[kMaxWarps];
+  __shared__ float2 pair;
+  const int cpg = C / G, span = cpg * HW;
+  const int ng = blockIdx.x / cluster, rank = blockIdx.x - ng * cluster;
+  const int n = ng / G, c0 = (ng - n * G) * cpg;
+  const int p0 = min(rank * piece, span), p1 = min(p0 + piece, span);
+  float* addc = reinterpret_cast<float*>(smem);
+  for (int i = threadIdx.x; i < cpg; i += blockDim.x)
+    addc[i] = add == nullptr ? 0.f : __bfloat162float(add[(size_t)n * C + c0 + i]);
+  __syncthreads();
+  const Group gr{x + (size_t)ng * span, nullptr, 0, addc, nullptr, nullptr, HW, add != nullptr};
+  float s = 0.f, ss = 0.f;
+  sum_range<kVectors>(gr, gr.x, 0, p0, p1, s, ss);
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) warp_part[threadIdx.x >> 5] = make_float2(s, ss);
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const float2 p = lane < (int)(blockDim.x >> 5) ? warp_part[lane] : make_float2(0.f, 0.f);
+    const float ps = warp_sum(p.x), pss = warp_sum(p.y);
+    if (lane == 0) pair = make_float2(ps, pss);
+  }
+  if (cluster > 1) {
+    pww::cluster_arrive();
+    pww::cluster_wait();
+  } else {
+    __syncthreads();
+  }
+  if (rank == 0 && threadIdx.x < 32) {  // CTA 0 folds the cluster's pairs in rank order
+    float2 p = make_float2(0.f, 0.f);
+    if (cluster == 1) {
+      if (lane == 0) p = pair;
+    } else if (lane < cluster) {
+      p = pww::cluster_load_f2(pww::cluster_map(pww::smem_u32(&pair), lane));
+    }
+    float ts = __shfl_sync(0xffffffffu, p.x, 0), tss = __shfl_sync(0xffffffffu, p.y, 0);
+    for (int r = 1; r < cluster; ++r) {
+      ts += __shfl_sync(0xffffffffu, p.x, r);
+      tss += __shfl_sync(0xffffffffu, p.y, r);
+    }
+    if (lane == 0) {
+      const float count = (float)span;
+      const float mean = ts / count;
+      stats[ng] = make_float2(mean, count * fmaxf(tss / count - mean * mean, 0.f));
+    }
+  }
+  if (cluster > 1) {  // no CTA leaves while CTA 0 may read its pair
+    pww::cluster_arrive();
+    pww::cluster_wait();
+  }
+}
+
+// stats: (N·G) f32 (mean, rstd); a grid-stride loop over x, kStep elements
+// (one channel's) per load.
+template <bool kVectors>
+__global__ void __launch_bounds__(256) gn_apply(const __nv_bfloat16* __restrict__ x,
+                                                const __nv_bfloat16* __restrict__ add,
+                                                const void* __restrict__ weight,
+                                                const void* __restrict__ bias,
+                                                const float2* __restrict__ stats,
+                                                void* __restrict__ out, int C, int HW, int G,
+                                                long long total, int silu, int param_bf16,
+                                                int out_f32) {
+  constexpr int kStep = Walk<kVectors>::kStep;
+  const int cpg = C / G;
+  const long long stride = (long long)gridDim.x * blockDim.x * kStep;
+  for (long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * kStep; i < total;
+       i += stride) {
+    const long long nc = i / HW;
+    const int c = (int)(nc % C), n = (int)(nc / C);
+    const float2 st = stats[(size_t)n * G + c / cpg];
+    const float a_c = add == nullptr ? 0.f : __bfloat162float(add[nc]);
+    const float sc = st.y * param(weight, c, param_bf16);
+    const float sh = fmaf(-st.x, sc, param(bias, c, param_bf16));
+    float v[kStep];
+    load_vals<kStep>(x + i, v);
+#pragma unroll
+    for (int j = 0; j < kStep; ++j) {
+      float y = fmaf(with_add(v[j], a_c, add != nullptr), sc, sh);
+      if (silu) y = __fdividef(y, 1.f + __expf(-y));
+      v[j] = y;
+    }
+    if constexpr (kVectors) {
+      if (out_f32) {
+        float4* q = reinterpret_cast<float4*>(static_cast<float*>(out) + i);
+        q[0] = make_float4(v[0], v[1], v[2], v[3]);
+        q[1] = make_float4(v[4], v[5], v[6], v[7]);
+      } else {
+        uint4 raw;
+        __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int j = 0; j < kVec / 2; ++j) q[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) + i) = raw;
+      }
+    } else if (out_f32) {
+      static_cast<float*>(out)[i] = v[0];
+    } else {
+      static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(v[0]);
+    }
+  }
+}
+
+template <bool kVectors>
+cudaError_t launch_stats(const void* x, const void* add, void* stats, int N, int C, int HW,
+                         int G, int cluster, int piece, cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(cluster * N * G));
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = round16(4 * (C / G));
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, gn_stats<kVectors>,
+                                     static_cast<const __nv_bfloat16*>(x),
+                                     static_cast<const __nv_bfloat16*>(add), C, HW, G, cluster,
+                                     piece, static_cast<float2*>(stats));
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -435,6 +584,53 @@ int group_norm(const void* x, const void* add, const void* weight, const void* b
                                 resident, threads, eps, silu, param_bf16, out_f32, st)
                  : launch<false>(x, add, weight, bias, out, N, C, HW, G, cluster, piece,
                                  resident, threads, eps, silu, param_bf16, out_f32, st);
+}
+
+// The split form's statistics: x (N, C, HW) contiguous bf16 (a rank's rows
+// of each channel), add (N, C) bf16 or null; stats (N·G) f32 pairs (mean,
+// M2) over each (sample, group)'s C/G·HW elements. `cluster` (1, 2, 4 or 8)
+// CTAs of 256 threads per (sample, group), each owning `piece` elements (a
+// multiple of 8; cluster · piece ≥ the span): ops/group_norm.py:
+// group_norm_stats_plan.
+int group_norm_stats(const void* x, const void* add, void* stats, int N, int C, int HW, int G,
+                     int cluster, int piece, void* stream) {
+  if (G <= 0 || C % G || HW <= 0 || N <= 0) return cudaErrorInvalidValue;
+  const long long span = (long long)(C / G) * HW;
+  if ((cluster & (cluster - 1)) || cluster < 1 || cluster > 8 || piece % kVec || piece <= 0 ||
+      (long long)cluster * piece < span || span + piece > INT_MAX ||
+      (long long)cluster * N * G > INT_MAX) {
+    return cudaErrorInvalidValue;
+  }
+  const bool vectors = HW % kVec == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return vectors ? launch_stats<true>(x, add, stats, N, C, HW, G, cluster, piece, st)
+                 : launch_stats<false>(x, add, stats, N, C, HW, G, cluster, piece, st);
+}
+
+// The split form's normalization: x (N, C, HW) contiguous bf16, add (N, C)
+// bf16 or null, weight/bias (C,) f32 (param_bf16 = 0) or bf16, stats (N·G)
+// f32 pairs (mean, rstd); out (N, C, HW) bf16 (out_f32 = 0) or f32.
+int group_norm_apply(const void* x, const void* add, const void* weight, const void* bias,
+                     const void* stats, void* out, int N, int C, int HW, int G, int silu,
+                     int param_bf16, int out_f32, void* stream) {
+  if (G <= 0 || C % G || HW <= 0 || N <= 0) return cudaErrorInvalidValue;
+  const long long total = (long long)N * C * HW;
+  const bool vectors = HW % kVec == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const long long units = vectors ? total / kVec : total;
+  const int blocks = (int)std::min<long long>((units + 255) / 256, 132LL * 8);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const __nv_bfloat16* ab = static_cast<const __nv_bfloat16*>(add);
+  const float2* sb = static_cast<const float2*>(stats);
+  if (vectors) {
+    gn_apply<true><<<blocks, 256, 0, st>>>(xb, ab, weight, bias, sb, out, C, HW, G, total, silu,
+                                           param_bf16, out_f32);
+  } else {
+    gn_apply<false><<<blocks, 256, 0, st>>>(xb, ab, weight, bias, sb, out, C, HW, G, total,
+                                            silu, param_bf16, out_f32);
+  }
+  return cudaGetLastError();
 }
 
 }  // extern "C"

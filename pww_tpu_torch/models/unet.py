@@ -41,7 +41,22 @@ combined over tp, a callable gets the gathered scores, SAG the gathered
 probabilities. Blocks whose head count tp does not divide run whole on
 every rank with no collective: SD-2.1's 5-head level at tp 2 (at tp 4
 its 5- and 10-head levels), SDXL's 10-head level at tp 4, the tiny
-configs (4 heads) at tp 8.
+configs (4 heads) at tp 8. Under autograd the collectives carry the
+gradient (:mod:`pww_tpu_torch.parallel.tp`): each cut layer's replicated
+input enters through :meth:`~pww_tpu_torch.parallel.tp.TensorParallel.enter`.
+
+Spatial sharding (:mod:`pww_tpu_torch.parallel.spatial`, active for a
+``generate(sharding="spatial")`` call): each rank holds its block of rows
+at every level; the 3×3 convolutions exchange a row with each neighbour,
+the stride-2 downsample takes the row above, the GroupNorms combine their
+moments over dp, a self-attention's queries (this rank's rows) attend the
+keys and values gathered over dp, a cross-attention looks its PwW bias up
+by the whole site's count and keeps its rows, and K1's (or the dense
+path's) reduction is combined over dp (then over tp as well). The
+dispatch thresholds test the whole site's token count, so that a site
+takes the kernel it takes in one process; K3 then runs at Lq = L/dp
+against Lk = L. ToMe's matching, FreeU's filter, SAG's probabilities and a
+custom weight function see the whole site, on gathered rows.
 """
 from __future__ import annotations
 
@@ -62,6 +77,7 @@ from ..ops.group_norm import group_norm_site
 from ..ops.layer_norm import layer_norm_site
 from ..ops.tome import build_token_merge
 from ..ops.weight_functions import CustomWeightFunction
+from ..parallel import spatial
 from ..parallel.tp import row_parallel
 from ..types import IpState, PwwState
 
@@ -122,9 +138,10 @@ class ResnetBlock2D(nn.Module):
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         fused = self.fused_norm
-        h = self.conv1(group_norm_site(self.norm1, x, fused=fused, silu=True))
+        h = spatial.conv(self.conv1, group_norm_site(self.norm1, x, fused=fused, silu=True))
         t = self.time_emb_proj(F.silu(temb))
-        h = self.conv2(group_norm_site(self.norm2, h, fused=fused, silu=True, add=t))
+        h = spatial.conv(self.conv2, group_norm_site(self.norm2, h, fused=fused, silu=True,
+                                                     add=t))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -149,6 +166,8 @@ class FeedForward(nn.Module):
         self.tp = None  # parallel.mesh.shard_params: 1/tp of the inner width
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = self.tp.enter(x)
         return row_parallel(self.net[2], self.net[0](x), self.tp)
 
 
@@ -173,58 +192,91 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 pww: Optional[PwwState] = None,
                 sag_probs: Optional[List[torch.Tensor]] = None,
-                ip: Optional[IpState] = None) -> torch.Tensor:
+                ip: Optional[IpState] = None, sp: Optional[spatial.Spatial] = None,
+                ) -> torch.Tensor:
         """``sag_probs`` (self-attention only): a list that takes this site's
         f32 attention probabilities (B, H, L, L) for SAG; the site's output
         then comes from those probabilities in f32 too, as in
         ``pww_tpu/models/unet.py:163-176``, on every path. ``ip``: the
         image-prompt tokens, in the compute dtype, and the scale, rounded to
-        it, where this site has the IP branch."""
+        it, where this site has the IP branch. ``sp``: the spatial handle
+        where ``x`` holds this rank's rows of the site's tokens."""
         cfg, tp = self.cfg, self.tp
         is_self = context is None
+        if tp is not None:  # replicated inputs of the column-cut projections
+            x = tp.enter(x)
+            context = None if is_self else tp.enter(context)
         ctx = x if is_self else context
         heads = self.heads if tp is None else self.heads // tp.size
         q, k, v = (split_heads(t, heads)
                    for t in (self.to_q(x), self.to_k(ctx), self.to_v(ctx)))
         lq, dh = q.shape[2], q.shape[3]
-        bias_w = weight_fn = sigma = None
+        l_site = lq if sp is None else lq * sp.size  # the whole site's queries
+        if is_self and sp is not None:
+            k, v = sp.gather_tokens(k, v, dim=2)
+        bias_w = bias_rows = weight_fn = sigma = None
         if pww is not None and not is_self:
-            bias_w = pww.bias_for(lq)
+            bias_w = bias_rows = pww.bias_for(l_site)
+            if sp is not None and bias_w is not None:  # K2 takes it contiguous
+                bias_rows = sp.local_tokens(bias_w, 1).contiguous()
             weight_fn, sigma = pww.weight_fn, pww.sigma
+        groups = [g for g in (tp, sp) if g is not None]  # reductions combine over these
+        custom = isinstance(weight_fn, CustomWeightFunction)
+
+        def combined(mode, r, n_local, local_mean):
+            """A reduction over this rank's heads and rows, combined over tp,
+            then over dp (std: the next stage takes the combined mean)."""
+            for i, g in enumerate(groups):
+                mean_now = local_mean
+                r = g.combine_reduce(mode, r, n_local, mean_now)
+                if mode == "std" and i + 1 < len(groups):
+                    m = g.combine_reduce("mean", mean_now().float(), n_local, None)
+                    local_mean = lambda m=m: m  # noqa: E731
+                n_local *= g.size
+            return r
+
         if is_self and sag_probs is not None:
             s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * dh ** -0.5
             probs = torch.softmax(s, dim=-1)
-            sag_probs.append(probs if tp is None else tp.gather_heads(probs))
+            full = probs if tp is None else tp.gather_heads(probs)
+            if sp is not None:
+                full = sp.gather_tokens(full, dim=2, kind="rows")[0]
+            sag_probs.append(full)
             out = torch.matmul(probs, v.float()).to(v.dtype)
-        elif is_self and cfg.flash_attention and lq >= cfg.flash_min_seq and dh in HEAD_DIMS:
+        elif is_self and cfg.flash_attention and l_site >= cfg.flash_min_seq and dh in HEAD_DIMS:
             out = flash_self_attention(q, k, v)
         elif (bias_w is not None and cfg.fused_cross_attention
-              and lq >= cfg.fused_cross_min_seq and dh in HEAD_DIMS
-              and not isinstance(weight_fn, CustomWeightFunction)):
+              and l_site >= cfg.fused_cross_min_seq and dh in HEAD_DIMS and not custom):
             r = fused_pww_reduce(q, k, weight_fn)
-            if tp is not None:
+            if groups:
                 mean_fn = dataclasses.replace(weight_fn, reduce_mode="mean")
-                r = tp.combine_reduce(weight_fn.reduce_mode, r, heads * lq * k.shape[2],
-                                      lambda: fused_pww_reduce(q, k, mean_fn))
-            out = fused_pww_cross_attention(q, k, v, bias_w, weight_fn.sigma_coef(sigma) * r)
-        elif tp is not None and bias_w is not None and isinstance(weight_fn, CustomWeightFunction):
-            # the callable sees every head: the site runs whole, each rank keeps its heads
-            out = tp.local_heads(pww_attention(*map(tp.gather_heads, (q, k, v)), bias_w=bias_w,
-                                               weight_fn=weight_fn, sigma=sigma))
+                r = combined(weight_fn.reduce_mode, r, heads * lq * k.shape[2],
+                             lambda: fused_pww_reduce(q, k, mean_fn))
+            out = fused_pww_cross_attention(q, k, v, bias_rows, weight_fn.sigma_coef(sigma) * r)
+        elif groups and bias_w is not None and custom:
+            # the callable sees every head and row: the site runs whole, each
+            # rank keeps its heads and rows
+            qw, kw, vw = (q, k, v) if tp is None else map(tp.gather_heads, (q, k, v))
+            if sp is not None:
+                qw = sp.gather_tokens(qw, dim=2, kind="rows")[0]
+            out = pww_attention(qw, kw, vw, bias_w=bias_w, weight_fn=weight_fn, sigma=sigma)
+            out = out if tp is None else tp.local_heads(out)
+            out = out if sp is None else sp.local_tokens(out, 2)
         else:
             reduce = None
-            if tp is not None and weight_fn is not None:
-                def reduce(s):  # this rank's heads' reduction, combined over tp
+            if groups and weight_fn is not None:
+                def reduce(s):  # this rank's heads' and rows' reduction, combined
                     r = weight_fn.reduce_qk(s, batch_axes=1)
-                    return tp.combine_reduce(weight_fn.reduce_mode, r.reshape(-1), s[0].numel(),
-                                             lambda: s.mean(dim=(1, 2, 3))).reshape(r.shape)
-            out = pww_attention(q, k, v, bias_w=bias_w, weight_fn=weight_fn,
+                    return combined(weight_fn.reduce_mode, r.reshape(-1), s[0].numel(),
+                                    lambda: s.mean(dim=(1, 2, 3))).reshape(r.shape)
+            out = pww_attention(q, k, v, bias_w=bias_rows, weight_fn=weight_fn,
                                 sigma=sigma, reduce=reduce)
         if self.has_ip:
             if ip is None:
                 raise ValueError("ip_adapter_tokens is set: pass an IpState operand")
-            out_ip = pww_attention(q, split_heads(self.to_k_ip(ip.tokens), heads),
-                                   split_heads(self.to_v_ip(ip.tokens), heads))
+            tokens = ip.tokens if tp is None else tp.enter(ip.tokens)
+            out_ip = pww_attention(q, split_heads(self.to_k_ip(tokens), heads),
+                                   split_heads(self.to_v_ip(tokens), heads))
             out = out + ip.scale * out_ip
         return row_parallel(self.to_out[0], merge_heads(out), tp)
 
@@ -241,18 +293,23 @@ class BasicTransformerBlock(nn.Module):
         self.fused_norm = cfg.fused_layer_norm
 
     def forward(self, x, context, pww, grid=None, tome_ratio: float = 0.0, sag_probs=None,
-                ip=None):
+                ip=None, sp=None):
         """``tome_ratio`` > 0 with the token ``grid`` (h, w): ToMe around
         ``attn1``, the block input as the similarity metric
-        (``pww_tpu/models/unet.py:264-275``)."""
+        (``pww_tpu/models/unet.py:264-275``). ``sp``: the spatial handle
+        where ``x`` holds this rank's rows of the (whole) ``grid``; ToMe then
+        matches and runs ``attn1`` on the gathered rows."""
         fused = self.fused_norm
         h = layer_norm_site(self.norm1, x, fused=fused)
         if tome_ratio > 0.0 and grid is not None:
-            merge, unmerge, _ = build_token_merge(x, grid[0], grid[1], tome_ratio)
-            x = x + unmerge(self.attn1(merge(h)))
+            xw, hw = (x, h) if sp is None else sp.gather_tokens(x, h, dim=1, kind="rows")
+            merge, unmerge, _ = build_token_merge(xw, grid[0], grid[1], tome_ratio)
+            y = unmerge(self.attn1(merge(hw)))
+            x = x + (y if sp is None else sp.local_tokens(y, 1))
         else:
-            x = x + self.attn1(h, sag_probs=sag_probs)
-        x = x + self.attn2(layer_norm_site(self.norm2, x, fused=fused), context, pww, ip=ip)
+            x = x + self.attn1(h, sag_probs=sag_probs, sp=sp)
+        x = x + self.attn2(layer_norm_site(self.norm2, x, fused=fused), context, pww, ip=ip,
+                           sp=sp)
         return x + self.ff(layer_norm_site(self.norm3, x, fused=fused))
 
 
@@ -277,11 +334,13 @@ class Transformer2DModel(nn.Module):
         max_downsample=1); ``sag_probs`` goes to block 0's ``attn1``, ``ip``
         to every block's ``attn2``."""
         b, c, h, w = x.shape
+        sp = spatial.site(x)
+        grid = (h if sp is None else sp.site_height(w), w)  # the whole site's
         z = self.proj_in(group_norm_site(self.norm, x, fused=self.fused_norm))
         z = z.permute(0, 2, 3, 1).reshape(b, h * w, c).contiguous()
-        tome = tome_ratio if h * w >= self.tome_min_tokens else 0.0
+        tome = tome_ratio if grid[0] * w >= self.tome_min_tokens else 0.0
         for i, blk in enumerate(self.transformer_blocks):
-            z = blk(z, context, pww, (h, w), tome, sag_probs if i == 0 else None, ip)
+            z = blk(z, context, pww, grid, tome, sag_probs if i == 0 else None, ip, sp)
         z = z.reshape(b, h, w, c).permute(0, 3, 1, 2)
         return self.proj_out(z) + x
 
@@ -292,7 +351,7 @@ class Downsample2D(nn.Module):
         self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
 
     def forward(self, x):
-        return self.conv(x)
+        return spatial.down_conv(self.conv, x)
 
 
 class Upsample2D(nn.Module):
@@ -301,7 +360,8 @@ class Upsample2D(nn.Module):
         self.conv = nn.Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x):
-        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+        x = spatial.settle(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+        return spatial.conv(self.conv, x)
 
 
 class DownBlock(nn.Module):
@@ -372,7 +432,7 @@ class UpBlock(nn.Module):
             if freeu is not None:
                 half = x.shape[1] // 2
                 x = torch.cat([x[:, :half] * freeu[0], x[:, half:]], dim=1)
-                skip = fourier_filter(skip, 1, freeu[1])
+                skip = spatial.whole_site(lambda s: fourier_filter(s, 1, freeu[1]), skip)
             x = resnet(torch.cat([x, skip], dim=1), temb)
             if self.attentions is not None:
                 x = self.attentions[i](x, ctx, pww, tome_ratio, ip=ip)
@@ -533,7 +593,7 @@ class UNet2DConditionModel(nn.Module):
         if ip is not None:  # the tokens and the scale in the compute dtype, once
             ip = IpState(ip.tokens.to(dtype),
                          float(torch.tensor(ip.scale, dtype=torch.float32).to(dtype)))
-        x = self.conv_in(sample.to(dtype))
+        x = spatial.conv(self.conv_in, sample.to(dtype))
         skips = [x]
         n = len(self.up_blocks)
 
@@ -575,5 +635,5 @@ class UNet2DConditionModel(nn.Module):
         return (out, feature) if cache_mode == "collect" else out
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv_out(group_norm_site(self.conv_norm_out, x, silu=True,
-                                             fused=self.config.fused_group_norm))
+        return spatial.conv(self.conv_out, group_norm_site(
+            self.conv_norm_out, x, silu=True, fused=self.config.fused_group_norm))

@@ -6,6 +6,14 @@ parameter names (``encoder.*``, ``quant_conv.*``, ``post_quant_conv.*``,
 ``decoder.*``; the mid attention uses the current ``to_q``/``to_k``/
 ``to_v``/``to_out.0``/``group_norm`` naming). GroupNorms (eps 1e-6) compute
 in f32, or run kernel K4 with ``VAEConfig.fused_group_norm``.
+
+The decoder runs spatially sharded inside a ``generate(sharding="spatial")``
+call (:mod:`pww_tpu_torch.parallel.spatial`): each rank decodes its rows of
+the latents, its 3×3 convolutions exchanging a row with each neighbour,
+its GroupNorms combining their moments over dp, and its mid-block
+attention's queries attending the keys and values gathered over dp. The
+encoder runs whole on every rank (the JAX package encodes the init image
+before it places the init latents).
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ from torch import nn
 from ..conditioning.seeding import normal_nchw
 from ..config import VAEConfig
 from ..ops.group_norm import group_norm_site
+from ..parallel import spatial
 
 
 class VAEResnetBlock(nn.Module):
@@ -29,8 +38,10 @@ class VAEResnetBlock(nn.Module):
         self.conv_shortcut = nn.Conv2d(c_in, c_out, 1) if c_in != c_out else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(group_norm_site(self.norm1, x, fused=self.fused_norm, silu=True))
-        h = self.conv2(group_norm_site(self.norm2, h, fused=self.fused_norm, silu=True))
+        h = spatial.conv(self.conv1, group_norm_site(self.norm1, x, fused=self.fused_norm,
+                                                     silu=True))
+        h = spatial.conv(self.conv2, group_norm_site(self.norm2, h, fused=self.fused_norm,
+                                                     silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -50,9 +61,12 @@ class VAEAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
+        sp = spatial.site(x)
         z = group_norm_site(self.group_norm, x, fused=self.fused_norm)
         z = z.reshape(b, c, h * w).transpose(1, 2)
         q, k, v = self.to_q(z), self.to_k(z), self.to_v(z)
+        if sp is not None:  # this rank's rows' queries, every row's keys
+            k, v = sp.gather_tokens(k, v, dim=1)
         scores = torch.matmul(q.float(), k.float().transpose(1, 2))
         probs = torch.softmax(scores * c ** -0.5, dim=-1).to(v.dtype)
         out = self.to_out[0](torch.matmul(probs, v))
@@ -65,7 +79,8 @@ class VAEUpsample(nn.Module):
         self.conv = nn.Conv2d(c, c, 3, padding=1)
 
     def forward(self, x):
-        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+        x = spatial.settle(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+        return spatial.conv(self.conv, x)
 
 
 class VAEUpBlock(nn.Module):
@@ -160,11 +175,11 @@ class VAEDecoder(nn.Module):
         self.conv_out = nn.Conv2d(rev[-1], cfg.out_channels, 3, padding=1)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = self.mid_block(self.conv_in(z))
+        h = self.mid_block(spatial.conv(self.conv_in, z))
         for blk in self.up_blocks:
             h = blk(h)
-        return self.conv_out(group_norm_site(self.conv_norm_out, h, fused=self.fused_norm,
-                                             silu=True))
+        return spatial.conv(self.conv_out, group_norm_site(
+            self.conv_norm_out, h, fused=self.fused_norm, silu=True))
 
 
 class AutoencoderKL(nn.Module):

@@ -22,17 +22,26 @@ are counted in ``group_norm.launches``.
 :func:`group_norm_f32` is the unfused composition (``F.group_norm`` in f32,
 another variance formula) that the models run while the kernel's knob is
 off.
+
+The split form, for a site whose rows are cut over the ranks of a spatially
+sharded call (:mod:`pww_tpu_torch.parallel.spatial`): :func:`group_norm_stats`
+writes this rank's f32 (mean, M2) per (sample, group), the ranks' pairs are
+combined (Chan's rule), and :func:`group_norm_apply` normalizes with the
+given (mean, rstd). Both are CUDA kernels on the card (``csrc/group_norm.cu``:
+``group_norm_stats``, ``group_norm_apply``), each with its plain version and
+its ``.launches``; :func:`group_norm_site` takes that route by itself.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial
 from . import cuda_build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -201,11 +210,158 @@ def _launch(x, weight, bias, add, *, groups, eps, silu, out_dtype, plan) -> torc
 group_norm.launches = 0
 
 
+def group_norm_stats_plain(x: torch.Tensor, *, groups: int,
+                           add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain split K4 statistics: (N, G, 2) f32, each (sample, group)'s mean
+    and M2 = count · max(E[v²] − mean², 0) over ``x + add`` (in x's dtype)."""
+    n, c = x.shape[:2]
+    xf = _with_add(x, add).float().reshape(n, groups, -1)
+    mean = xf.mean(-1)
+    var = torch.clamp((xf * xf).mean(-1) - mean * mean, min=0.0)
+    return torch.stack([mean, var * xf.shape[-1]], dim=-1)
+
+
+def group_norm_apply_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                           stats: torch.Tensor, *, groups: int, silu: bool = False,
+                           add: Optional[torch.Tensor] = None,
+                           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain split K4 normalization with ``stats`` (N, G, 2) f32 (mean,
+    rstd): ``(v − mean)·rstd·w + b`` (then SiLU) in f32, cast."""
+    n, c = x.shape[:2]
+    xf = _with_add(x, add).float().reshape(n, groups, c // groups, -1)
+    mean, rstd = stats[..., 0, None, None], stats[..., 1, None, None]
+    mul = rstd * weight.float().reshape(1, groups, -1, 1)
+    y = (xf - mean) * mul + bias.float().reshape(1, groups, -1, 1)
+    if silu:
+        y = F.silu(y)
+    return y.reshape(x.shape).to(out_dtype or x.dtype)
+
+
+STATS_MAX_CLUSTER = 8  # the portable cluster size: no opt-in attribute
+
+
+def group_norm_stats_plan(span: int, spans: int) -> Tuple[int, int]:
+    """(cluster, piece) of ``csrc/group_norm.cu:gn_stats`` for ``spans``
+    (N·G) spans of ``span`` elements: the cluster doubles from 1 while the
+    grid stays within 4 CTAs per SM and the pieces at least ``MIN_PIECE``."""
+    def piece(n):
+        return ((span + n - 1) // n + 7) // 8 * 8
+
+    n = 1
+    while n < STATS_MAX_CLUSTER and spans * 2 * n <= 4 * SMS and piece(2 * n) >= MIN_PIECE:
+        n *= 2
+    return n, piece(n)
+
+
+def _split_inputs(what, x, add):
+    cuda_build.refuse_grad(what, x, add)
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError(f"{what}: the CUDA kernel takes contiguous bf16 NCHW on the card, "
+                         f"got {x.dtype} on {x.device}")
+    n, c = x.shape[:2]
+    if add is not None:
+        if add.shape != (n, c) or add.device != x.device:
+            raise ValueError(f"{what}: add must be ({n}, {c}) on {x.device}")
+        add = add.to(torch.bfloat16).contiguous()
+    return add
+
+
+def group_norm_stats(x: torch.Tensor, *, groups: int,
+                     add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Split K4, statistics: :func:`group_norm_stats_plain` on the CPU, one
+    launch of ``csrc/group_norm.cu:group_norm_stats`` on the card."""
+    if x.device.type == "cpu":
+        return group_norm_stats_plain(x, groups=groups, add=add)
+    add = _split_inputs("group_norm_stats", x, add)
+    n, c = x.shape[:2]
+    if x.dim() < 3 or c % groups or x.numel() == 0:
+        raise ValueError(f"group_norm_stats: {tuple(x.shape)} with {groups} groups")
+    hw = x[0, 0].numel()
+    cluster, piece = group_norm_stats_plan(c // groups * hw, n * groups)
+    stats = torch.empty((n, groups, 2), dtype=torch.float32, device=x.device)
+    fn = cuda_build.function("group_norm_stats", [_P] * 3 + [_I] * 6 + [_P])
+    cuda_build.check(fn(x.data_ptr(), 0 if add is None else add.data_ptr(), stats.data_ptr(),
+                        n, c, hw, groups, cluster, piece,
+                        torch.cuda.current_stream(x.device).cuda_stream), "group_norm_stats")
+    group_norm_stats.launches += 1
+    return stats
+
+
+def group_norm_apply(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     stats: torch.Tensor, *, groups: int, silu: bool = False,
+                     add: Optional[torch.Tensor] = None,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Split K4, normalization with ``stats`` (N, G, 2) f32 (mean, rstd):
+    :func:`group_norm_apply_plain` on the CPU, one launch of
+    ``csrc/group_norm.cu:group_norm_apply`` on the card."""
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return group_norm_apply_plain(x, weight, bias, stats, groups=groups, silu=silu,
+                                      add=add, out_dtype=out_dtype)
+    cuda_build.refuse_grad("group_norm_apply", weight, bias)
+    add = _split_inputs("group_norm_apply", x, add)
+    n, c = x.shape[:2]
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"group_norm_apply: the kernel writes bf16 or f32, not {out_dtype}")
+    if stats.shape != (n, groups, 2) or stats.dtype != torch.float32 or c % groups:
+        raise ValueError(f"group_norm_apply: stats must be ({n}, {groups}, 2) f32")
+    params = [p.contiguous() for p in (weight, bias)]
+    if params[0].dtype not in (torch.float32, torch.bfloat16) or params[0].shape != (c,):
+        raise ValueError(f"group_norm_apply: weight and bias must be ({c},) f32 or bf16")
+    params[1] = params[1].to(params[0].dtype)
+    stats = stats.contiguous()
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    fn = cuda_build.function("group_norm_apply", [_P] * 6 + [_I] * 7 + [_P])
+    cuda_build.check(fn(x.data_ptr(), 0 if add is None else add.data_ptr(),
+                        params[0].data_ptr(), params[1].data_ptr(), stats.data_ptr(),
+                        out.data_ptr(), n, c, x[0, 0].numel(), groups, int(silu),
+                        int(params[0].dtype == torch.bfloat16),
+                        int(out_dtype == torch.float32),
+                        torch.cuda.current_stream(x.device).cuda_stream), "group_norm_apply")
+    group_norm_apply.launches += 1
+    return out
+
+
+group_norm_stats.launches = 0
+group_norm_apply.launches = 0
+
+
+def _spatial_group_norm(sp, gn: nn.GroupNorm, x: torch.Tensor, fused: bool, silu: bool,
+                        add: Optional[torch.Tensor]) -> torch.Tensor:
+    """A GroupNorm site over this rank's rows: the rank's moments, combined
+    over the dp group (:meth:`~pww_tpu_torch.parallel.spatial.Spatial.
+    combine_moments`), then the affine. With the knob on, split K4 (the
+    statistics kernel, the combine, the apply kernel); off, f32 PyTorch."""
+    n, c = x.shape[:2]
+    g = gn.num_groups
+    count = c // g * x[0, 0].numel()
+    if fused:
+        x = x.contiguous()
+        st = group_norm_stats(x, groups=g, add=add)
+        mean, m2 = st[..., 0], st[..., 1]
+    else:
+        x = _with_add(x, add)
+        add = None
+        xf = x.float().reshape(n, g, -1)
+        mean = xf.mean(-1)
+        m2 = ((xf - mean[..., None]) ** 2).sum(-1)
+    mean, var = sp.combine_moments(mean, m2, count)
+    stats = torch.stack([mean, torch.rsqrt(torch.clamp(var, min=0.0) + gn.eps)], dim=-1)
+    if fused:
+        return group_norm_apply(x, gn.weight, gn.bias, stats, groups=g, silu=silu, add=add)
+    return group_norm_apply_plain(x, gn.weight, gn.bias, stats, groups=g, silu=silu)
+
+
 def group_norm_site(gn: nn.GroupNorm, x: torch.Tensor, *, fused: bool,
                     silu: bool = False, add: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A model's GroupNorm site: K4 (on a contiguous copy of x if it is not
     contiguous) when ``fused``, else the pre-add in x's dtype followed by
-    :func:`group_norm_f32`. The result has x's dtype."""
+    :func:`group_norm_f32`. The result has x's dtype. Over a rank's rows of
+    a spatially sharded call, the statistics are the whole image's
+    (:func:`_spatial_group_norm`)."""
+    sp = spatial.site(x)
+    if sp is not None:
+        return _spatial_group_norm(sp, gn, x, fused, silu, add)
     if fused:
         return group_norm(x.contiguous(), gn.weight, gn.bias, groups=gn.num_groups, eps=gn.eps,
                           silu=silu, add=add)

@@ -1,5 +1,6 @@
 """Multi-GPU execution: the (dp, tp) mesh, its sharding rules and a local
-launcher (:mod:`pww_tpu_torch.parallel.mesh`), and the dry run
+launcher (:mod:`pww_tpu_torch.parallel.mesh`), spatial sharding
+(:mod:`pww_tpu_torch.parallel.spatial`), and the dry run
 (:mod:`pww_tpu_torch.parallel.dryrun`)."""
 from .mesh import (  # noqa: F401
     DP_AXIS,
@@ -11,5 +12,6 @@ from .mesh import (  # noqa: F401
     replicate,
     shard_batch,
     shard_params,
+    shard_spatial,
     spawn,
 )

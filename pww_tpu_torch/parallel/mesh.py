@@ -12,6 +12,8 @@ array too).
     contiguous block of the samples (:func:`shard_batch`; every rank when
     dp does not divide them), and the results are gathered at the end
     (:func:`gather_batch`);
+  * **spatial** (``dp``, :mod:`.spatial`): one image's rows cut over the
+    ``"dp"`` group instead of its samples (:func:`shard_spatial`);
   * **tensor parallel** (``tp``): each rank of a ``"tp"`` group keeps
     ``heads / tp`` heads of every attention and ``1 / tp`` of every GEGLU
     feed-forward's inner width (:func:`shard_params`, :data:`_TP_RULES`);
@@ -178,24 +180,28 @@ def shard_params(module: torch.nn.Module, mesh) -> torch.nn.Module:
     return module
 
 
+def gather_cut(t: torch.Tensor, name: str, dim: int, full: int, mesh) -> torch.Tensor:
+    """The whole tensor whose :func:`cut_index` slices along ``dim`` (named
+    for ``name``'s rule) the tp ranks hold: gathered, each put back in its
+    place."""
+    _, size, group = tp_of(mesh)
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(size)]
+    dist.all_gather(parts, t, group=group)
+    shape = list(t.shape)
+    shape[dim] = full
+    idx = torch.cat([cut_index(name, full, r, size) for r in range(size)]).to(t.device)
+    return t.new_empty(shape).index_copy_(dim, idx, torch.cat(parts, dim=dim))
+
+
 def full_state(module: torch.nn.Module, mesh) -> Dict[str, torch.Tensor]:
     """The state dict the module had before :func:`shard_params`: every cut
     tensor gathered over tp and put back in its place."""
     state = module.state_dict()
     cuts = getattr(module, "tp_cuts", {})
-    if not cuts:
-        return state
-    rank, size, group = tp_of(mesh)
     out = dict(state)
     for name, (dim, full) in cuts.items():
-        t = state[name].contiguous()
-        parts = [torch.empty_like(t) for _ in range(size)]
-        dist.all_gather(parts, t, group=group)
-        shape = list(t.shape)
-        shape[dim] = full
-        whole = t.new_empty(shape)
-        idx = torch.cat([cut_index(name, full, r, size) for r in range(size)]).to(t.device)
-        out[name] = whole.index_copy_(dim, idx, torch.cat(parts, dim=dim))
+        out[name] = gather_cut(state[name], name, dim, full, mesh)
     return out
 
 
@@ -220,11 +226,16 @@ def gather_batch(x: torch.Tensor, mesh, n: int) -> torch.Tensor:
     return torch.cat(parts)
 
 
-def shard_spatial(latents, mesh):
-    """Spatial sharding (``pww_tpu/parallel/mesh.py:116-126``) is not ported
-    yet (ROADMAP A.20b)."""
-    raise NotImplementedError("shard_spatial is not ported to pww_tpu_torch yet "
-                              "(ROADMAP A.20b)")
+def shard_spatial(latents: torch.Tensor, mesh) -> torch.Tensor:
+    """This dp rank's block of the rows (height) of NCHW ``latents``; the
+    whole tensor where dp does not divide the height (JAX's fallback to
+    replication, ``pww_tpu/parallel/mesh.py:116-126``). A
+    ``generate(sharding="spatial")`` call cuts its latents so, and its
+    sites follow them (:mod:`pww_tpu_torch.parallel.spatial`)."""
+    from .spatial import Spatial
+
+    n, _, h, w = latents.shape
+    return Spatial(mesh, n, h, w).rows(latents)
 
 
 def replicate(tree, mesh):

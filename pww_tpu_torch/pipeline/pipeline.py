@@ -80,18 +80,25 @@ masked-content fill (from ``split(rng or PRNGKey(seed))``, in either
 noise mode), and the stochastic schedulers' step noise; ``"torch"`` draws
 the initial latent as the reference does.
 
-Multi-GPU (``pww_tpu/pipeline/pipeline.py:1876-1912, 2634-2670``):
-``PwwPipeline(mesh=make_mesh(dp, tp))`` on every rank of a process group;
-``generate(sharding="batch")`` and ``generate_batch`` draw the whole
-batch's noise, run each rank's samples (dp) on its heads (tp), and return
-the gathered result on every rank.
+Multi-GPU (``pww_tpu/pipeline/pipeline.py:1876-1912, 1977-1995,
+2634-2670``): ``PwwPipeline(mesh=make_mesh(dp, tp))`` on every rank of a
+process group; ``generate(sharding="batch")`` and ``generate_batch`` draw
+the whole batch's noise, run each rank's samples (dp) on its heads (tp),
+and return the gathered result on every rank. ``generate(sharding=
+"spatial")`` cuts one image's rows over dp instead
+(:class:`~pww_tpu_torch.parallel.spatial.Spatial`): every noise is drawn
+whole and cut, the text states, PwW weights and added conditions stay
+whole, a ControlNet runs whole on gathered latents and its residuals are
+cut, the decode is sharded too, and the latents are gathered before the
+callbacks and the return. :data:`SPATIAL_UNPORTED` lists the options that
+raise under it.
 
 Everything else the JAX pipeline's ``generate`` takes raises
-``NotImplementedError`` here (when on, for the options :data:`UNPORTED`
-lists with their ROADMAP items: spatial sharding).
+``NotImplementedError`` here (:data:`UNPORTED`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import math
@@ -114,6 +121,7 @@ from ..ops.resize import resize_linear_antialias, resize_nearest
 from ..ops.weight_functions import (AnyWeightFunction, CustomWeightFunction,
                                    as_weight_function)
 from ..parallel.mesh import full_state, gather_batch, shard_batch, shard_params
+from ..parallel.spatial import Spatial
 from ..schedulers.schedules import make_scheduler, step_noise, t_start_from_strength
 from ..types import IpState, PwwState
 from ..utils import jax_random
@@ -128,10 +136,13 @@ NO_STRENGTH_TRUNCATION = ("pndm", "heun", "unipc", "dpmpp_2m", "dpmpp_2m_sde")
 
 # The JAX pipeline's options that the port does not have yet: the value that
 # leaves each off, and the ROADMAP item that decides or ports it. Off, they
-# are accepted; on, they raise.
-UNPORTED = {
-    "sharding": ("batch", "A.20b (spatial sharding)"),
-}
+# are accepted; on, they raise. The port has them all.
+UNPORTED: Dict = {}
+
+# generate(sharding="spatial") together with these raises (ROADMAP A.20c)
+SPATIAL_UNPORTED = ("an LCM UNet (time_cond_proj_dim)", "a T2I-Adapter",
+                    "the IP-Adapter plus", "denoising_end / denoising_start (the refiner "
+                    "ensemble)", "generate_hires")
 
 
 def refuse_unported(where: str, options: Dict) -> None:
@@ -329,6 +340,21 @@ class BatchRows:
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows → all N, on every rank."""
         return x if self.mesh is None else gather_batch(x, self.mesh, self.n)
+
+    def hint(self, x: torch.Tensor) -> torch.Tensor:
+        """A ControlNet hint (N rows) → this rank's."""
+        return self.rows(x)
+
+    def whole_shape(self, lat: torch.Tensor):
+        """The shape of the whole draw whose rows ``lat`` holds."""
+        return (self.n, *lat.shape[1:])
+
+    def whole(self, fn: Callable, *xs):
+        """``fn`` on this rank's samples (spatial sharding's hook)."""
+        return fn(*xs)
+
+    def sites(self):
+        return contextlib.nullcontext()
 
 
 class PwwPipeline:
@@ -917,16 +943,29 @@ class PwwPipeline:
         rows to SAG's degraded pass; the ControlNet takes none
         (``pww_tpu/pipeline/pipeline.py:60-63, 147-148, 291, 361-369``).
 
-        ``shard``: on a mesh, this rank's cut of the N samples (default: no
-        mesh). Every input comes whole and is cut here, the step noise is
-        drawn for all N rows and cut, and the callback sees the gathered
-        latents; the loop returns this rank's rows.
+        ``shard``: on a mesh, this rank's cut of the N samples
+        (:class:`BatchRows`) or of the image's rows
+        (:class:`~pww_tpu_torch.parallel.spatial.Spatial`); default: no
+        mesh. Every input comes whole and is cut here, the step noise is
+        drawn whole and cut, and the callback sees the gathered latents;
+        the loop returns this rank's rows. Under a spatial cut the
+        ControlNets run whole on the gathered latents and SAG blurs the
+        gathered x0.
         """
         if shard is None:
             shard = BatchRows(None, latents.shape[0])
+        with shard.sites():
+            return self._denoise(latents, text_states, pww, schedule, guidance_scale, t_start,
+                                 extra, blend, seeds, control, adapter, added_cond, t_end,
+                                 callback, callback_steps, cache_interval, tome_ratio, freeu,
+                                 sag_scale, conds, ip, shard)
+
+    def _denoise(self, latents, text_states, pww, schedule, guidance_scale, t_start, extra,
+                 blend, seeds, control, adapter, added_cond, t_end, callback, callback_steps,
+                 cache_interval, tome_ratio, freeu, sag_scale, conds, ip, shard):
         latents, extra = shard.rows(latents), None if extra is None else shard.rows(extra)
         blend = None if blend is None else tuple(shard.rows(x) for x in blend)
-        control = [(net, shard.rows(h), sc) for net, h, sc in control or ()]
+        control = [(net, shard.hint(h), sc) for net, h, sc in control or ()]
         adapter = None if adapter is None else [shard.rows(a) for a in adapter]
         text_states, pww, added_cond = (shard.cfg(text_states), shard.pww(pww),
                                         shard.added(added_cond))
@@ -993,8 +1032,9 @@ class PwwPipeline:
                                                           for k, v in added_cond.items()}
                     down = mid = None
                     if control:
-                        down, mid = self._control_residuals(control, lat_c, t,
-                                                            text_states[half], p, ac)
+                        down, mid = shard.whole(
+                            lambda x: self._control_residuals(control, x, t,
+                                                              text_states[half], p, ac), lat_c)
                     outs.append(self.unet(lat_in, t, text_states[half], p, down, mid,
                                           adapter, ac, ip=None if ip is None else ip.rows(half),
                                           **extras).float())
@@ -1003,8 +1043,9 @@ class PwwPipeline:
                 lat2 = torch.cat([lat_c, lat_c])
                 down = mid = None
                 if control:
-                    down, mid = self._control_residuals(control, lat2, t, text_states, pww_t,
-                                                        added_cond)
+                    down, mid = shard.whole(
+                        lambda x: self._control_residuals(control, x, t, text_states, pww_t,
+                                                          added_cond), lat2)
                 if extra is not None:
                     lat2 = torch.cat([lat2, torch.cat([extra, extra])], dim=1)
                 args = (lat2, t, text_states, pww_t, down, mid, adapter, added_cond)
@@ -1022,8 +1063,8 @@ class PwwPipeline:
             if sag:
                 eps = eps + sag_scale * (eps_u - self._sag_degraded_eps(
                     lat, eps_u, probs[0][:n], i, schedule, t, text_states[:n], pww_t,
-                    added_cond, extras, None if ip is None else ip.rows(slice(0, n))))
-            noise = (shard.rows(step_noise(seeds, i, (shard.n, *lat.shape[1:]), self.device))
+                    added_cond, extras, None if ip is None else ip.rows(slice(0, n)), shard))
+            noise = (shard.rows(step_noise(seeds, i, shard.whole_shape(lat), self.device))
                      if schedule.needs_noise else None)
             lat, state = schedule.step(eps, i, lat, state, noise)
             if callback is not None and ((i + 1 - t_start) % callback_steps == 0
@@ -1036,19 +1077,24 @@ class PwwPipeline:
         return lat
 
     def _sag_degraded_eps(self, lat, eps_u, probs_u, i, schedule, t, text_u, pww_t,
-                          added_cond, extras, ip_u=None):
+                          added_cond, extras, ip_u=None, shard=None):
         """SAG's uncond ε on the degraded latents
         (``pww_tpu/pipeline/pipeline.py:263-294``): ``probs_u`` (N, H, L, L)
         are the uncond rows' mid-block probabilities, ``ip_u`` the uncond
-        rows' IP-Adapter tokens."""
-        n, _, h_lat, w_lat = lat.shape
-        down = 2 ** (len(self.config.unet.block_out_channels) - 1)
-        # an integer upscale, where torch's and jax.image.resize's nearest agree
-        mask = resize_nearest(sag_mask(probs_u).reshape(n, 1, h_lat // down, w_lat // down)
-                              .float(), h_lat, w_lat)
-        x0_u = schedule.pred_x0(eps_u, lat, i)
-        degraded = gaussian_blur(x0_u, 9, 1.0) * mask + x0_u * (1.0 - mask)
-        deg_lat = schedule.add_noise(degraded, eps_u, i)
+        rows' IP-Adapter tokens. Under a spatial cut the mask and the blur
+        take the gathered latents, and the degraded ones are cut again."""
+        def degrade(lat, eps_u):
+            n, _, h_lat, w_lat = lat.shape
+            down = 2 ** (len(self.config.unet.block_out_channels) - 1)
+            # an integer upscale, where torch's and jax.image.resize's nearest agree
+            mask = resize_nearest(sag_mask(probs_u).reshape(n, 1, h_lat // down, w_lat // down)
+                                  .float(), h_lat, w_lat)
+            x0_u = schedule.pred_x0(eps_u, lat, i)
+            degraded = gaussian_blur(x0_u, 9, 1.0) * mask + x0_u * (1.0 - mask)
+            return schedule.add_noise(degraded, eps_u, i)
+
+        n = lat.shape[0]
+        deg_lat = degrade(lat, eps_u) if shard is None else shard.whole(degrade, lat, eps_u)
         deg_in = schedule.scale_model_input(deg_lat, i).to(self.dtype)
         pww_u = dataclasses.replace(
             pww_t, weights={k: v[:n] for k, v in pww_t.weights.items()},
@@ -1058,10 +1104,15 @@ class PwwPipeline:
                         ip=ip_u, **extras).float()
         return schedule.to_epsilon(out, deg_lat, i, self.config.unet.prediction_type)
 
-    def decode_uint8_device(self, latents: torch.Tensor) -> torch.Tensor:
+    def decode_uint8_device(self, latents: torch.Tensor, shard=None) -> torch.Tensor:
         """Latents (N, C, h, w) → contiguous (N, H, W, 3) uint8 on the
-        pipeline's device (reference `_pil_from_latents`)."""
-        img = self.vae.decode(latents / self.config.vae.scaling_factor)
+        pipeline's device (reference `_pil_from_latents`). ``shard``: on a
+        mesh, this rank's cut (:meth:`denoise`'s); the decode runs on it and
+        its result is gathered."""
+        with contextlib.nullcontext() if shard is None else shard.sites():
+            img = self.vae.decode(latents / self.config.vae.scaling_factor)
+        if shard is not None:
+            img = shard.gather(img)
         img = torch.clamp(img.float() / 2 + 0.5, 0.0, 1.0)
         img = torch.round(img * 255.0).to(torch.uint8)
         return img.permute(0, 2, 3, 1).contiguous()
@@ -1130,6 +1181,7 @@ class PwwPipeline:
         ip_adapter_image=None,  # reference image or embeddings (load_ip_adapter first)
         ip_adapter_scale: Optional[float] = None,  # default: load_ip_adapter's scale
         rng=None,  # img2img/inpaint: the (2,) uint32 key split for the VAE sample
+        sharding: str = "batch",  # on a mesh: "batch" (samples over dp) | "spatial" (rows)
         **unported,
     ):
         """txt2img, img2img and inpaint with paint-with-words. Returns PIL
@@ -1190,6 +1242,12 @@ class PwwPipeline:
             if int(callback_steps) < 1:
                 raise ValueError(f"callback_steps must be >= 1, got {callback_steps}")
         refuse_unported("generate", unported)
+        if sharding not in ("batch", "spatial"):
+            raise ValueError(f'sharding must be "batch" or "spatial", got {sharding!r}')
+        spatial_call = sharding == "spatial" and self.mesh is not None
+        if spatial_call:
+            self._refuse_spatial(adapter_image is not None,
+                                 denoising_end is not None or denoising_start is not None)
         if output_type not in ("pil", "np", "device"):
             raise ValueError(f"output_type must be 'pil', 'np' or 'device', got "
                              f"{output_type!r}")
@@ -1358,7 +1416,8 @@ class PwwPipeline:
                 dict(color_map=color_map, color_context=color_context or {},
                      weight_function=weight_function, prompt_weighting=prompt_weighting,
                      clip_skip=clip_skip, long_prompts=long_prompts))
-        shard = BatchRows(self.mesh, n)
+        shard = (Spatial(self.mesh, n, lat.shape[2], lat.shape[3]) if spatial_call
+                 else BatchRows(self.mesh, n))
         t0 = self._phase("encode", t0)
         lat = self.denoise(lat, text_states, pww, schedule, float(guidance_scale),
                            t_start=t_start, extra=extra, blend=blend, seeds=[seed],
@@ -1370,7 +1429,7 @@ class PwwPipeline:
         t0 = self._phase("denoise", t0)
         if return_latents:
             return shard.gather(lat).permute(0, 2, 3, 1).cpu().numpy()
-        images = shard.gather(self.decode_uint8_device(lat))
+        images = self.decode_uint8_device(lat, shard)
         if output_type == "device":
             self._phase("decode", t0)
             return images
@@ -1382,6 +1441,18 @@ class PwwPipeline:
         return _to_output(images, output_type, single=n == 1)
 
     __call__ = generate
+
+    def _refuse_spatial(self, adapter: bool, ensemble: bool) -> None:
+        """``NotImplementedError`` for the options of :data:`SPATIAL_UNPORTED`
+        that a ``sharding="spatial"`` call has on."""
+        on = {SPATIAL_UNPORTED[0]: self.config.unet.time_cond_proj_dim is not None,
+              SPATIAL_UNPORTED[1]: adapter,
+              SPATIAL_UNPORTED[2]: bool(self._ip and self._ip["plus"]),
+              SPATIAL_UNPORTED[3]: ensemble}
+        for what, used in on.items():
+            if used:
+                raise NotImplementedError(f'generate(sharding="spatial") with {what} is not '
+                                          "ported to pww_tpu_torch yet (ROADMAP A.20c)")
 
     def _lcm_guidance(self, added_cond: Optional[Dict], guidance_scale: float, n: int):
         """An LCM-distilled UNet (``time_cond_proj_dim``) takes the embedded
@@ -1446,6 +1517,9 @@ class PwwPipeline:
         from PIL import Image
 
         cfg = self.config
+        if kwargs.get("sharding") == "spatial" and self.mesh is not None:
+            raise NotImplementedError(f'{SPATIAL_UNPORTED[4]}(sharding="spatial") is not '
+                                      "ported to pww_tpu_torch yet (ROADMAP A.20c)")
         cm = _to_numpy_image(color_map_image)
         if cm is None:
             raise ValueError("generate_hires requires color_map_image")
@@ -1672,7 +1746,7 @@ class PwwPipeline:
                            tome_ratio=tome_ratio, freeu=freeu, sag_scale=float(sag_scale),
                            ip=ip, shard=shard)
         t0 = self._phase("denoise", t0)
-        images = shard.gather(self.decode_uint8_device(lat))
+        images = self.decode_uint8_device(lat, shard)
         if output_type != "device":
             images = _to_output(images.cpu().numpy(), output_type, single=False)
         self._phase("decode", t0)

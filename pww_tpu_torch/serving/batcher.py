@@ -17,6 +17,19 @@ keeps the caching allocator from handing the tensor out while the copy
 runs) and resolves the futures in launch order, so that no device-to-host
 copy holds up the next launch. Requests that ``generate_batch`` cannot run
 (:func:`_is_singleton`) go through ``generate`` alone.
+
+On a mesh (a pipeline built with ``mesh=``, one process per rank) every
+rank must make the same pipeline calls in the same order. Rank 0's
+``Batcher`` forms the groups as above and, before each call it makes
+(retries included), broadcasts the call's name and arguments (the request
+dicts, maps as numpy arrays) over a gloo group; every other rank runs
+:func:`follow`, which receives each call and makes it. A request that fails
+fails in ``generate_batch``'s validation, before any collective, on every
+rank alike, so no rank is left waiting. :meth:`Batcher.close` sends the stop
+that ends the followers. The HTTP front end, the metrics and the latency
+stats stay on rank 0. A callable weight function cannot be sent (it does
+not pickle): on a mesh, requests take :class:`~pww_tpu_torch.ops.
+weight_functions.WeightFunction` values.
 """
 from __future__ import annotations
 
@@ -30,6 +43,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 @dataclass
@@ -70,6 +84,39 @@ def _is_singleton(req: Dict) -> bool:
         or req.get("original_size") is not None
         or req.get("target_size") is not None
     )
+
+
+def control_group():
+    """The group that carries rank 0's calls to the followers: the world
+    where it is gloo, else a gloo group of the world's ranks (made once per
+    ``Batcher`` / :func:`follow`, by every rank in the same order)."""
+    if dist.get_backend() == "gloo":
+        return None
+    return dist.new_group(backend="gloo")
+
+
+def follow(pipeline) -> Dict[str, int]:
+    """Every rank but 0 of a mesh pipeline: receive each call rank 0's
+    ``Batcher`` makes and make it, in its order, until the ``Batcher``
+    closes. A call that raises here raises on rank 0 too, which resolves
+    the requests' futures with the error; the loop goes on. Returns
+    {"calls", "errors"}."""
+    if getattr(pipeline, "mesh", None) is None or dist.get_rank() == 0:
+        raise ValueError("follow(pipeline) runs on the ranks other than 0 of a pipeline "
+                         "on a mesh; rank 0 runs the Batcher")
+    group = control_group()
+    stats = {"calls": 0, "errors": 0}
+    while True:
+        msg = [None]
+        dist.broadcast_object_list(msg, src=0, group=group)
+        name, args, kwargs = msg[0]
+        if name is None:
+            return stats
+        stats["calls"] += 1
+        try:
+            getattr(pipeline, name)(*args, **kwargs)
+        except Exception:
+            stats["errors"] += 1
 
 
 def _image_shape_hw(img) -> Tuple[int, int]:
@@ -133,7 +180,8 @@ class Batcher:
 
     Args:
       pipeline: a :class:`~pww_tpu_torch.pipeline.pipeline.PwwPipeline`
-        (on the card unless it was built on the CPU), without a mesh.
+        (on the card unless it was built on the CPU); on a mesh, the
+        ``Batcher`` runs on rank 0 and the other ranks :func:`follow`.
       max_batch: the most requests fused into one call.
       max_wait_ms: how long the first request of a group waits for company
         while the device is idle.
@@ -143,10 +191,12 @@ class Batcher:
 
     def __init__(self, pipeline, max_batch: int = 8, max_wait_ms: float = 25.0,
                  max_batch_pixels: Optional[int] = None):
-        if getattr(pipeline, "mesh", None) is not None:
-            raise NotImplementedError(
-                "serving a pipeline on a mesh is not ported to pww_tpu_torch yet (ROADMAP "
-                "A.20b): every rank would have to run the groups that rank 0's Batcher forms")
+        self._mesh = getattr(pipeline, "mesh", None)
+        if self._mesh is not None:
+            if dist.get_rank() != 0:
+                raise ValueError("on a mesh the Batcher runs on rank 0; the other ranks call "
+                                 "serving.batcher.follow(pipeline)")
+            self._group = control_group()
         self.pipeline = pipeline
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1000.0
@@ -195,9 +245,18 @@ class Batcher:
         return p.future
 
     def close(self):
+        """Stop the worker (on a mesh: after its call in flight, then the
+        followers' stop) and the fetcher."""
         self._stop.set()
-        self._worker.join(timeout=5)
+        self._worker.join(timeout=None if self._mesh is not None else 5)
         self._fetcher.shutdown(wait=True)
+
+    def _call(self, name: str, *args, **kwargs):
+        """``pipeline.<name>(*args, **kwargs)``; on a mesh, sent to the
+        followers first (worker thread only: one order of calls)."""
+        if self._mesh is not None:
+            dist.broadcast_object_list([(name, args, kwargs)], src=0, group=self._group)
+        return getattr(self.pipeline, name)(*args, **kwargs)
 
     # -- worker --------------------------------------------------------------
     def _cap_for(self, key) -> int:
@@ -265,6 +324,8 @@ class Batcher:
                 for p in group:
                     if not p.future.done():
                         p.future.set_exception(e)
+        if self._mesh is not None:  # the followers' stop, after the last call
+            dist.broadcast_object_list([(None, None, None)], src=0, group=self._group)
 
     def _run_singleton(self, p: _Pending) -> None:
         """A singleton through ``generate``; where ``generate`` refuses device
@@ -273,12 +334,12 @@ class Batcher:
 
         try:
             self._sync_prev_compute()
-            launch = self._launch(lambda: self.pipeline.generate(
-                **p.request, output_type="device"))
+            launch = self._launch(lambda: self._call(
+                "generate", **p.request, output_type="device"))
         except ValueError as e:
             if 'output_type="device"' not in str(e):
                 raise
-            img = self.pipeline.generate(**p.request, output_type="np")
+            img = self._call("generate", **p.request, output_type="np")
             p.future.set_result(Image.fromarray(np.asarray(img)[0]))
             return
         except Exception:
@@ -286,7 +347,7 @@ class Batcher:
             # retried once, synchronously, on the drained device
             self._full_sync()
             self.stats["retries"] += 1
-            img = self.pipeline.generate(**p.request, output_type="np")
+            img = self._call("generate", **p.request, output_type="np")
             p.future.set_result(Image.fromarray(np.asarray(img)[0]))
             return
         self._hand_to_fetcher([p], launch)
@@ -309,8 +370,8 @@ class Batcher:
         reqs = [p.request for p in group]
         try:
             self._sync_prev_compute()
-            launch = self._launch(lambda: self.pipeline.generate_batch(
-                reqs, output_type="device", **common))
+            launch = self._launch(lambda: self._call(
+                "generate_batch", reqs, output_type="device", **common))
         except Exception:
             # first taken for memory exhausted by overlapped work: drain
             # everything in flight, then retry the same batch once,
@@ -318,8 +379,8 @@ class Batcher:
             self._full_sync()
             self.stats["retries"] += 1
             try:
-                arr = np.asarray(self.pipeline.generate_batch(reqs, output_type="np",
-                                                              **common))
+                arr = np.asarray(self._call("generate_batch", reqs,
+                                            output_type="np", **common))
                 for p, im in zip(group, arr):
                     p.future.set_result(Image.fromarray(im))
                 return
@@ -330,8 +391,8 @@ class Batcher:
             # fail its neighbours, so each runs alone
             for p in group:
                 try:
-                    img = self.pipeline.generate_batch([p.request], output_type="np",
-                                                       **common)
+                    img = self._call("generate_batch", [p.request],
+                                     output_type="np", **common)
                     p.future.set_result(Image.fromarray(np.asarray(img)[0]))
                 except Exception as pe:
                     if not p.future.done():

@@ -16,6 +16,15 @@ host: each site's initial A from ``fold_in(PRNGKey(seed), i)`` (sites in
 the JAX parameter tree's order, which is the sorted order of the port's
 keys), and the steps' ``(img_idx, t, eps)`` from ``PRNGKey(seed + 1)``.
 
+On a pipeline whose UNet is cut over a mesh's tp axis the factors are cut
+like their weights (``pww_tpu/parallel/mesh.py:71-80``'s rules,
+:func:`~pww_tpu_torch.parallel.mesh.cut_index`): at a weight cut by output
+rows (``to_q``/``to_k``/``to_v``) each rank holds B's columns and all of A,
+at one cut by input columns (``to_out``) A's rows and all of B. The whole
+factor is drawn and then cut. A factor every rank holds whole gets its
+gradient summed over tp before Adam steps, so that the copies stay equal;
+the result holds the whole factors, gathered.
+
 Typical use::
 
     pipe = PwwPipeline.from_pretrained(...)
@@ -31,11 +40,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.func import functional_call
 
+import torch.distributed as dist
+
 from ..conditioning.seeding import normal_nchw
+from ..parallel.mesh import cut_index, gather_cut, tp_of
 from ..utils import jax_random
 from ..weights.safetensors_io import save_file
 from .textual_inversion import (adam, alphas_cumprod, denoising_loss, encode_latents, fit,
-                                randint, refuse_tp_cut)
+                                randint)
 
 # attention linears: kohya's default UNet target set
 DEFAULT_TARGETS = ("to_q", "to_k", "to_v", "to_out")
@@ -102,7 +114,6 @@ class LoraTrainer:
                 "train_lora targets single-encoder SD models (the XL micro-conditioning "
                 "path is inference-only here); train on SD-1.x/2.x or use an XL LoRA "
                 "through load_lora")
-        refuse_tp_cut(pipeline, "train_lora")
         self.pipeline = pipeline
         self.rank = rank
         self.alpha = float(rank if alpha is None else alpha)
@@ -111,6 +122,9 @@ class LoraTrainer:
         self.base = {key: params[key] for key in target_sites(pipeline.unet, targets)}
         if not self.base:
             raise ValueError(f"no UNet attention weights match targets={targets}")
+        # {site: (cut dimension of W, its whole size)} where tp cuts the UNet
+        cuts = getattr(pipeline.unet, "tp_cuts", {})
+        self.cuts = {key: cuts[key] for key in self.base if key in cuts}
         tokenizer = pipeline.tokenizer
         max_len = tokenizer.model_max_length
         ids = torch.tensor(
@@ -130,12 +144,20 @@ class LoraTrainer:
         k0 = jax_random.PRNGKey(seed)
         factors = {}
         for i, key in enumerate(sorted(self.base)):
-            out_dim, in_dim = self.base[key].shape
+            shape = list(self.base[key].shape)  # (out, in), this rank's cut
+            dim, full = self.cuts.get(key, (None, None))
+            if dim is not None:
+                shape[dim] = full
+            out_dim, in_dim = shape
             a = torch.from_numpy(jax_random.normal(jax_random.fold_in(k0, i),
                                                    (in_dim, self.rank))) / self.rank
+            b = torch.zeros((self.rank, out_dim))
+            if dim is not None:  # B's columns where W's rows are cut, A's rows where its columns
+                rank, size, _ = tp_of(self.pipeline.mesh)
+                idx = cut_index(key, full, rank, size)
+                a, b = (a, b[:, idx]) if dim == 0 else (a[idx], b)
             factors[key] = {"a": a.to(self.pipeline.device).requires_grad_(True),
-                            "b": torch.zeros((self.rank, out_dim), device=self.pipeline.device,
-                                             requires_grad=True)}
+                            "b": b.to(self.pipeline.device).requires_grad_(True)}
         return factors, self.optimizer(factors, learning_rate)
 
     @staticmethod
@@ -168,13 +190,30 @@ class LoraTrainer:
                 self.latents, self.alphas_cumprod, img_idx, t, eps,
                 self.text_states[img_idx])
             loss.backward()
+        if self.cuts:  # the factors held whole at cut sites: each rank has its share
+            group = tp_of(self.pipeline.mesh)[2]
+            for key, (dim, _) in sorted(self.cuts.items()):
+                dist.all_reduce(factors[key]["a" if dim == 0 else "b"].grad, group=group)
         optimizer.step()
         return loss.detach(), factors, optimizer
 
+    def whole(self, factors: Factors) -> Factors:
+        """The factors, those cut over tp gathered whole (the same on every
+        rank)."""
+        out = {}
+        for key, f in factors.items():
+            f = {k: v.detach() for k, v in f.items()}
+            if key in self.cuts:
+                dim, full = self.cuts[key]
+                name, t_dim = ("b", 1) if dim == 0 else ("a", 0)
+                f[name] = gather_cut(f[name], key, t_dim, full, self.pipeline.mesh)
+            out[key] = f
+        return out
+
     def result(self, factors: Factors, losses: List[float]) -> LoraTrainResult:
         return LoraTrainResult(
-            factors={key: {k: v.detach().float().cpu() for k, v in f.items()}
-                     for key, f in factors.items()},
+            factors={key: {k: v.float().cpu() for k, v in f.items()}
+                     for key, f in self.whole(factors).items()},
             alpha=self.alpha, rank=self.rank, losses=losses)
 
 

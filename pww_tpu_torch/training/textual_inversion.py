@@ -18,6 +18,14 @@ JAX package's own stream (``rng, k = split(rng)`` from ``PRNGKey(seed)``,
 202-205``), the same numbers, on the host
 (:mod:`pww_tpu_torch.utils.jax_random`).
 
+On a pipeline whose UNet is cut over a mesh's tp axis, every rank of the tp
+group runs the same step on the same draws: the cut attentions and
+feed-forwards carry the gradient over tp (Megatron's operators,
+:mod:`pww_tpu_torch.parallel.tp`), so the text states' gradient, and the new
+rows', is the whole UNet's on every rank, as the JAX trainer's ``jax.jit``
+over the placed parameters gives it (``pww_tpu/training/
+textual_inversion.py:165-190``).
+
 Typical use::
 
     pipe = PwwPipeline.from_pretrained(...)
@@ -71,17 +79,6 @@ class TIResult:
         reads."""
         vec = self.embedding[0] if self.embedding.shape[0] == 1 else self.embedding
         torch.save({self.placeholder: vec.detach().cpu().clone()}, path)
-
-
-def refuse_tp_cut(pipeline, what: str) -> None:
-    """Training through a UNet cut over a mesh's tp axis is not ported: its
-    collectives carry no gradient (ROADMAP A.20b). A dp-only mesh leaves
-    the UNet whole, and every rank trains on the whole batch."""
-    if getattr(pipeline.unet, "tp_cuts", None):
-        raise NotImplementedError(
-            f"{what} on a pipeline whose UNet is cut over tp is not ported to "
-            f"pww_tpu_torch yet (ROADMAP A.20b): the tp collectives carry no gradient; "
-            f"train on a pipeline without a mesh, or with tp 1")
 
 
 def encode_latents(pipeline, images: Sequence) -> torch.Tensor:
@@ -162,7 +159,6 @@ class TextualInversionTrainer:
                 "dual-encoder and micro-conditioning path is inference-only here); "
                 "train on SD-1.x/2.x or inject an XL embedding with "
                 "apply_textual_inversion")
-        refuse_tp_cut(pipeline, "train_textual_inversion")
         self.pipeline = pipeline
         tokenizer = pipeline.tokenizer
         self.table = pipeline.clip.text_model.embeddings.token_embedding.weight.detach()

@@ -1,8 +1,9 @@
-"""The port's data and tensor parallelism (pww_tpu_torch/parallel) on four
-gloo ranks on the CPU, in f32, against the same calls without a mesh, the
-JAX package's rules and its unsharded pipeline. One spawn of four ranks
-runs every rank-side case (tests/torch_mesh_cases.py); the dry run spawns
-its own four."""
+"""The port's data, tensor and spatial parallelism (pww_tpu_torch/parallel),
+serving on a mesh and training through a tp cut, on four gloo ranks on the
+CPU, in f32, against the same calls without a mesh, the JAX package's rules,
+kernels and unsharded pipeline. One spawn of four ranks runs every
+rank-side case (tests/torch_mesh_cases.py); the dry run spawns its own
+four."""
 import re
 
 import jax.numpy as jnp
@@ -31,7 +32,7 @@ def tree():
 def inputs(tree):
     params = params_from_jax(tree)
     ip_embed = np.random.default_rng(5).standard_normal((1, 24)).astype(np.float32)
-    return params, C.lora_state(params), ip_embed
+    return params, C.lora_state(params), ip_embed, C.control_state()
 
 
 @pytest.fixture(scope="module")
@@ -49,6 +50,17 @@ def close(got, want, factor=2e-5):
     """tests/test_torch_pipeline.py:74's tolerance: f32 summation order,
     relative to the largest value."""
     np.testing.assert_allclose(got, want, rtol=0, atol=factor * np.abs(want).max())
+
+
+def rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+# generate(sharding="spatial") against the call without a mesh, f32: the
+# halo convolutions, the moments combined over the rows and the gathered
+# keys only reorder f32 sums
+SPATIAL_TOL = 1e-5
 
 
 def test_tp_rules_match_the_jax_rules_on_every_unet_parameter(tree):
@@ -217,16 +229,6 @@ def test_collectives_per_visit(ranks):
         assert res["collectives"] == {"sum": 12, "reduce": 4}
 
 
-def test_trainers_and_the_batcher_refuse_a_mesh_pipeline(ranks):
-    """Training through a UNet cut over tp (its collectives carry no
-    gradient) and serving on a mesh (only rank 0 would form the groups)
-    raise, naming A.20b, before the tokenizer changes."""
-    for res in ranks:
-        assert set(res["refusals"]) == {"textual inversion", "lora", "batcher"}
-        assert all("A.20b" in msg for msg in res["refusals"].values())
-        assert not res["tokenizer_grew"]
-
-
 def test_make_mesh_refuses_a_layout_that_is_not_the_world(ranks):
     assert ranks[0]["make_mesh_error"] == "dp(3) * tp(2) != device count (4)"
 
@@ -244,12 +246,244 @@ def test_entry_points_default_to_the_card():
         M.spawn(C.rank_cases, 1)
 
 
-def test_spatial_sharding_names_its_roadmap_item(inputs):
-    with pytest.raises(NotImplementedError, match="A.20b"):
-        C.pipeline(inputs[0]).generate(prompt="a cat", color_map_image=C.color_map(), num_inference_steps=1,
-                    sharding="spatial")
-    with pytest.raises(NotImplementedError, match="A.20b"):
-        M.shard_spatial(None, None)
+# -- spatial sharding -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dp,tp", [(4, 1), (2, 2)])
+def test_spatial_txt2img_matches_jax_and_the_unsharded_port(tree, ranks, whole, dp, tp):
+    """``generate(sharding="spatial", num_samples=4)``: each rank holds its
+    rows of every level (at (4, 1) two of the 8 latent rows, one of the
+    mid block's 4), and every rank returns the whole latents, within
+    SPATIAL_TOL of the port without a mesh; the (4, 1) run also within the
+    mesh tests' factor of the JAX package's unsharded pipeline."""
+    for r, res in enumerate(ranks):
+        got = res["spatial", dp, tp]
+        assert got.shape == (4, 8, 8, 4)
+        assert rel_l2(got, whole["generate"]) <= SPATIAL_TOL, r
+        if (dp, tp) == (4, 1):
+            close(got, jax_generate(tree))
+        np.testing.assert_array_equal(got, ranks[0]["spatial", dp, tp])
+
+
+def test_spatial_collectives_per_call(ranks):
+    """The collectives of a spatial call by kind, as chip_smoke.py derives
+    them from the config for its gate on the card (halo exchanges, moments
+    combines, K/V gathers, reduction combines per UNet visit and per
+    decode), plus one gather of the result: 2 visits of the tiny UNet,
+    then with the sharded decode; the (2, 2) run adds its tp sums and
+    reduces."""
+    import chip_smoke
+    from pww_tpu_torch.config import SDModelConfig
+
+    latents = dict(chip_smoke.spatial_collectives(SDModelConfig.tiny(), 2, 0), rows=1)
+    images = dict(chip_smoke.spatial_collectives(SDModelConfig.tiny(), 2, 1), rows=1)
+    assert latents == {"halo": 40, "norm": 42, "kv": 8, "r": 8, "rows": 1}
+    for res in ranks:
+        assert res["spatial collectives", 4, 1] == latents
+        assert res["spatial collectives", 2, 2] == dict(latents, sum=24, reduce=8)
+        assert res["spatial images collectives"] == images
+
+
+def test_spatial_level_that_dp_does_not_divide_runs_whole(ranks, whole):
+    """A 32-px map at dp 4: the latents' 4 rows are cut one a rank, the
+    mid level's 2 rows run whole on every rank (the downsample gathers its
+    input, the upsampler cuts its output)."""
+    for res in ranks:
+        assert rel_l2(res["spatial undivided"], whole["spatial undivided"]) <= SPATIAL_TOL
+        assert res["spatial undivided"].shape == (2, 4, 4, 4)
+
+
+def test_spatial_decode_is_sharded_and_images_whole(ranks, whole):
+    for res in ranks:
+        got = res["spatial images"]
+        assert got.shape == (2, 64, 64, 3)
+        np.testing.assert_array_equal(got, ranks[0]["spatial images"])
+        assert np.abs(got.astype(int) - whole["spatial images"]).max() <= 1
+
+
+@pytest.mark.parametrize("case", list(C.SPATIAL_CASES))
+def test_spatial_modes_match_the_unsharded_port(ranks, whole, case):
+    """Each mode on the (2, 2) mesh, rows over dp 2 and heads over tp 2,
+    against the same call without a mesh: img2img and both inpaintings
+    (their init latents, mask and noise cut like the latents), the
+    ancestral step noise drawn whole and cut, a custom weight function
+    (the site run whole), a std reduction (Chan over rows and heads), SAG
+    (the probabilities and the blur on gathered rows), ToMe (the matching
+    on gathered rows), FreeU's filter, DeepCache, a ControlNet run whole
+    with its residuals cut, an IP-Adapter, SDXL-tiny with its added
+    conditions whole, prompt editing, and inpainting of the masked area
+    at full resolution (uint8 images: within one level)."""
+    want = whole["spatial", case]
+    for r, res in enumerate(ranks):
+        got = res["spatial", case]
+        assert got.shape == want.shape
+        if got.dtype == np.uint8:
+            assert np.abs(got.astype(int) - want).max() <= 1
+        else:
+            assert rel_l2(got, want) <= SPATIAL_TOL, (r, rel_l2(got, want))
+        np.testing.assert_array_equal(got, ranks[0]["spatial", case])
+    # the mode changes the result (prompt editing on the tiny random text
+    # tower only by ~2e-5; the others are not the plain call's inputs)
+    if case not in ("euler_ancestral", "sdxl", "inpaint 9-channel", "deepcache",
+                    "inpaint full res", "prompt editing"):
+        assert rel_l2(want, whole["plain small"]) > 1e-3
+
+
+def test_spatial_callbacks_see_the_whole_latents(ranks):
+    for res in ranks:
+        assert res["spatial callback shapes"] == [(2, 8, 8, 4)] * 1
+
+
+def test_spatial_refusals_name_their_roadmap_item(ranks):
+    """The modes sharding="spatial" does not take raise NotImplementedError
+    naming A.20c (pipeline.SPATIAL_UNPORTED), before any collective."""
+    for res in ranks:
+        assert set(res["spatial refusals"]) == {"lcm", "t2i", "ensemble", "hires"}
+        assert all("A.20c" in m for m in res["spatial refusals"].values())
+    assert len(C.SPATIAL_UNPORTED) == 5
+
+
+def test_shard_spatial_cuts_the_rows():
+    """shard_spatial without a process group: a mesh stand-in of dp 4."""
+    class Mesh:
+        def get_group(self, axis):
+            return None
+
+        def get_local_rank(self, axis):
+            return 2
+
+        def size(self, dim):
+            return 4
+
+    x = torch.arange(2 * 3 * 8 * 5, dtype=torch.float32).reshape(2, 3, 8, 5)
+    torch.testing.assert_close(M.shard_spatial(x, Mesh()), x[:, :, 4:6])
+    y = x[:, :, :6]  # 6 rows: dp 4 does not divide them, every rank holds all
+    assert M.shard_spatial(y, Mesh()) is y
+
+
+@pytest.mark.parametrize("lq,lk,dh", [(16, 64, 40), (48, 96, 80), (7, 29, 64)])
+def test_k3_plain_at_lq_ne_lk_against_the_jax_kernel(lq, lk, dh):
+    """K3's plain version with a rank's query rows against every key (Lq ≠
+    Lk) equals those rows of the JAX kernel's output on the whole sequence;
+    its plain backward equals autograd's."""
+    from pww_tpu.ops.flash_attention import flash_self_attention as jax_flash
+    from pww_tpu_torch.ops.flash_attention import (self_attention_backward_plain,
+                                                   self_attention_plain)
+
+    rng = np.random.default_rng(lq)
+    q, k, v = (rng.standard_normal((2, 3, lk, dh)).astype(np.float32) for _ in range(3))
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    r0 = lk - lq  # the last rank's rows
+    qt, kt, vt = (torch.from_numpy(a) for a in (q[:, :, r0:], k, v))
+    got = self_attention_plain(qt, kt, vt)
+    np.testing.assert_allclose(got.numpy(), want[:, :, r0:], rtol=1e-5, atol=1e-5)
+    do = torch.from_numpy(rng.standard_normal(got.shape).astype(np.float32))
+    leaves = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
+    self_attention_plain(*leaves).backward(do)
+    for g, leaf in zip(self_attention_backward_plain(qt, kt, vt, do), leaves):
+        torch.testing.assert_close(g, leaf.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("silu,with_add", [(False, False), (True, True)])
+def test_k4_split_plain_combined_over_rows_against_the_jax_kernel(parts, silu, with_add):
+    """Split K4's plain statistics over each block of rows, combined with
+    Chan's rule in block order, then the plain apply on each block, equal
+    the JAX kernel on the whole tensor at tests/test_torch_norms.py's f32
+    limits."""
+    from pww_tpu.ops.group_norm import group_norm as jax_group_norm
+    from pww_tpu_torch.ops.group_norm import group_norm_apply_plain, group_norm_stats_plain
+    from pww_tpu_torch.parallel.spatial import chan_moments
+
+    rng = np.random.default_rng(parts)
+    x = (rng.standard_normal((2, 32, 16, 32)) * 2.0 + 0.5).astype(np.float32)  # NHWC
+    w = (1.0 + 0.2 * rng.standard_normal(32)).astype(np.float32)
+    b = (0.2 * rng.standard_normal(32)).astype(np.float32)
+    add = rng.standard_normal((2, 32)).astype(np.float32) if with_add else None
+    want = np.asarray(jax_group_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), groups=4,
+                                     eps=1e-5, act="silu" if silu else None,
+                                     add=None if add is None else jnp.asarray(add),
+                                     force_fused=True))
+    xt = torch.from_numpy(np.ascontiguousarray(np.moveaxis(x, -1, 1)))
+    at = None if add is None else torch.from_numpy(add)
+    blocks = xt.chunk(parts, dim=2)
+    stats = torch.stack([group_norm_stats_plain(blk, groups=4, add=at).movedim(-1, 0)
+                         for blk in blocks])
+    mean, var = chan_moments(stats, blocks[0][0].numel() // 4)
+    st = torch.stack([mean, torch.rsqrt(var + 1e-5)], dim=-1)
+    got = torch.cat([group_norm_apply_plain(blk, torch.from_numpy(w), torch.from_numpy(b), st,
+                                            groups=4, silu=silu, add=at) for blk in blocks],
+                    dim=2)
+    np.testing.assert_allclose(np.moveaxis(got.numpy(), 1, -1), want, rtol=2e-5, atol=2e-5)
+
+
+# -- serving on a mesh ---------------------------------------------------------------
+
+
+def test_batcher_on_rank_0_with_followers_matches_generate_batch(ranks, whole):
+    """Rank 0's Batcher fuses 4 requests into one generate_batch on the
+    (2, 2) mesh while ranks 1-3 follow; the images match one process's
+    generate_batch of the same requests."""
+    images, _, last, stats = ranks[0]["serve"]
+    assert images.shape == (4, 64, 64, 3)
+    assert np.abs(images.astype(int) - whole["batch"]).max() <= 1
+    assert np.abs(last.astype(int) - whole["batch last"]).max() <= 1
+    assert stats["batches"] == 3 and stats["requests"] == 6
+
+
+def test_a_bad_request_fails_on_every_rank_and_the_next_group_runs(ranks):
+    """A mask without an init image fails generate_batch's validation on
+    every rank, before any collective: rank 0's future takes the error
+    (after the retry), the followers count the same failed calls, and the
+    next group runs on all four ranks."""
+    _, error, _, stats = ranks[0]["serve"]
+    assert "inpainting requires init_image" in error and stats["retries"] == 1
+    for res in ranks[1:]:
+        assert res["serve"] == {"calls": 4, "errors": 2}
+
+
+# -- training through a tp cut -----------------------------------------------------
+
+
+def test_tp_unet_gradients_match_the_whole_unet(ranks, whole):
+    """The UNet cut over tp 2 (on the (2, 2) mesh): the gradient with
+    respect to the latents and to the text states (the path of textual
+    inversion's gradient, through every cross-attention's to_k / to_v) is
+    the whole UNet's."""
+    for res in ranks:
+        for got, want in zip(res["grads"], whole["grads"]):
+            assert rel_l2(got, want) <= 1e-5
+
+
+# 2 Adam steps at tp 2 against one process, f32: the losses within 1e-6
+# relative, the embedding and the factors (all sites together) within 1e-5
+# relative L2 (a factor near zero takes Adam's sign-like first step on a
+# gradient of a few ulps, so single small factors are not held alone)
+TRAIN_TOL = dict(loss=1e-6, tensors=1e-5)
+
+
+def test_tp_training_matches_one_process(ranks, whole):
+    emb_w, ti_w, fac_w, lora_w = whole["train"]
+    keys = sorted(fac_w)
+    flat_w = np.concatenate([fac_w[k][n].ravel() for k in keys for n in "ab"])
+    for res in ranks:
+        emb, ti, fac, lora = res["train"]
+        np.testing.assert_allclose(ti, ti_w, rtol=TRAIN_TOL["loss"])
+        np.testing.assert_allclose(lora, lora_w, rtol=TRAIN_TOL["loss"])
+        assert rel_l2(emb, emb_w) <= TRAIN_TOL["tensors"]
+        assert sorted(fac) == keys
+        assert all(fac[k][n].shape == fac_w[k][n].shape for k in keys for n in "ab")
+        flat = np.concatenate([fac[k][n].ravel() for k in keys for n in "ab"])
+        assert rel_l2(flat, flat_w) <= TRAIN_TOL["tensors"]
+        assert res["train collectives"]["grad_sum"] > 0
+
+
+def test_gathered_lora_factors_and_embeddings_are_equal_on_every_rank(ranks):
+    for res in ranks[1:]:
+        np.testing.assert_array_equal(res["train"][0], ranks[0]["train"][0])
+        for k, f in res["train"][2].items():
+            for n in "ab":
+                np.testing.assert_array_equal(f[n], ranks[0]["train"][2][k][n])
 
 
 def test_dryrun_at_world_size_4(capsys):

@@ -205,8 +205,10 @@ def test_latents_are_ignored_with_an_init_image_as_in_jax(pair):
 def test_rng_and_sharding_name_their_items(pair):
     """``rng=`` (a jax key's (2,) uint32 data) is accepted: txt2img draws
     nothing from it, as in the JAX pipeline (img2img's draws from it are in
-    tests/test_torch_jax_random.py); ``sharding="spatial"`` names A.20b
-    (``"batch"`` is the default, run on a mesh in tests/test_torch_sharding.py)."""
+    tests/test_torch_jax_random.py); ``sharding`` only acts on a mesh
+    (tests/test_torch_sharding.py runs both kinds there): without one
+    ``"spatial"`` gives the call's own result, as the JAX pipeline ignores
+    it, and a value that is neither kind raises."""
     import jax
 
     _, tp = pair
@@ -215,6 +217,7 @@ def test_rng_and_sharding_name_their_items(pair):
               return_latents=True)
     np.testing.assert_array_equal(tp.generate(rng=jax.random.PRNGKey(5), **kw),
                                   tp.generate(**kw))
-    with pytest.raises(NotImplementedError, match="A.20b"):
-        tp.generate(sharding="spatial", **kw)
+    np.testing.assert_array_equal(tp.generate(sharding="spatial", **kw), tp.generate(**kw))
+    with pytest.raises(ValueError, match="sharding"):
+        tp.generate(sharding="rows", **kw)
     assert tp.generate(rng=None, sharding="batch", **kw).shape == (1, 8, 8, 4)

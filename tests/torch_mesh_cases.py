@@ -2,18 +2,21 @@
 a 4-process group runs, and the inputs the test process builds the same
 way for the calls without a mesh. No JAX here: each spawned rank imports
 this module, and only torch and the port."""
+import dataclasses
+import time
+
 import numpy as np
 import torch
 
 from pww_tpu_torch.config import SDModelConfig
 from pww_tpu_torch.ops.weight_functions import CustomWeightFunction, WeightFunction
 from pww_tpu_torch.parallel import mesh as M
-from pww_tpu_torch.pipeline.pipeline import PwwPipeline
-from pww_tpu_torch.serving.batcher import Batcher
-from pww_tpu_torch.training.lora import LoraTrainer
-from pww_tpu_torch.training.textual_inversion import TextualInversionTrainer
+from pww_tpu_torch.pipeline.pipeline import SPATIAL_UNPORTED, PwwPipeline
+from pww_tpu_torch.serving.batcher import Batcher, follow
+from pww_tpu_torch.training.lora import train_lora
+from pww_tpu_torch.training.textual_inversion import train_textual_inversion
 from pww_tpu_torch.types import PwwState
-from pww_tpu_torch.weights.bridge import build_models
+from pww_tpu_torch.weights.bridge import build_models, synthetic_state
 
 MESHES = ((4, 1), (2, 2), (1, 4))
 UNET_MODES = ("max", "mean", "std", "custom")
@@ -40,15 +43,149 @@ def color_map(size: int = 64) -> np.ndarray:
     return cm
 
 
-def requests(n: int):
+def mask(size: int = 64) -> np.ndarray:
+    """An f32 box mask in [0, 1]: a band across the rows' cut."""
+    m = np.zeros((size, size), np.float32)
+    m[size // 4: 3 * size // 4, size // 8: size // 2] = 1.0
+    return m
+
+
+def requests(n: int, first: int = 0):
     """``generate_batch`` requests, each with its own seed and prompt."""
     return [dict(prompt=f"a cat and a dog {i}", color_map_image=color_map(),
-                 color_context=KW["color_context"], seed=10 + i) for i in range(n)]
+                 color_context=KW["color_context"], seed=10 + i) for i in range(first, n)]
 
 
-def pipeline(params, mesh=None, scheduler: str = "lms", cfg=None) -> PwwPipeline:
+def pipeline(params, mesh=None, scheduler: str = "lms", cfg=None, seed: int = 0) -> PwwPipeline:
     return PwwPipeline(cfg or SDModelConfig.tiny(), params=params, scheduler=scheduler,
-                       device="cpu", dtype=torch.float32, mesh=mesh)
+                       device="cpu", dtype=torch.float32, mesh=mesh, seed=seed)
+
+
+# Spatial sharding (generate(sharding="spatial")): the cases of the (2, 2)
+# mesh, each with its kwargs beyond SPATIAL_KW and the pipeline it needs
+SPATIAL_KW = dict(color_map_image=color_map(), num_samples=2, return_latents=True,
+                  sharding="spatial", **KW)
+SPATIAL_CASES = {
+    "img2img": dict(init_image=color_map()[::-1].copy(), strength=0.6),
+    "inpaint 9-channel": dict(init_image=color_map()[::-1].copy(), mask_image=mask(),
+                              strength=0.8),
+    "inpaint legacy": dict(init_image=color_map()[::-1].copy(), mask_image=mask(),
+                           strength=0.8),
+    "euler_ancestral": {},
+    "custom weight function": dict(weight_function=custom_fn),
+    "std weight function": dict(weight_function=WEIGHT_FNS["std"]),
+    "sag": dict(sag_scale=0.75),
+    "tome": dict(tome_ratio=0.5),
+    "freeu": dict(freeu=(1.1, 1.2, 0.9, 0.2)),
+    "deepcache": dict(cache_interval=2, num_inference_steps=3),
+    "controlnet": dict(control_image=color_map()[:, ::-1].copy(),
+                       controlnet_conditioning_scale=1.5),
+    "ip-adapter": {},
+    "sdxl": {},
+    "prompt editing": dict(prompt="a [cat:dog:0.5] and a dog", prompt_editing=True),
+    "inpaint full res": dict(init_image=color_map()[::-1].copy(), mask_image=mask(),
+                             strength=0.8, inpaint_full_res=True, inpaint_full_res_padding=8,
+                             return_latents=False, output_type="np"),
+}
+
+
+def spatial_pipelines(params, mesh, control_state, ip_embed):
+    """{case: (pipeline, extra kwargs)} for SPATIAL_CASES on ``mesh``."""
+    base = pipeline(params, mesh)
+    tiny = SDModelConfig.tiny()
+    tome = dataclasses.replace(tiny, unet=dataclasses.replace(tiny.unet, tome_min_tokens=64))
+    ip = pipeline(params, mesh)
+    ip.load_ip_adapter(seed=3, image_embed_dim=ip_embed.shape[1])
+    control = pipeline(params, mesh)
+    control.load_controlnet(params=control_state)
+    pipes = {
+        "inpaint 9-channel": pipeline(None, mesh, cfg=SDModelConfig.tiny(9), seed=4),
+        "euler_ancestral": pipeline(params, mesh, "euler_ancestral"),
+        "tome": pipeline(params, mesh, cfg=tome),
+        "controlnet": control,
+        "ip-adapter": ip,
+        "sdxl": pipeline(None, mesh, cfg=SDModelConfig.tiny_xl(), seed=11),
+    }
+    extra = {"ip-adapter": dict(ip_adapter_image=ip_embed)}
+    return {case: (pipes.get(case, base), dict(kw, **extra.get(case, {})))
+            for case, kw in SPATIAL_CASES.items()}
+
+
+def control_state(seed: int = 3):
+    """A tiny ControlNet whose zero convolutions are not zero (a net that
+    changes the UNet's output)."""
+    net = build_models(SDModelConfig.tiny(), parts=("controlnet",))["controlnet"]
+    state = synthetic_state(net, torch.Generator().manual_seed(seed), torch.float32)
+    return {k: v * 25.0 if k.startswith(("controlnet_down_blocks", "controlnet_mid_block"))
+            else v for k, v in state.items()}
+
+
+def spatial_refusals(params, mesh):
+    """{option: message} of every sharding="spatial" call that raises."""
+    tiny = SDModelConfig.tiny()
+    lcm = dataclasses.replace(tiny, unet=dataclasses.replace(tiny.unet, time_cond_proj_dim=8))
+    kw = dict(SPATIAL_KW, num_inference_steps=1)
+    calls = {
+        "lcm": lambda: pipeline(None, mesh, "lcm", cfg=lcm).generate(**kw),
+        "t2i": lambda: pipeline(params, mesh).generate(adapter_image=color_map(), **kw),
+        "ensemble": lambda: pipeline(params, mesh).generate(denoising_end=0.5, **kw),
+        "hires": lambda: pipeline(params, mesh).generate_hires(
+            color_map_image=color_map(), sharding="spatial", num_inference_steps=1),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except NotImplementedError as e:
+            out[name] = str(e)
+    return out
+
+
+def unet_grads(model, seed: int = 3):
+    """The gradient of a fixed projection of the tiny UNet's output with
+    respect to its latents and text states (no PwW bias, as in training)."""
+    lat, text, _ = unet_inputs(2)
+    lat, text = lat.requires_grad_(True), text.requires_grad_(True)
+    out = model(lat, torch.tensor(500.0), text)
+    proj = torch.from_numpy(np.random.default_rng(seed).standard_normal(out.shape)
+                            .astype(np.float32))
+    (out * proj).sum().backward()
+    return lat.grad.numpy(), text.grad.numpy()
+
+
+def train(pipe):
+    """2 TI steps and 2 LoRA steps (rank 4) on two 64-px images:
+    (embedding, TI losses, {site: {a, b}}, LoRA losses)."""
+    images = [color_map(), color_map()[::-1].copy()]
+    lora = train_lora(pipe, images, "a cat", rank=4, num_steps=2, seed=5, learning_rate=1e-2)
+    ti = train_textual_inversion(pipe, images, "<cat>", "cat", num_steps=2, seed=3)
+    return (ti.embedding.numpy(), ti.losses,
+            {k: {n: t.numpy() for n, t in f.items()} for k, f in lora.factors.items()},
+            lora.losses)
+
+
+def serve(pipe, rank: int):
+    """Rank 0: a Batcher over 4 requests submitted together, a bad one
+    (a mask without an init image), then one more; the other ranks follow.
+    Returns rank 0's (images, error, last image, stats), a follower's
+    ``follow`` counts."""
+    if rank != 0:
+        return follow(pipe)
+    b = Batcher(pipe, max_batch=4, max_wait_ms=2000.0)
+    try:
+        futs = [b.submit(dict(r, num_inference_steps=2)) for r in requests(4)]
+        images = np.stack([np.asarray(f.result(timeout=300)) for f in futs])
+        bad = dict(requests(1)[0], mask_image=mask(), num_inference_steps=2)
+        try:
+            b.submit(bad).result(timeout=300)
+            error = None
+        except ValueError as e:
+            error = str(e)
+        last = np.asarray(b.submit(dict(requests(5, 4)[0], num_inference_steps=2))
+                          .result(timeout=300))
+    finally:
+        b.close()
+    return images, error, last, dict(b.stats)
 
 
 def unet_inputs(n: int = 8, h: int = 8):
@@ -78,11 +215,12 @@ def unet(params):
     return module.eval()
 
 
-def rank_cases(rank: int, params, lora_state, ip_embed):
+def rank_cases(rank: int, params, lora_state, ip_embed, control):
     """Every case on this rank; returns {case: host value}."""
     torch.set_num_threads(1)
     out = {}
     cm = color_map()
+    t0 = time.perf_counter()
     for dp, tp in MESHES:
         mesh = M.make_mesh(dp, tp, device_type="cpu")
         model = M.shard_params(unet(params), mesh)
@@ -93,10 +231,25 @@ def rank_cases(rank: int, params, lora_state, ip_embed):
             out["unet", dp, tp, mode] = M.gather_batch(y, mesh, 8).numpy()
             out["sag_probs", dp, tp, mode] = M.gather_batch(probs, mesh, 8).numpy()
         pipe = pipeline(params, mesh)
+        if (dp, tp) == (4, 1):
+            pipe0 = pipe
         out["generate", dp, tp] = pipe.generate(color_map_image=cm, num_samples=4,
                                                 return_latents=True, **KW)
         out["batch", dp, tp] = np.asarray(pipe.generate_batch(
             requests(4), num_inference_steps=2, output_type="np"))
+        if tp < 4:  # spatial: (4, 1) and (2, 2)
+            M.COLLECTIVES.clear()
+            out["spatial", dp, tp] = pipe.generate(color_map_image=cm, num_samples=4,
+                                                   return_latents=True, sharding="spatial",
+                                                   **KW)
+            out["spatial collectives", dp, tp] = dict(M.COLLECTIVES)
+    # (4, 1): a 32-px map, whose 2-row level dp 4 does not divide (it runs
+    # whole); and spatial images (the decode sharded too)
+    out["spatial undivided"] = pipe0.generate(**dict(SPATIAL_KW, color_map_image=color_map(32)))
+    M.COLLECTIVES.clear()
+    out["spatial images"] = pipe0.generate(**dict(SPATIAL_KW, return_latents=False,
+                                                  output_type="np"))
+    out["spatial images collectives"] = dict(M.COLLECTIVES)
 
     mesh = M.make_mesh(2, 2, device_type="cpu")
     pipe = pipeline(params, mesh)
@@ -133,17 +286,28 @@ def rank_cases(rank: int, params, lora_state, ip_embed):
     out["ip_cut"] = tuple(pipe.unet.state_dict()[
         "mid_block.attentions.0.transformer_blocks.0.attn2.to_k_ip.weight"].shape)
 
-    ids = pipe.tokenizer("<cat>")["input_ids"]
-    out["refusals"] = {}
-    for name, make in (("textual inversion",
-                        lambda: TextualInversionTrainer(pipe, [cm], "<cat>", "cat")),
-                       ("lora", lambda: LoraTrainer(pipe, [cm], "a cat")),
-                       ("batcher", lambda: Batcher(pipe))):
-        try:
-            make()
-        except NotImplementedError as e:
-            out["refusals"][name] = str(e)
-    out["tokenizer_grew"] = pipe.tokenizer("<cat>")["input_ids"] != ids
+    out["seconds", "data and tensor parallel"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for case, (p, kw) in spatial_pipelines(params, mesh, control, ip_embed).items():
+        seen = []
+        out["spatial", case] = p.generate(**dict(SPATIAL_KW, **kw), callback=(
+            (lambda i, t, x: seen.append(tuple(x.shape))) if case == "img2img" else None))
+        if seen:
+            out["spatial callback shapes"] = seen
+    out["spatial refusals"] = spatial_refusals(params, mesh)
+    out["seconds", "spatial"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out["serve"] = serve(pipeline(params, mesh), rank)
+    out["seconds", "serve"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out["grads"] = unet_grads(M.shard_params(unet(params), mesh))
+    M.COLLECTIVES.clear()
+    out["train"] = train(pipeline(params, mesh))
+    out["train collectives"] = dict(M.COLLECTIVES)
+    out["seconds", "train"] = time.perf_counter() - t0
 
     try:
         M.make_mesh(3, 2, device_type="cpu")
@@ -152,7 +316,7 @@ def rank_cases(rank: int, params, lora_state, ip_embed):
     return out
 
 
-def whole_cases(params, lora_state, ip_embed):
+def whole_cases(params, lora_state, ip_embed, control):
     """The same calls without a mesh, in this process."""
     out = {}
     cm = color_map()
@@ -183,6 +347,19 @@ def whole_cases(params, lora_state, ip_embed):
     pipe.unload_loras()
     pipe.load_ip_adapter(seed=3, image_embed_dim=ip_embed.shape[1])
     out["ip"] = pipe.generate(ip_adapter_image=ip_embed, **kw)
+
+    out["spatial undivided"] = pipeline(params).generate(
+        **dict(SPATIAL_KW, color_map_image=color_map(32)))
+    out["spatial images"] = pipeline(params).generate(**dict(SPATIAL_KW, return_latents=False,
+                                                             output_type="np"))
+    for case, (p, kw) in spatial_pipelines(params, None, control, ip_embed).items():
+        out["spatial", case] = p.generate(**dict(SPATIAL_KW, **kw))
+    out["plain small"] = pipeline(params).generate(**SPATIAL_KW)
+    out["batch last"] = np.asarray(pipeline(params).generate_batch(
+        [dict(requests(5, 4)[0], num_inference_steps=2)], num_inference_steps=2,
+        output_type="np"))[0]
+    out["grads"] = unet_grads(unet(params))
+    out["train"] = train(pipeline(params))
     return out
 
 
