@@ -25,7 +25,10 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    shapes (CFG rows B 16, B·H 128), K3 at ToMe's merged L 2048 and K1-K3
    at the hires fix's 1024² second pass (Lq 16384, dh 40; K3's plain
    version on two of the 16 (sample, head) pairs), K1-K3 at SD-2.1
-   768-v's head-dim-64 shapes (SD21_SHAPES); then K4 group_norm and K5
+   768-v's head-dim-64 shapes (SD21_SHAPES), K3 at Lq ≠ Lk (a rank's rows
+   at dp 2: SD-1.5 512², SDXL and the refiner at 1024², the hires fix's
+   Lq 8192 / Lk 16384, its plain version on two pairs) and K1, K2 at the
+   hires fix's Lq 8192; then K4 group_norm and K5
    layer_norm at
    every site signature of the inpaint path (the tables K4_SITES and
    K5_SITES) and of SDXL-inpainting at 1024² (XL_K4_SITES, XL_K5_SITES;
@@ -71,7 +74,15 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    and one reduce a PwW cross-attention (16) a visit; at tp 2 the first K1
    site's r, combined, within MESH_R_TOL of the one-process r, and some
    rank's own r outside it (the control); ms/step printed as
-   gloo with two ranks on one card (no scaling number). Then one NCCL group at world
+   gloo with two ranks on one card (no scaling number). On the same ranks:
+   spatial dp-2 txt2img and inpaint, dp-2 serving and tp-2 training
+   (:func:`check_spatial_serve_train`), then SPATIAL_MODES at full width
+   and 1 sample, each against the same call in one process
+   (:func:`spatial_modes`, :func:`check_spatial_modes`): LCM 4 steps, the
+   T2I-Adapter, the IP-Adapter plus with its ViT-H/14 tower, the hires fix
+   512² → 1024², SDXL base + refiner at 1024² (base to 0.8); latents and
+   images within SPATIAL_TOL, the ranks bit-equal, launches and
+   collectives as derived from the configs. Then one NCCL group at world
    size 1 (``init_multihost``), bit-equal to the call without a mesh;
 8. serve: on phase 5's pipeline with no per-phase syncs, a
    ``Batcher(max_batch=8)`` takes 16 concurrent txt2img requests from 16
@@ -663,6 +674,22 @@ def phase_kernels():
     for lq, l, dh in ((2048, 4096, 40), (512, 1024, 80)):
         flash_case(l, dh, f"dp2 Lq{lq} Lk{l} dh{dh}", lq=lq, calls=5 * STEPS_PER_RUN)
     flash_case(4000, 64, "Lq1000 Lk4000 dh64", lq=1000)
+    # the spatial modes at dp 2 (phase_mesh): SDXL base and refiner at 1024²
+    # (head dim 64, the K3 sites of SDXL_SITES with half their rows) and the
+    # hires fix's 1024² pass (a rank's 8192 rows of the L 16384 sites, K1-K3;
+    # plain K3 on two of the 16 (sample, head) pairs, as at L 16384)
+    for tag, table in SDXL_SITES.items():
+        for (h, lq, dh), _ in table.items():
+            if lq >= 1024:
+                flash_case(lq, dh, f"dp2 {'xl' if tag == 'sdxl' else 'xlr'} Lq{lq // 2} "
+                           f"Lk{lq} H{h} dh{dh}", H=h, lq=lq // 2)
+    q, k, v = randn(B, H, 8192, 40), randn(B, H, LK, 40), randn(B, H, LK, 40)
+    for mode in ("max", "mean", "std"):
+        reduce_case(q, k, mode, f"dp2 hires Lq8192 dh40 {mode}")
+    xattn_case(q, k, v, "dp2 hires Lq8192 dh40")
+    del q, k, v
+    flash_case(16384, 40, "dp2 hires Lq8192 Lk16384 dh40 (plain on pairs 0 and 15)",
+               lq=8192, plain_pairs=(0, B * H - 1))
     xattn_case(randn(B, H, 4000, 40), randn(B, H, LK, 40), randn(B, H, LK, 40), "Lq4000 dh40")
     xattn_case(randn(B, H, 4096, 40), randn(B, H, 2 * LK, 40), randn(B, H, 2 * LK, 40),
                "Lq4096 dh40 Lk154")
@@ -1218,8 +1245,9 @@ def mesh_run(pipe, steps):
 def mesh_rank(rank, steps):
     """A gloo rank on the shared card: the (2, 1) mesh (batch sharding, then
     spatial txt2img and serving), the (1, 2) mesh (batch sharding, then
-    textual inversion and LoRA through the tp cut), and SD-1.5-inpainting
-    on the (2, 1) mesh (spatial, the norm kernels on)."""
+    textual inversion and LoRA through the tp cut), SD-1.5-inpainting on
+    the (2, 1) mesh (spatial, the norm kernels on), then the spatial modes
+    (:func:`spatial_modes`) on the (2, 1) mesh."""
     import torch
 
     from pww_tpu_torch.parallel.mesh import make_mesh
@@ -1241,6 +1269,7 @@ def mesh_rank(rank, steps):
     out["spatial inpaint"] = spatial_run(pipe, inpaint_kwargs(steps))
     del pipe
     torch.cuda.empty_cache()
+    out["modes"] = spatial_modes(make_mesh(2, 1, device_type="cuda"), steps)
     return out
 
 
@@ -1249,7 +1278,8 @@ def phase_mesh(pipe, card, train_ref, steps=MESH_STEPS):
     at tp 2, held against the one-process call on ``pipe`` (phase 5's, the
     same weights); spatial sharding, serving and tp training on the same
     ranks (:func:`check_spatial_serve_train`; ``train_ref``: phase_train's
-    runs); then NCCL at world size 1. Returns {run: launches}."""
+    runs), and the spatial modes (:func:`check_spatial_modes`); then NCCL
+    at world size 1. Returns {run: launches}."""
     import socket
 
     import numpy as np
@@ -1263,9 +1293,12 @@ def phase_mesh(pipe, card, train_ref, steps=MESH_STEPS):
     log(f"[mesh] one process: {steps} LMS steps, {MESH_SAMPLES} samples, {ref_ms:.1f} ms/step, "
         f"K1 B·H {ref_bh}, launches {ref_launches} | card: {card}")
     s_img, s_lat, _, _, _, (s_r, _), s_qk = spatial_run(pipe, mesh_kwargs(steps), spatial=False)
+    modes = spatial_modes(None, steps)  # its pipelines freed before the ranks build theirs
+    torch.cuda.empty_cache()
     ranks = spawn(mesh_rank, 2, "gloo", steps)
     problems, out = check_spatial_serve_train(pipe, ranks, card, steps,
                                               (s_img, s_lat, s_r, s_qk), train_ref)
+    problems += check_spatial_modes([r["modes"] for r in ranks], modes, card, steps, out)
     for (dp, tp), tol in MESH_TOL.items():
         per = [r[dp, tp] for r in ranks]
         tag = f"dp={dp} tp={tp}"
@@ -1645,6 +1678,217 @@ def check_spatial_serve_train(pipe, ranks, card, steps, want, train_ref):
             np.array_equal(t0[3][k][n], t1[3][k][n]) for k in keys for n in "ab")):
         problems.append("train: the ranks' trained rows or gathered factors differ")
     return problems, out
+
+
+# -- the last modes under spatial sharding ------------------------------------------
+
+# LCM, the T2I-Adapter, the IP-Adapter plus, the hires fix (512², then 1024²
+# at strength 0.7, latent upscale) and the SDXL ensemble (1024², the base to
+# this fraction, the refiner from its latents), each at 1 sample, 4 steps
+SPATIAL_MODES = ("lcm", "t2i-adapter", "ip-adapter plus", "hires", "sdxl ensemble")
+XL_ENSEMBLE_AT = 0.8
+HIRES_STRENGTH = 0.7
+
+
+def spatial_modes(mesh, steps):
+    """Each of SPATIAL_MODES once with ``sharding="spatial"`` on ``mesh``
+    (None: the same calls in one process), on synthetic weights from fixed
+    seeds, every counter zeroed before each model's call and read after it:
+    {mode: {"latents", "images", "launches" {model: K1-K5}, "shapes" {model:
+    {kernel: {Lq: calls}}}, "collectives" {model: {kind: n}}, "ms" {model:
+    denoise ms a visit of its last call}, "wall" s, "peak" GiB}}. The final
+    latents come from a callback at each pass's last visit (the ensemble's:
+    the base's ``return_latents``); each mode's pipelines are freed before
+    the next mode's are built."""
+    import dataclasses
+
+    import torch
+
+    from pww_tpu_torch.config import CLIPVisionConfig, SDModelConfig
+    from pww_tpu_torch.models.clip_vision import CLIPVisionEncoder
+    from pww_tpu_torch.parallel import mesh as pmesh
+    from pww_tpu_torch.pipeline.pipeline import PwwPipeline
+    from pww_tpu_torch.schedulers.schedules import t_start_from_strength
+    from pww_tpu_torch.tokenizer.clip_bpe import synthetic_tokenizer
+    from pww_tpu_torch.weights.bridge import synthetic_params, synthetic_state
+
+    kw = dict(mesh_kwargs(steps), num_samples=1, output_type="np",
+              **({} if mesh is None else dict(sharding="spatial")))
+    counters = launch_counters()
+    out = {mode: {} for mode in SPATIAL_MODES}
+
+    def run(mode, parts):
+        """``parts``: (model, pipeline, visits of its last generate, call of
+        the previous part's result), run in order; returns the last result."""
+        res = out[mode]
+        res.update(launches={}, shapes={}, collectives={}, ms={}, visits={})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0, value = time.perf_counter(), None
+        for model, pipe, visits, call in parts:
+            for c in counters:
+                c.launches = 0
+            pmesh.COLLECTIVES.clear()
+            with KernelShapes() as ks:
+                value = call(value)
+            torch.cuda.synchronize()
+            res["launches"][model] = tuple(c.launches for c in counters)
+            res["shapes"][model] = {n: ks.of(n) for n in KernelShapes.NAMES}
+            res["collectives"][model] = dict(pmesh.COLLECTIVES)
+            res["ms"][model] = pipe.timings["denoise"] / visits * 1e3
+            res["visits"][model] = visits
+        res["wall"] = time.perf_counter() - t0
+        res["peak"] = torch.cuda.max_memory_allocated() / 2**30
+        return value
+
+    def final_latents(mode):
+        """generate's callback at each pass's last visit: the latents kept."""
+        def callback(i, t, x):
+            out[mode]["latents"] = x.float().cpu().numpy()
+        return dict(callback=callback, callback_steps=steps)
+
+    base = sd15_pipeline(mesh)
+    # the LCM UNet: the SD-1.5 weights (shared) and a cond_proj from a seed
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cond = (torch.randn((base.config.unet.block_out_channels[0], LCM_COND_DIM), generator=g,
+                        device="cuda") * 0.02).to(base.dtype)
+    lcm = PwwPipeline(dataclasses.replace(base.config, unet=dataclasses.replace(
+        base.config.unet, time_cond_proj_dim=LCM_COND_DIM)), params={
+        "unet": {**base.unet.state_dict(), "time_embedding.cond_proj.weight": cond},
+        "clip": base.clip.state_dict(), "vae": base.vae.state_dict()},
+        tokenizer=base.tokenizer, scheduler="lcm", device="cuda", dtype=base.dtype,
+        profile=True, mesh=mesh)
+    images = run("lcm", [("sd15", lcm, steps, lambda _: lcm.generate(
+        **dict(kw, guidance_scale=8.0), **final_latents("lcm")))])
+    out["lcm"]["images"] = images
+    del lcm
+    base.load_t2i_adapter(seed=3)  # phase_controlnet_variants' adapter
+    out["t2i-adapter"]["images"] = run("t2i-adapter", [("sd15", base, steps, lambda _: (
+        base.generate(**kw, adapter_image=edge_hint(kw["color_map_image"]),
+                      **final_latents("t2i-adapter"))))])
+    base.t2i_adapter = None
+    hires = steps - t_start_from_strength(steps, HIRES_STRENGTH)
+    out["hires"]["images"] = run("hires", [("sd15", base, hires, lambda _: base.generate_hires(
+        **kw, hires_strength=HIRES_STRENGTH, upscale_mode="latent", **final_latents("hires")))])
+    vcfg = CLIPVisionConfig()  # phase_adapters' plus adapter and ViT-H/14 tower
+    with torch.device("meta"):
+        tower = CLIPVisionEncoder(vcfg)
+    base.load_ip_adapter(
+        ip_adapter_file_state(base.unet, vcfg.hidden_size, seed=24, plus=(768, 4, 12, 16)),
+        image_encoder=(vcfg, synthetic_state(
+            tower, torch.Generator(device="cuda").manual_seed(22), base.dtype)))
+    out["ip-adapter plus"]["images"] = run("ip-adapter plus", [(
+        "sd15", base, steps, lambda _: base.generate(
+            **kw, ip_adapter_image=reference_image(), **final_latents("ip-adapter plus")))])
+    del base
+    torch.cuda.empty_cache()
+
+    def xl(cfg, seed):
+        return PwwPipeline(cfg, params=synthetic_params(cfg, seed=seed, device="cuda"),
+                           tokenizer=synthetic_tokenizer(49408), device="cuda",
+                           dtype=torch.bfloat16, profile=True, mesh=mesh)
+
+    xbase, xref = xl(SDModelConfig.sdxl(), 0), xl(SDModelConfig.sdxl_refiner(), 1)
+    xkw = dict(kw, color_map_image=sd21_color_map(1024))
+    cut = steps_at_or_above(xbase, steps, XL_ENSEMBLE_AT)
+    ens = out["sdxl ensemble"]
+
+    def base_call(_):
+        ens["latents"] = xbase.generate(**xkw, denoising_end=XL_ENSEMBLE_AT,
+                                        return_latents=True)
+        return ens["latents"]
+
+    ens["images"] = run("sdxl ensemble", [
+        ("sdxl", xbase, cut, base_call),
+        ("sdxl_refiner", xref, steps - cut, lambda lat: xref.generate(
+            **xkw, init_latents=lat, denoising_start=XL_ENSEMBLE_AT))])
+    del xbase, xref
+    torch.cuda.empty_cache()
+    return out
+
+
+def steps_at_or_above(pipe, steps, frac):
+    """The visits of an ``steps``-step call at or above the experts' cutoff
+    ``round(T - frac·T)`` (``generate``'s ``denoising_end``)."""
+    n_train = pipe.config.scheduler.num_train_timesteps
+    cutoff = int(round(n_train - frac * n_train))
+    return int((pipe.scheduler.set_timesteps(steps).timesteps.cpu() >= cutoff).sum())
+
+
+def spatial_mode_wants(steps, cut):
+    """{mode: {model: ((K1, ..., K5) launches, {kind: collectives})}} of
+    spatial_modes' calls at dp 2 (``cut``: the ensemble base's visits): the
+    launches of one process (every site runs on each rank's rows; the norm
+    knobs off, so no K4 or K5); the collectives as spatial_collectives
+    derives them, plus one "rows" gather for each generate's result and one
+    for each callback."""
+    from pww_tpu_torch.config import SDModelConfig
+    from pww_tpu_torch.schedulers.schedules import t_start_from_strength
+
+    sd15, xl, xlr = SDModelConfig.sd15(), SDModelConfig.sdxl(), SDModelConfig.sdxl_refiner()
+    hires = steps - t_start_from_strength(steps, HIRES_STRENGTH)
+
+    def times(visit, n):
+        return tuple(v * n for v in visit) + (0, 0)
+
+    one = (times(VISIT, steps), dict(spatial_collectives(sd15, steps, 1), rows=2))
+    return {"lcm": {"sd15": one}, "t2i-adapter": {"sd15": one},
+            "ip-adapter plus": {"sd15": one},
+            "hires": {"sd15": (tuple(a + b for a, b in zip(times(VISIT, steps),
+                                                           times(HIRES_VISIT, hires))),
+                               dict(spatial_collectives(sd15, steps + hires, 1), rows=4))},
+            "sdxl ensemble": {
+                "sdxl": (times(SDXL_LAUNCHES_PER_VISIT["sdxl"], cut),
+                         dict(spatial_collectives(xl, cut, 0), rows=1)),
+                "sdxl_refiner": (times(SDXL_LAUNCHES_PER_VISIT["sdxl_refiner"], steps - cut),
+                                 dict(spatial_collectives(xlr, steps - cut, 1), rows=1))}}
+
+
+def check_spatial_modes(ranks, want, card, steps, launches):
+    """spatial_modes on each rank against the one-process ``want``: latents
+    and images within SPATIAL_TOL relative L2, finite, the ranks bit-equal,
+    launches and collectives as spatial_mode_wants derives them. Adds
+    {"spatial_<mode>": launches} to ``launches``; returns the problems."""
+    import numpy as np
+
+    problems = []
+    wants = spatial_mode_wants(steps, want["sdxl ensemble"]["visits"]["sdxl"])
+    for mode in SPATIAL_MODES:
+        ref = want[mode]
+        log(f"[mesh] {mode} one process: {steps} steps, denoise ms a visit {ref['ms']}, "
+            f"{ref['wall']:.2f} s, peak {ref['peak']:.2f} GiB, launches {ref['launches']} | "
+            f"card: {card}")
+        for model, (k, _) in wants[mode].items():
+            if ref["launches"][model] != k:
+                problems.append(f"{mode} one process {model}: launches "
+                                f"{ref['launches'][model]} != {k}")
+        per = [r[mode] for r in ranks]
+        for r, res in enumerate(per):
+            err_lat = rel_l2(res["latents"], ref["latents"])
+            err_img = rel_l2(res["images"], ref["images"])
+            log(f"[mesh] spatial {mode} dp=2 rank {r} (gloo, two ranks on one card; not a "
+                f"scaling number): denoise ms a visit {res['ms']}, {res['wall']:.2f} s, peak "
+                f"{res['peak']:.2f} GiB, latents rel L2 {err_lat:.3e}, image rel L2 "
+                f"{err_img:.3e} (tol {SPATIAL_TOL:g}), launches {res['launches']}, by Lq "
+                f"{res['shapes']}, collectives {res['collectives']} | card: {card}")
+            for model, (k, coll) in wants[mode].items():
+                if res["launches"][model] != k or res["collectives"][model] != coll:
+                    problems.append(f"spatial {mode} rank {r} {model}: launches "
+                                    f"{res['launches'][model]} != {k} or collectives "
+                                    f"{res['collectives'][model]} != {coll}")
+            if not (err_lat <= SPATIAL_TOL and err_img <= SPATIAL_TOL
+                    and np.isfinite(res["latents"]).all()
+                    and res["images"].shape == ref["images"].shape
+                    and res["latents"].shape == ref["latents"].shape):
+                problems.append(f"spatial {mode} rank {r}: latents rel L2 {err_lat:.3e}, "
+                                f"image {res['images'].shape} rel L2 {err_img:.3e}")
+        if not (np.array_equal(per[0]["latents"], per[1]["latents"])
+                and np.array_equal(per[0]["images"], per[1]["images"])):
+            problems.append(f"spatial {mode}: the two ranks' results differ")
+        launches[f"spatial_{mode.replace(' ', '_').replace('-', '_')}"] = {
+            c.__name__: sum(n[i] for n in per[0]["launches"].values())
+            for i, c in enumerate(launch_counters())}
+    return problems
 
 
 def phase_utils(pipe, kw, card):
@@ -3869,7 +4113,7 @@ def phase_sdxl(steps, card, enc_dir, tmp):
     run_kw = {k: v for k, v in kw.items() if k not in ("local_model_path", "scheduler_type",
                                                        "output_type", "device")}
     prompt = run_kw.pop("input_prompt")
-    cutoff_visits = int((pipe.scheduler.set_timesteps(steps).timesteps.cpu() >= 200).sum())
+    cutoff_visits = steps_at_or_above(pipe, steps, 0.8)
     refiner.generate(prompt=prompt, num_inference_steps=4, init_latents=pipe.generate(
         prompt=prompt, num_inference_steps=4, denoising_end=0.8, return_latents=True,
         **run_kw), denoising_start=0.8, output_type="np", **run_kw)  # warm-up
@@ -4283,21 +4527,22 @@ def lora_files(states, patterns, rank, alpha, seed, xl=False, std=0.02):
     return kohya, peft
 
 
-def ip_adapter_file_state(unet, embed_dim, num_tokens=4, plus=None, seed=0, std=0.02):
+def ip_adapter_file_state(unet, embed_dim, num_tokens=4, plus=None, seed=0, std=0.02,
+                          device="cuda"):
     """An IP-Adapter for ``unet`` (the port's UNet), tencent-ailab's flat
     layout in fp16: the standard ``image_proj`` (proj to ``num_tokens``
     context tokens, its LayerNorm at 1 and 0) or, with ``plus`` = (dim,
     depth, heads, queries), a Resampler over ``embed_dim``-wide states with
     (1, Q, D) latents as published; ``to_k_ip``/``to_v_ip`` at every attn2
-    site, N(0, std) from ``seed`` on the card."""
+    site, N(0, std) from ``seed`` on ``device``."""
     import torch
 
     from pww_tpu_torch.weights.ip_adapter import attn2_sites, site_module
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device=device).manual_seed(seed)
 
     def w(*shape):
-        return (torch.randn(shape, generator=g, device="cuda") * std).half().cpu()
+        return (torch.randn(shape, generator=g, device=device) * std).half().cpu()
 
     ctx = unet.config.cross_attention_dim
     if plus is None:

@@ -90,8 +90,8 @@ and return the gathered result on every rank. ``generate(sharding=
 whole and cut, the text states, PwW weights and added conditions stay
 whole, a ControlNet runs whole on gathered latents and its residuals are
 cut, the decode is sharded too, and the latents are gathered before the
-callbacks and the return. :data:`SPATIAL_UNPORTED` lists the options that
-raise under it.
+callbacks and the return. Every mode of ``generate`` and both passes of
+``generate_hires`` run under it.
 
 Everything else the JAX pipeline's ``generate`` takes raises
 ``NotImplementedError`` here (:data:`UNPORTED`).
@@ -138,11 +138,6 @@ NO_STRENGTH_TRUNCATION = ("pndm", "heun", "unipc", "dpmpp_2m", "dpmpp_2m_sde")
 # leaves each off, and the ROADMAP item that decides or ports it. Off, they
 # are accepted; on, they raise. The port has them all.
 UNPORTED: Dict = {}
-
-# generate(sharding="spatial") together with these raises (ROADMAP A.20c)
-SPATIAL_UNPORTED = ("an LCM UNet (time_cond_proj_dim)", "a T2I-Adapter",
-                    "the IP-Adapter plus", "denoising_end / denoising_start (the refiner "
-                    "ensemble)", "generate_hires")
 
 
 def refuse_unported(where: str, options: Dict) -> None:
@@ -1245,9 +1240,6 @@ class PwwPipeline:
         if sharding not in ("batch", "spatial"):
             raise ValueError(f'sharding must be "batch" or "spatial", got {sharding!r}')
         spatial_call = sharding == "spatial" and self.mesh is not None
-        if spatial_call:
-            self._refuse_spatial(adapter_image is not None,
-                                 denoising_end is not None or denoising_start is not None)
         if output_type not in ("pil", "np", "device"):
             raise ValueError(f"output_type must be 'pil', 'np' or 'device', got "
                              f"{output_type!r}")
@@ -1442,18 +1434,6 @@ class PwwPipeline:
 
     __call__ = generate
 
-    def _refuse_spatial(self, adapter: bool, ensemble: bool) -> None:
-        """``NotImplementedError`` for the options of :data:`SPATIAL_UNPORTED`
-        that a ``sharding="spatial"`` call has on."""
-        on = {SPATIAL_UNPORTED[0]: self.config.unet.time_cond_proj_dim is not None,
-              SPATIAL_UNPORTED[1]: adapter,
-              SPATIAL_UNPORTED[2]: bool(self._ip and self._ip["plus"]),
-              SPATIAL_UNPORTED[3]: ensemble}
-        for what, used in on.items():
-            if used:
-                raise NotImplementedError(f'generate(sharding="spatial") with {what} is not '
-                                          "ported to pww_tpu_torch yet (ROADMAP A.20c)")
-
     def _lcm_guidance(self, added_cond: Optional[Dict], guidance_scale: float, n: int):
         """An LCM-distilled UNet (``time_cond_proj_dim``) takes the embedded
         guidance scale on all 2N rows, and the external CFG combine runs at
@@ -1517,9 +1497,6 @@ class PwwPipeline:
         from PIL import Image
 
         cfg = self.config
-        if kwargs.get("sharding") == "spatial" and self.mesh is not None:
-            raise NotImplementedError(f'{SPATIAL_UNPORTED[4]}(sharding="spatial") is not '
-                                      "ported to pww_tpu_torch yet (ROADMAP A.20c)")
         cm = _to_numpy_image(color_map_image)
         if cm is None:
             raise ValueError("generate_hires requires color_map_image")

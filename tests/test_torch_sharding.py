@@ -311,8 +311,13 @@ def test_spatial_modes_match_the_unsharded_port(ranks, whole, case):
     (the probabilities and the blur on gathered rows), ToMe (the matching
     on gathered rows), FreeU's filter, DeepCache, a ControlNet run whole
     with its residuals cut, an IP-Adapter, SDXL-tiny with its added
-    conditions whole, prompt editing, and inpainting of the masked area
-    at full resolution (uint8 images: within one level)."""
+    conditions whole, prompt editing, inpainting of the masked area at
+    full resolution, an LCM UNet (its guidance embedding whole, its step
+    noise drawn whole and cut), a T2I-Adapter (its features computed
+    whole, cut by rows per level), the IP-Adapter plus (the image tower
+    and the Resampler whole), the SDXL base-to-refiner ensemble (the
+    base's gathered latents cut again) and the hires fix in both upscale
+    modes (both passes spatial) (uint8 images: within one level)."""
     want = whole["spatial", case]
     for r, res in enumerate(ranks):
         got = res["spatial", case]
@@ -324,8 +329,12 @@ def test_spatial_modes_match_the_unsharded_port(ranks, whole, case):
         np.testing.assert_array_equal(got, ranks[0]["spatial", case])
     # the mode changes the result (prompt editing on the tiny random text
     # tower only by ~2e-5; the others are not the plain call's inputs)
-    if case not in ("euler_ancestral", "sdxl", "inpaint 9-channel", "deepcache",
-                    "inpaint full res", "prompt editing"):
+    if case == "sdxl ensemble":  # the refiner's visit: tiny synthetic experts, small ε
+        assert rel_l2(want, whole["spatial", "sdxl"]) > 1e-5
+    elif case.startswith("hires"):  # 128 px images: the second pass ran
+        assert want.shape[1:] == (128, 128, 3)
+    elif case not in ("euler_ancestral", "sdxl", "inpaint 9-channel", "deepcache",
+                      "inpaint full res", "prompt editing"):
         assert rel_l2(want, whole["plain small"]) > 1e-3
 
 
@@ -334,13 +343,30 @@ def test_spatial_callbacks_see_the_whole_latents(ranks):
         assert res["spatial callback shapes"] == [(2, 8, 8, 4)] * 1
 
 
-def test_spatial_refusals_name_their_roadmap_item(ranks):
-    """The modes sharding="spatial" does not take raise NotImplementedError
-    naming A.20c (pipeline.SPATIAL_UNPORTED), before any collective."""
+def test_spatial_hires_fix_matches_the_jax_package(tree, ranks):
+    """``generate_hires(upscale_mode="latent", sharding="spatial")`` on the
+    (2, 2) mesh against the JAX package's unsharded ``generate_hires`` on
+    the same weights: the second pass's final latents (the last callback)
+    within the mesh tests' factor, the images within one level."""
+    want_lat, want_img = jax_hires(tree)
     for res in ranks:
-        assert set(res["spatial refusals"]) == {"lcm", "t2i", "ensemble", "hires"}
-        assert all("A.20c" in m for m in res["spatial refusals"].values())
-    assert len(C.SPATIAL_UNPORTED) == 5
+        assert res["spatial hires latents"].shape == (2, 16, 16, 4)
+        close(res["spatial hires latents"], want_lat)
+        assert np.abs(res["spatial", "hires latent"].astype(int) - want_img).max() <= 1
+
+
+def jax_hires(tree):
+    if "hires" not in _JAX:
+        from pww_tpu.pipeline.pipeline import PwwPipeline as JaxPipeline
+
+        jp = JaxPipeline(JaxSDModelConfig.tiny(), params=tree, compute_dtype=jnp.float32,
+                         weights_dtype=jnp.float32)
+        seen = []
+        kw = {k: v for k, v in C.SPATIAL_KW.items() if k not in ("return_latents", "sharding")}
+        img = jp.generate_hires(**kw, **C.SPATIAL_CASES["hires latent"], callback_steps=100,
+                                callback=lambda i, t, x: seen.append(np.asarray(x)))
+        _JAX["hires"] = seen[-1], np.asarray(img)
+    return _JAX["hires"]
 
 
 def test_shard_spatial_cuts_the_rows():

@@ -8,10 +8,12 @@ import time
 import numpy as np
 import torch
 
-from pww_tpu_torch.config import SDModelConfig
+from chip_smoke import ip_adapter_file_state
+from pww_tpu_torch.config import CLIPVisionConfig, SDModelConfig
+from pww_tpu_torch.models.clip_vision import CLIPVisionEncoder
 from pww_tpu_torch.ops.weight_functions import CustomWeightFunction, WeightFunction
 from pww_tpu_torch.parallel import mesh as M
-from pww_tpu_torch.pipeline.pipeline import SPATIAL_UNPORTED, PwwPipeline
+from pww_tpu_torch.pipeline.pipeline import PwwPipeline
 from pww_tpu_torch.serving.batcher import Batcher, follow
 from pww_tpu_torch.training.lora import train_lora
 from pww_tpu_torch.training.textual_inversion import train_textual_inversion
@@ -86,7 +88,18 @@ SPATIAL_CASES = {
     "inpaint full res": dict(init_image=color_map()[::-1].copy(), mask_image=mask(),
                              strength=0.8, inpaint_full_res=True, inpaint_full_res_padding=8,
                              return_latents=False, output_type="np"),
+    "lcm": dict(guidance_scale=4.0),
+    "t2i-adapter": dict(adapter_image=color_map()[:, ::-1].copy(),
+                        adapter_conditioning_scale=20.0),
+    "ip-adapter plus": dict(ip_adapter_image=color_map()[::-1].copy(), ip_adapter_scale=4.0),
+    "sdxl ensemble": {},
+    # generate_hires returns images: 64 px, then 128 px at strength 0.7
+    "hires latent": dict(upscale_mode="latent", hires_strength=0.7, output_type="np"),
+    "hires image": dict(upscale_mode="image", hires_strength=0.7, output_type="np",
+                        num_samples=1),
 }
+# the SDXL ensemble: the base to this fraction, the refiner from its latents
+ENSEMBLE_AT = 0.5
 
 
 def spatial_pipelines(params, mesh, control_state, ip_embed):
@@ -98,13 +111,30 @@ def spatial_pipelines(params, mesh, control_state, ip_embed):
     ip.load_ip_adapter(seed=3, image_embed_dim=ip_embed.shape[1])
     control = pipeline(params, mesh)
     control.load_controlnet(params=control_state)
+    lcm = dataclasses.replace(tiny, unet=dataclasses.replace(tiny.unet, time_cond_proj_dim=8))
+    t2i = pipeline(params, mesh)
+    t2i.load_t2i_adapter(seed=5)
+    vision = CLIPVisionConfig.tiny()
+    with torch.device("meta"):
+        encoder = CLIPVisionEncoder(vision)
+    plus = pipeline(params, mesh)
+    plus.load_ip_adapter(ip_adapter_file_state(unet(params), vision.hidden_size, seed=8,
+                                               plus=(16, 2, 2, 6), std=0.2, device="cpu"),
+                         image_encoder=(vision, synthetic_state(
+                             encoder, torch.Generator().manual_seed(6), torch.float32)))
+    xl = pipeline(None, mesh, cfg=SDModelConfig.tiny_xl(), seed=11)
     pipes = {
         "inpaint 9-channel": pipeline(None, mesh, cfg=SDModelConfig.tiny(9), seed=4),
         "euler_ancestral": pipeline(params, mesh, "euler_ancestral"),
         "tome": pipeline(params, mesh, cfg=tome),
         "controlnet": control,
         "ip-adapter": ip,
-        "sdxl": pipeline(None, mesh, cfg=SDModelConfig.tiny_xl(), seed=11),
+        "sdxl": xl,
+        "lcm": pipeline(None, mesh, "lcm", cfg=lcm, seed=12),
+        "t2i-adapter": t2i,
+        "ip-adapter plus": plus,
+        "sdxl ensemble": (xl, pipeline(None, mesh, cfg=SDModelConfig.tiny_xl_refiner(),
+                                       seed=13)),
     }
     extra = {"ip-adapter": dict(ip_adapter_image=ip_embed)}
     return {case: (pipes.get(case, base), dict(kw, **extra.get(case, {})))
@@ -120,25 +150,19 @@ def control_state(seed: int = 3):
             else v for k, v in state.items()}
 
 
-def spatial_refusals(params, mesh):
-    """{option: message} of every sharding="spatial" call that raises."""
-    tiny = SDModelConfig.tiny()
-    lcm = dataclasses.replace(tiny, unet=dataclasses.replace(tiny.unet, time_cond_proj_dim=8))
-    kw = dict(SPATIAL_KW, num_inference_steps=1)
-    calls = {
-        "lcm": lambda: pipeline(None, mesh, "lcm", cfg=lcm).generate(**kw),
-        "t2i": lambda: pipeline(params, mesh).generate(adapter_image=color_map(), **kw),
-        "ensemble": lambda: pipeline(params, mesh).generate(denoising_end=0.5, **kw),
-        "hires": lambda: pipeline(params, mesh).generate_hires(
-            color_map_image=color_map(), sharding="spatial", num_inference_steps=1),
-    }
-    out = {}
-    for name, call in calls.items():
-        try:
-            call()
-        except NotImplementedError as e:
-            out[name] = str(e)
-    return out
+def spatial_call(pipe, kw, **extra):
+    """One SPATIAL_CASES call: ``generate``; for a (base, refiner) pair the
+    base to ENSEMBLE_AT and the refiner from its latents; with an
+    ``upscale_mode``, ``generate_hires`` (which returns images)."""
+    kw = dict(kw, **extra)
+    if isinstance(pipe, tuple):
+        base, refiner = pipe
+        lat = base.generate(denoising_end=ENSEMBLE_AT, **kw)
+        return refiner.generate(init_latents=lat, denoising_start=ENSEMBLE_AT, **kw)
+    if "upscale_mode" in kw:
+        kw.pop("return_latents")
+        return pipe.generate_hires(**kw)
+    return pipe.generate(**kw)
 
 
 def unet_grads(model, seed: int = 3):
@@ -290,12 +314,17 @@ def rank_cases(rank: int, params, lora_state, ip_embed, control):
 
     t0 = time.perf_counter()
     for case, (p, kw) in spatial_pipelines(params, mesh, control, ip_embed).items():
-        seen = []
-        out["spatial", case] = p.generate(**dict(SPATIAL_KW, **kw), callback=(
-            (lambda i, t, x: seen.append(tuple(x.shape))) if case == "img2img" else None))
-        if seen:
+        seen, extra = [], {}
+        if case == "img2img":
+            extra = dict(callback=lambda i, t, x: seen.append(tuple(x.shape)))
+        elif case == "hires latent":  # the last visit of each pass: its final latents
+            extra = dict(callback=lambda i, t, x: seen.append(x.numpy().copy()),
+                         callback_steps=100)
+        out["spatial", case] = spatial_call(p, dict(SPATIAL_KW, **kw), **extra)
+        if case == "img2img":
             out["spatial callback shapes"] = seen
-    out["spatial refusals"] = spatial_refusals(params, mesh)
+        elif seen:
+            out["spatial hires latents"] = seen[-1]
     out["seconds", "spatial"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -353,7 +382,7 @@ def whole_cases(params, lora_state, ip_embed, control):
     out["spatial images"] = pipeline(params).generate(**dict(SPATIAL_KW, return_latents=False,
                                                              output_type="np"))
     for case, (p, kw) in spatial_pipelines(params, None, control, ip_embed).items():
-        out["spatial", case] = p.generate(**dict(SPATIAL_KW, **kw))
+        out["spatial", case] = spatial_call(p, dict(SPATIAL_KW, **kw))
     out["plain small"] = pipeline(params).generate(**SPATIAL_KW)
     out["batch last"] = np.asarray(pipeline(params).generate_batch(
         [dict(requests(5, 4)[0], num_inference_steps=2)], num_inference_steps=2,
