@@ -36,7 +36,11 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    with ``F.group_norm`` and ``F.layer_norm`` as the library yardstick
    where no pre-add or SiLU, K4 off the path at a scalar span (1, 64, 33,
    33), K4's plan per case, and each kernel's loss_ms_per_run (Σ calls
-   per 30-step SD-1.5 inpaint run × (ms − bound)); ``--kernels-only``
+   per 30-step SD-1.5 inpaint run × (ms − bound)); then K4 and K5 at every
+   signature of the served path (SERVE_K4_SITES, SERVE_K5_SITES: 16 CFG
+   rows in the UNet, a decode of 8 images), each timed beside the f32
+   composition the sites ran before the norm-site rule, and the device ms
+   of a 30-step group of 8 in each form; ``--kernels-only``
    stops after this phase, and
    ``--e2e-reps R`` runs phase 5's call R times in its place, then R turns
    of it without and with a ControlNet, the host time inside the UNet's and
@@ -52,10 +56,12 @@ Phases, each printing its own lines; any failure ends the run non-zero:
 5. main path: SD-1.5 at full width (synthetic N(0, 0.02) weights) through
    ``paint_with_words``, 512², cat/dog color map, CFG 7.5, LMS; the kernel
    launch counters are zeroed before the run and must read K1 = K2 = 15·N,
-   K3 = 10·N and K4 = K5 = 0 (the norm knobs are off) after it;
+   K3 = 10·N, K4 = 61·N + 30 and K5 = 48·N after it (the norm knobs are
+   off, and every norm site takes its kernel on bf16 inputs on the card:
+   SD15_NORMS, ``path_launches``);
 6. profile: device time by kernel group over a 5-step call (torch.profiler),
    the device's idle share, and each kernel's device time and device
-   kernels per wrapper call, which must be 1 for K1;
+   kernels per wrapper call, which must be 1 for K1 and K4;
 7. img2img: one full-width ``paint_with_words`` call with an init image at
    strength 0.5 on the same pipeline (N/2 steps, counts checked);
 7a. utils: the native host library (``pww_tpu_torch/native``, built with
@@ -69,8 +75,9 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    MESH_SAMPLES samples, on two ranks that share the card over gloo
    (``parallel.mesh.spawn``), at dp 2 and at tp 2: both ranks' images and
    latents bit-equal, each within MESH_TOL relative L2 of phase 5's
-   pipeline's call alone; per rank K1 = K2 = 15 and K3 = 10 launches a
-   visit, K1 at B·H 16, and at tp 2 three sums a transformer block (48)
+   pipeline's call alone; per rank K1 = K2 = 15, K3 = 10, K4 = 61 and K5
+   = 48 launches a visit (K4 30 more a decode), K1 at B·H 16, and at tp 2
+   three sums a transformer block (48)
    and one reduce a PwW cross-attention (16) a visit; at tp 2 the first K1
    site's r, combined, within MESH_R_TOL of the one-process r, and some
    rank's own r outside it (the control); ms/step printed as
@@ -88,7 +95,8 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    ``Batcher(max_batch=8)`` takes 16 concurrent txt2img requests from 16
    threads (distinct prompts, seeds and color maps on one 512² grid), N
    LMS steps, CFG 7.5: two ``generate_batch`` calls (two groups of 8),
-   each with K1 = K2 = 15·N and K3 = 10·N, the second launched while the
+   each with K1 = K2 = 15·N, K3 = 10·N, K4 = 61·N + 30 (SERVE_K4_SITES)
+   and K5 = 48·N (SERVE_K5_SITES), the second launched while the
    first group's fetch is held back; 16 finite and pairwise distinct
    images; the first and last request of each group take the denoise
    inputs (initial latents, text states, PwW weights) of the same request
@@ -113,16 +121,21 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    a copy of the UNet with LCM-Dreamshaper-v7's ``time_cond_proj_dim``
    256, prompt editing ``[cat:fox:0.5]`` (two prompts encoded), and
    ``generate_hires`` 512² → 1024² at strength 0.7 (16/16/15 a 1024²
-   visit); each gated on finite final latents that differ from the plain
+   visit; K4 and K5 61 and 48 a full visit, 16 and 15 a shallow one, K4 30
+   a decode); each gated on finite final latents that differ from the plain
    run's and on its launches, with s/image, ms/visit and peak GiB; then
    5-step profiles of DeepCache and ToMe;
 8f. train (after extras, on phase 5's pipeline): ``train_textual_inversion``
    and ``train_lora`` (rank 8, the attention linears), 3 steps each on two
    512² synthetic images; finite losses, TI's old table rows bit-equal and
    its new row moved, every LoRA B nonzero and every A moved after step 3,
-   the UNet bit-equal after ``train_lora``, K3 = 10 launches a train step
-   and K1 = K2 = K4 = K5 = 0; K1, K2, K4 and K5 raise under grad mode on
-   the card; N steps with the trained placeholder and with the saved LoRA
+   the UNet bit-equal after ``train_lora``, K3 = 10 launches a train step,
+   K1 = K2 = 0, and K4 and K5 only at the sites ahead of the first tensor
+   that requires a gradient and in the images' encodes
+   (TRAIN_NORMS_PER_STEP); K1, K2, K4 and K5 raise under grad mode on the
+   card, and the norm sites keep the f32 composition, bit for bit and with
+   no launch, on a bf16 input under autograd and on an f32 input; N steps
+   with the trained placeholder and with the saved LoRA
    loaded (15/15/10 a visit, finite latents, the LoRA image unlike the
    plain one); ms per train step, peak GiB and a 1-step profile of each
    trainer (K3's device ms inside a step);
@@ -153,15 +166,17 @@ Phases, each printing its own lines; any failure ends the run non-zero:
     K5 = 48·N, K1 = K2 = 15·N, K3 = 10·N; then its own 5-step profile, in
     which K1 and K4 must be one device kernel per call;
 12. tiny: ``SDModelConfig.tiny()`` on the card (head dims 8 and 16, which
-    K1-K3 are not built for), 128 px, 2 steps: no kernel launches;
+    K1-K3 are not built for), 128 px, 2 steps: no K1-K3 launches, K4
+    and K5 at every norm site (TINY_NORMS);
 13. sd2 reference: a reduced-depth SD-2.1-width txt2img (head dim 64,
     v-prediction), 256 px, 3 steps, card bf16 against CPU f32, with the LMS
     and the DDIM scheduler; K1-K3 must launch;
 14. sd21 path: a full-width synthetic SD-2.1 768-v diffusers directory
     (fp16 safetensors, written to a temporary directory and deleted at the
     end) loaded through ``paint_with_words(local_model_path=...)``, 768², N
-    LMS steps, counts K1 = K2 = 15·N, K3 = 10·N, K4 = K5 = 0, the loader's
-    cache checked; its 5-step profile (K1 one device kernel per call);
+    LMS steps, counts K1 = K2 = 15·N, K3 = 10·N, K4 = 61·N + 30, K5 = 48·N,
+    the loader's cache checked; its 5-step profile (K1 one device kernel
+    per call);
 15. schedulers: one 4-step call per scheduler kind and DPM++ 2M Karras on
     that pipeline, K1 = K2 = 15 and K3 = 10 launches per visit;
 16. controlnet reference: phase 4's reduced-depth config with one ControlNet
@@ -171,8 +186,9 @@ Phases, each printing its own lines; any failure ends the run non-zero:
 17. controlnet path: SD-1.5 at full width plus a full SD-1.5 ControlNet
     written as a diffusers directory (deleted at the end) and attached by
     ``load_controlnet(source=...)``, 512², N LMS steps, CFG 7.5, the color
-    map's edges as the hint; counts K1 = K2 = 21·N, K3 = 14·N, K4 = K5 = 0,
-    the image unlike the one without the hint, a 5-step profile; then 4-step
+    map's edges as the hint; counts K1 = K2 = 21·N, K3 = 14·N, K4 = (61 +
+    27)·N + 30, K5 = (48 + 21)·N, the image unlike the one without the
+    hint, a 5-step profile; then 4-step
     calls with two stacked ControlNets (27/27/18 per visit), the T2I-Adapter
     at full width (15/15/10 per visit, unlike the run without it) and a
     custom weight function with one ControlNet (the split path: 0/0/28);
@@ -206,7 +222,8 @@ Phases, each printing its own lines; any failure ends the run non-zero:
 19. sdxl path: SDXL-base at diffusers' published shapes written as an fp16
     diffusers directory (the free space printed first; deleted once
     loaded), through ``paint_with_words(local_model_path=...)``, 1024², N
-    LMS steps, CFG 7.5, K1 = K2 = K3 = 70·N (SDXL_LAUNCHES_PER_VISIT), a
+    LMS steps, CFG 7.5, K1 = K2 = K3 = 70·N (SDXL_LAUNCHES_PER_VISIT), K4
+    = 46·N + 30, K5 = 210·N (SDXL_NORMS), a
     5-step profile; the refiner at its published shapes the same way, one
     ensemble call (the base's visits at t >= 200, the refiner's 44/44/40 a
     visit after them), and one 4-step euler call on the base; then on the
@@ -339,6 +356,16 @@ K4_SITES = {
 # The transformer LayerNorms: (shape, eps) → calls per UNet step (48·N).
 K5_SITES = {((2, 4096, 320), 1e-05): 15, ((2, 1024, 640), 1e-05): 15,
             ((2, 256, 1280), 1e-05): 15, ((2, 64, 1280), 1e-05): 3}
+# The served path's sites at the default config, where every site takes K4
+# or K5 on the card: SD-1.5 at 512², a generate_batch of 8 (16 CFG rows in
+# the UNet) and its decode of 8 images; K4_SITES' UNet signatures at 16
+# rows (calls a visit) and its decoder's at 8 images (calls a decode): K4 =
+# 61 a visit + 30 a decode, K5 = 48 a visit
+SERVE_ROWS, SERVE_IMAGES = 16, 8
+SERVE_K4_SITES = {
+    **{((SERVE_ROWS, *k[0][1:]), *k[1:]): (u, 0, 0) for k, (u, _, _) in K4_SITES.items() if u},
+    **{((SERVE_IMAGES, *k[0][1:]), *k[1:]): (0, 0, d) for k, (_, _, d) in K4_SITES.items() if d}}
+SERVE_K5_SITES = {((SERVE_ROWS, *s[1:]), eps): n for (s, eps), n in K5_SITES.items()}
 # The same tables for SDXL-inpainting (a 9-channel SDXL-base UNet, the norm
 # knobs on) at 1024²: K4 = 46·N + 2·22 + 30, K5 = 210·N per inpaint call.
 XL_K4_SITES = {
@@ -389,17 +416,20 @@ def k4_calls(site, unet_steps, encodes=2, decodes=1, table=None):
 
 def k4_label(site, mean=0.0):
     """The SD-1.5 inpaint path's sites as "unet"/"vae", SDXL-inpainting's
-    others as "xl unet"/"xl vae", the rest "off"."""
+    others as "xl unet"/"xl vae", the served path's as "serve unet"/"serve
+    vae", the rest "off"."""
     (shape, groups, eps, silu, has_add) = site
-    part = "unet" if shape[0] == 2 else "vae"
-    where = part if site in K4_SITES else f"xl {part}" if site in XL_K4_SITES else "off"
+    part = "unet" if shape[0] in (2, SERVE_ROWS) else "vae"
+    where = (part if site in K4_SITES else f"xl {part}" if site in XL_K4_SITES
+             else f"serve {part}" if site in SERVE_K4_SITES else "off")
     return (f"{where} {shape}{' add' if has_add else ''}{' silu' if silu else ''} "
             f"eps{eps:g}{f' mean{mean:g}' if mean else ''}")
 
 
 def k5_label(site, mean=0.0):
     shape, eps = site
-    xl = "xl " if site in XL_K5_SITES and site not in K5_SITES else ""
+    xl = ("xl " if site in XL_K5_SITES and site not in K5_SITES
+          else "serve " if site in SERVE_K5_SITES else "")
     return f"{xl}{shape} eps{eps:g}{f' mean{mean:g}' if mean else ''}"
 
 # name → (source, TPU kernel it replaces, launch counter, profile group,
@@ -862,8 +892,7 @@ def phase_main_path(steps):
         problems.append(f"latents {lat.shape}, finite={np.isfinite(lat).all()}")
     if img.std() == 0:
         problems.append("constant image")
-    want = {"fused_pww_reduce": 15 * steps, "fused_pww_cross_attention": 15 * steps,
-            "flash_self_attention": 10 * steps, "group_norm": 0, "layer_norm": 0}
+    want = path_launches(steps)
     if launches != want:
         problems.append(f"launches {launches} != {want}")
     log(f"[main] image {img.shape} {img.dtype} mean {img.mean():.2f} std {img.std():.2f}; "
@@ -1143,8 +1172,7 @@ def phase_img2img(pipe, kw, steps):
     log(f"[img2img] 512², strength 0.5, {run} of {steps} LMS steps: encode "
         f"{tm['encode']:.3f} s (VAE encode included), denoise {tm['denoise']:.3f} s, decode "
         f"{tm['decode']:.3f} s, {total:.3f} s/image; launches {launches}")
-    want = {"fused_pww_reduce": 15 * run, "fused_pww_cross_attention": 15 * run,
-            "flash_self_attention": 10 * run, "group_norm": 0, "layer_norm": 0}
+    want = path_launches(run, encodes=1)
     if launches != want or img.shape != (1, 512, 512, 3) or img.std() == 0:
         raise SystemExit(f"[img2img] launches {launches} != {want}, or image "
                          f"{img.shape} std {img.std():.2f}")
@@ -1307,8 +1335,7 @@ def phase_mesh(pipe, card, train_ref, steps=MESH_STEPS):
             log(f"[mesh] {tag} rank {r} (gloo, two ranks on one card): {ms:.1f} ms/step, "
                 f"image rel L2 {err_img:.3e} (tol {tol:g}), latents rel L2 {err_lat:.3e}, "
                 f"K1 B·H {bh}, launches {launches}, collectives {coll} | card: {card}")
-            want_launch = {"fused_pww_reduce": 15 * steps, "fused_pww_cross_attention": 15 * steps,
-                           "flash_self_attention": 10 * steps, "group_norm": 0, "layer_norm": 0}
+            want_launch = path_launches(steps)
             want_coll = ({} if tp == 1 else {"sum": 3 * SD15_BLOCKS * steps,
                                              "reduce": SD15_PWW_SITES * steps})
             want_bh = [2 * MESH_SAMPLES // dp * 8 // tp]
@@ -1596,13 +1623,11 @@ def check_spatial_serve_train(pipe, ranks, card, steps, want, train_ref):
         per = [r[tag] for r in ranks]
         inpaint = tag.endswith("inpaint")
         want_coll = spatial_collectives(cfg, steps, 1)
-        norms = want_coll["norm"] if inpaint else 0
-        want_launch = {"fused_pww_reduce": 15 * steps, "fused_pww_cross_attention": 15 * steps,
-                       "flash_self_attention": 10 * steps,
-                       "group_norm": sum(e for _, e, _ in K4_SITES.values()) * 2 if inpaint
-                       else 0,
-                       "layer_norm": sum(K5_SITES.values()) * steps if inpaint else 0,
-                       "group_norm_stats": norms, "group_norm_apply": norms}
+        # every GroupNorm on a rank's rows is split K4, a pair of launches;
+        # the encoder runs whole on each rank (K4); K5 on the rank's tokens
+        want_launch = dict(path_launches(steps), group_norm=SD15_NORMS[2] * 2 if inpaint else 0,
+                           group_norm_stats=want_coll["norm"],
+                           group_norm_apply=want_coll["norm"])
         for r, (img, lat, launches, coll, ms, rr, _) in enumerate(per):
             err_img, err_lat = rel_l2(img, ref_img), rel_l2(lat, ref_lat)
             got_coll = {kind: coll.get(kind, 0) for kind in want_coll}
@@ -1815,32 +1840,38 @@ def steps_at_or_above(pipe, steps, frac):
     return int((pipe.scheduler.set_timesteps(steps).timesteps.cpu() >= cutoff).sum())
 
 
-def spatial_mode_wants(steps, cut):
+def spatial_mode_wants(steps, cut, spatial=True):
     """{mode: {model: ((K1, ..., K5) launches, {kind: collectives})}} of
-    spatial_modes' calls at dp 2 (``cut``: the ensemble base's visits): the
-    launches of one process (every site runs on each rank's rows; the norm
-    knobs off, so no K4 or K5); the collectives as spatial_collectives
-    derives them, plus one "rows" gather for each generate's result and one
-    for each callback."""
+    spatial_modes' calls at dp 2 (``cut``: the ensemble base's visits;
+    ``spatial=False``: the same calls in one process): the launches at the
+    default config, every norm site on its kernel (every site runs on each
+    rank's rows; there each GroupNorm is split K4, which these counters
+    leave out); the collectives as spatial_collectives derives them, plus
+    one "rows" gather for each generate's result and one for each
+    callback."""
     from pww_tpu_torch.config import SDModelConfig
     from pww_tpu_torch.schedulers.schedules import t_start_from_strength
 
     sd15, xl, xlr = SDModelConfig.sd15(), SDModelConfig.sdxl(), SDModelConfig.sdxl_refiner()
     hires = steps - t_start_from_strength(steps, HIRES_STRENGTH)
 
-    def times(visit, n):
-        return tuple(v * n for v in visit) + (0, 0)
+    def times(visit, n, norms=SD15_NORMS, decodes=1):
+        k = path_launches(n, visit, norms, decodes=decodes)
+        if spatial:
+            k["group_norm"] = 0
+        return tuple(k.values())
 
     one = (times(VISIT, steps), dict(spatial_collectives(sd15, steps, 1), rows=2))
     return {"lcm": {"sd15": one}, "t2i-adapter": {"sd15": one},
             "ip-adapter plus": {"sd15": one},
-            "hires": {"sd15": (tuple(a + b for a, b in zip(times(VISIT, steps),
+            "hires": {"sd15": (tuple(a + b for a, b in zip(times(VISIT, steps, decodes=0),
                                                            times(HIRES_VISIT, hires))),
                                dict(spatial_collectives(sd15, steps + hires, 1), rows=4))},
             "sdxl ensemble": {
-                "sdxl": (times(SDXL_LAUNCHES_PER_VISIT["sdxl"], cut),
+                "sdxl": (times(SDXL_LAUNCHES_PER_VISIT["sdxl"], cut, SDXL_NORMS, 0),
                          dict(spatial_collectives(xl, cut, 0), rows=1)),
-                "sdxl_refiner": (times(SDXL_LAUNCHES_PER_VISIT["sdxl_refiner"], steps - cut),
+                "sdxl_refiner": (times(SDXL_LAUNCHES_PER_VISIT["sdxl_refiner"], steps - cut,
+                                       SDXL_REFINER_NORMS),
                                  dict(spatial_collectives(xlr, steps - cut, 1), rows=1))}}
 
 
@@ -1852,13 +1883,14 @@ def check_spatial_modes(ranks, want, card, steps, launches):
     import numpy as np
 
     problems = []
-    wants = spatial_mode_wants(steps, want["sdxl ensemble"]["visits"]["sdxl"])
+    cut = want["sdxl ensemble"]["visits"]["sdxl"]
+    wants, ones = spatial_mode_wants(steps, cut), spatial_mode_wants(steps, cut, spatial=False)
     for mode in SPATIAL_MODES:
         ref = want[mode]
         log(f"[mesh] {mode} one process: {steps} steps, denoise ms a visit {ref['ms']}, "
             f"{ref['wall']:.2f} s, peak {ref['peak']:.2f} GiB, launches {ref['launches']} | "
             f"card: {card}")
-        for model, (k, _) in wants[mode].items():
+        for model, (k, _) in ones[mode].items():
             if ref["launches"][model] != k:
                 problems.append(f"{mode} one process {model}: launches "
                                 f"{ref['launches'][model]} != {k}")
@@ -2157,8 +2189,9 @@ def phase_serve(pipe, steps):
         f"{[round(g[2], 3) for g in groups]}; first fetch held until the second launch: "
         f"{held}")
     log(f"[serve] launches: {launches}; per group {[g[1] for g in groups]}")
-    want = {"fused_pww_reduce": 15 * steps, "fused_pww_cross_attention": 15 * steps,
-            "flash_self_attention": 10 * steps, "group_norm": 0, "layer_norm": 0}
+    # every norm site on K4 / K5, at SERVE_K4_SITES' and SERVE_K5_SITES'
+    # signatures, which phase 3 times
+    want = path_launches(steps)
     if stats["batches"] != 2 or stats["batched_requests"] != 16:
         problems.append(f"not two groups: {stats}")
     if (len(groups) != 2 or len(inputs) != 2 or any(len(g[0]) != 8 for g in groups)
@@ -2271,8 +2304,7 @@ def phase_long_prompt(pipe, req, steps, unet_mod, window_ids):
     log(f"[long prompt] {len(window_ids(pipe.tokenizer, prompt, 77))} windows, "
         f"{steps} steps: text keys {seen}, launches {launches}, image mean "
         f"{img.mean():.2f} std {img.std():.2f}")
-    want = {"fused_pww_reduce": 15 * steps, "fused_pww_cross_attention": 15 * steps,
-            "flash_self_attention": 10 * steps, "group_norm": 0, "layer_norm": 0}
+    want = path_launches(steps)
     if (launches != want or seen != {n: {154} for n in seen} or img.std() == 0):
         raise SystemExit(f"[long prompt] launches {launches} != {want}, text keys {seen}, "
                          f"or a constant image")
@@ -2342,6 +2374,31 @@ SHALLOW_VISIT = (5, 5, 5)
 SAG_VISIT = (30, 30, 20)
 HIRES_VISIT = (16, 16, 15)
 LCM_COND_DIM = 256  # SimianLuo/LCM_Dreamshaper_v7 unet/config.json time_cond_proj_dim
+# K4 / K5 launches at the default config on the card, where every norm site
+# takes its kernel (bf16, no gradient recorded): each GroupNorm and
+# LayerNorm module runs once a forward, so the models' counts give (K4 a
+# UNet visit, K5 a UNet visit, K4 a VAE encode, K4 a VAE decode)
+# (tests/test_torch_norm_sites.py counts them); a ControlNet adds its
+# (K4, K5) to each visit; DeepCache's shallow visit runs down block 0, the
+# last up block and conv_norm_out
+SD15_NORMS = (61, 48, 22, 30)  # SD-2.1's too
+SDXL_NORMS = (46, 210, 22, 30)
+SDXL_REFINER_NORMS = (56, 132, 22, 30)
+TINY_NORMS = (21, 12, 14, 22)
+CONTROLNET_NORMS = (27, 21)  # SD-1.5's ControlNet
+SDXL_CONTROLNET_NORMS = (21, 102)
+SHALLOW_NORMS = (16, 15)
+
+
+def path_launches(steps, visit=VISIT, norms=SD15_NORMS, encodes=0, decodes=1, net=(0, 0)):
+    """K1-K5 launches at the default config on the card of a call with
+    ``steps`` UNet visits of ``visit`` K1/K2/K3 launches each, a ControlNet
+    adding ``net`` K4/K5 to each, ``encodes`` VAE encodes and ``decodes``
+    decodes."""
+    return {"fused_pww_reduce": visit[0] * steps, "fused_pww_cross_attention": visit[1] * steps,
+            "flash_self_attention": visit[2] * steps,
+            "group_norm": (norms[0] + net[0]) * steps + norms[2] * encodes + norms[3] * decodes,
+            "layer_norm": (norms[1] + net[1]) * steps}
 
 
 def deepcache_launches(steps, interval):
@@ -2585,29 +2642,37 @@ def phase_extras(pipe, kw, steps):
         profile=True)
     hires_run = steps - t_start_from_strength(steps, 0.7)
     edit_prompt = gkw["prompt"].replace("a cat", "a [cat:fox:0.5]", 1)
-    runs = {  # name → (pipeline, call, K1/K2/K3 launches wanted, its last pass's visits)
+
+    def norms(visits, shallow=0):
+        """K4 and K5 of a run's full and shallow UNet visits and its decode."""
+        return (SD15_NORMS[0] * visits + SHALLOW_NORMS[0] * shallow + SD15_NORMS[3],
+                SD15_NORMS[1] * visits + SHALLOW_NORMS[1] * shallow)
+
+    full = -(-steps // 5)  # DeepCache's full visits at cache_interval 5
+    runs = {  # name → (pipeline, call, K1-K5 launches wanted, its last pass's visits)
         "plain": (pipe, lambda n: pipe.generate(**gkw, num_inference_steps=n),
-                  tuple(v * steps for v in VISIT), steps),
+                  tuple(v * steps for v in VISIT) + norms(steps), steps),
         "deepcache": (pipe, lambda n: pipe.generate(**gkw, num_inference_steps=n,
                                                     cache_interval=5),
-                      deepcache_launches(steps, 5), steps),
+                      deepcache_launches(steps, 5) + norms(full, steps - full), steps),
         "tome": (pipe, lambda n: pipe.generate(**gkw, num_inference_steps=n, tome_ratio=0.5),
-                 tuple(v * steps for v in VISIT), steps),
+                 tuple(v * steps for v in VISIT) + norms(steps), steps),
         "freeu": (pipe, lambda n: pipe.generate(**gkw, num_inference_steps=n, freeu=True),
-                  tuple(v * steps for v in VISIT), steps),
+                  tuple(v * steps for v in VISIT) + norms(steps), steps),
         "sag": (pipe, lambda n: pipe.generate(**gkw, num_inference_steps=n, sag_scale=0.75),
-                tuple(v * steps for v in SAG_VISIT), steps),
+                tuple(v * steps for v in SAG_VISIT) + norms(2 * steps), steps),
         "lcm": (lcm, lambda n: lcm.generate(**dict(gkw, guidance_scale=8.0),
                                             num_inference_steps=min(n, 4)),
-                tuple(v * 4 for v in VISIT), 4),
+                tuple(v * 4 for v in VISIT) + norms(4), 4),
         "prompt_editing": (pipe, lambda n: pipe.generate(**dict(gkw, prompt=edit_prompt),
                                                          num_inference_steps=n,
                                                          prompt_editing=True),
-                           tuple(v * steps for v in VISIT), steps),
+                           tuple(v * steps for v in VISIT) + norms(steps), steps),
         "hires": (pipe, lambda n: pipe.generate_hires(
             **{k: v for k, v in gkw.items() if k != "output_type"}, num_inference_steps=n,
             hires_strength=0.7, output_type="np"),
-            tuple(a * steps + b * hires_run for a, b in zip(VISIT, HIRES_VISIT)), hires_run),
+            tuple(a * steps + b * hires_run for a, b in zip(VISIT, HIRES_VISIT))
+            + norms(steps + hires_run), hires_run),
     }
     launches, images, problems, shapes, encodes = {}, {}, [], {}, {}
 
@@ -2660,9 +2725,8 @@ def phase_extras(pipe, kw, steps):
                 f"{img.std():.2f}; final latents against plain's: {against_plain(name)}; "
                 f"launches {got}, K1/K2/K3 per denoise call {visits}; calls by sequence "
                 f"length {shapes[name]}; prompts encoded {len(encodes[name])}")
-            k = (got["fused_pww_reduce"], got["fused_pww_cross_attention"],
-                 got["flash_self_attention"])
-            if k != want or got["group_norm"] or got["layer_norm"]:
+            k = tuple(got[c.__name__] for c in counters)
+            if k != want:
                 problems.append(f"{name}: launches {k} != {want}")
             if not finite or not all(finite):
                 problems.append(f"{name}: latents finite {finite}")
@@ -2917,10 +2981,76 @@ def phase_norm_kernels():
                      calls=K5_SITES[site] * STEPS_PER_RUN if site in K5_SITES and not mean
                      else None)
     torch.cuda.empty_cache()
+    serve_norm_cases(cases, randn)
     for name, cs in cases.by_kernel.items():
         log(f"[norms] {name}: loss_ms_per_run {loss_ms_per_run(cs):.3f}")
     cases.check()
     return cases.by_kernel
+
+
+def serve_norm_cases(cases, randn):
+    """K4 and K5 at every signature of the served path (SERVE_K4_SITES,
+    SERVE_K5_SITES) against their plain versions at phase 3's limits, each
+    timed beside the f32 composition that the sites ran before the rule
+    sent them to the kernels (the pre-add in bf16, then ``group_norm_f32``;
+    ``layer_norm_f32``); the composition's ms goes into the case as
+    ``composition_ms``. Logs the device ms a 30-step group of 8 spends in
+    each form."""
+    import torch
+
+    from pww_tpu_torch.ops import group_norm as gn
+    from pww_tpu_torch.ops import layer_norm as ln
+
+    bf16 = torch.bfloat16
+    spent = {"kernel": 0.0, "composition": 0.0, "bound": 0.0}
+
+    def timed(kernel, label, site_calls, got, want, run, plain, compose, bnd):
+        ms, comp = time_ms(run), time_ms(compose)
+        cases.record(kernel, label, got, want, 2**-6 * want.float().abs().max().item(), 1e-3,
+                     ms, time_ms(plain, reps=5), bnd, None)
+        cases.by_kernel[kernel][-1]["composition_ms"] = comp
+        log(f"[norms]   {label}: the f32 composition {comp:.4f} ms, {site_calls} calls a "
+            f"group of 8")
+        for key, v in (("kernel", ms), ("composition", comp), ("bound", bnd[0])):
+            spent[key] += site_calls * v
+
+    for site, (u, _, d) in SERVE_K4_SITES.items():
+        shape, groups, eps, silu, has_add = site
+        n, c = shape[:2]
+        x = randn(*shape)
+        w, b = randn(c, mean=1.0, std=0.1), randn(c, std=0.1)
+        add = randn(n, c) if has_add else None
+        kw = dict(groups=groups, eps=eps, silu=silu, add=add)
+        mod = torch.nn.GroupNorm(groups, c, eps=eps, device="cuda", dtype=bf16)
+        mod.requires_grad_(False)
+        mod.weight.copy_(w)
+        mod.bias.copy_(b)
+        nbytes = 2 * x.numel() * 2 + (n * c * 2 if has_add else 0) + 2 * c * 2
+        timed("group_norm", k4_label(site), u * STEPS_PER_RUN + d,
+              gn.group_norm(x, w, b, **kw), gn.group_norm_plain(x, w, b, **kw),
+              lambda: gn.group_norm(x, w, b, **kw), lambda: gn.group_norm_plain(x, w, b, **kw),
+              lambda: gn.group_norm_f32(mod, gn._with_add(x, add), silu=silu),
+              bound(nbytes, (12 if silu else 8) * x.numel(), F32_FLOPS_PER_S))
+        del x, mod
+        torch.cuda.empty_cache()
+    for site, calls in SERVE_K5_SITES.items():
+        shape, eps = site
+        c = shape[-1]
+        x = randn(*shape)
+        w, b = randn(c, mean=1.0, std=0.1), randn(c, std=0.1)
+        mod = torch.nn.LayerNorm(c, eps=eps, device="cuda", dtype=bf16)
+        mod.requires_grad_(False)
+        mod.weight.copy_(w)
+        mod.bias.copy_(b)
+        timed("layer_norm", k5_label(site), calls * STEPS_PER_RUN,
+              ln.layer_norm(x, w, b, eps=eps), ln.layer_norm_plain(x, w, b, eps=eps),
+              lambda: ln.layer_norm(x, w, b, eps=eps),
+              lambda: ln.layer_norm_plain(x, w, b, eps=eps), lambda: ln.layer_norm_f32(mod, x),
+              bound(2 * x.numel() * 2 + 2 * c * 2, 8 * x.numel(), F32_FLOPS_PER_S))
+    torch.cuda.empty_cache()
+    log(f"[norms] served path, a 30-step group of 8 (every K4 and K5 site, its decode "
+        f"included): kernels {spent['kernel']:.1f} ms, the f32 composition "
+        f"{spent['composition']:.1f} ms, bound {spent['bound']:.1f} ms of device time")
 
 
 def phase_inpaint_reference():
@@ -3304,8 +3434,7 @@ def phase_single_file(steps, card):
             f"({tm['denoise'] / steps * 1e3:.1f} ms/step), decode {tm['decode']:.3f} s, "
             f"{total:.3f} s/image, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
             f"({card}); launches {launches}")
-        want = {"fused_pww_reduce": 15 * steps, "fused_pww_cross_attention": 15 * steps,
-                "flash_self_attention": 10 * steps, "group_norm": 0, "layer_norm": 0}
+        want = path_launches(steps)
         if launches != want:
             problems.append(f"launches {launches} != {want}")
         seeded = paint_with_words(num_inference_steps=steps, seed=0, **kw)
@@ -3463,8 +3592,8 @@ def dir_gb(path):
 
 def phase_tiny():
     """The tiny config (head dims 8 and 16, which K1-K3 are not built for)
-    on the card: every attention site takes the dense path, no kernel
-    launches (ROADMAP C.1)."""
+    on the card: every attention site takes the dense path, no K1-K3
+    launches (ROADMAP C.1); every norm site takes K4 or K5."""
     import numpy as np
     import torch
 
@@ -3483,13 +3612,13 @@ def phase_tiny():
                         num_inference_steps=2, seed=0, return_latents=True)
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
-    ok = (lat.shape == (1, 16, 16, 4) and bool(np.isfinite(lat).all())
-          and not any(launches.values()))
+    want = path_launches(2, (0, 0, 0), TINY_NORMS, decodes=0)
+    ok = lat.shape == (1, 16, 16, 4) and bool(np.isfinite(lat).all()) and launches == want
     log(f"[tiny] SDModelConfig.tiny() on the card, 128 px, 2 steps: latents {lat.shape}, "
         f"finite {bool(np.isfinite(lat).all())}, launches {launches} "
-        f"{'ok' if ok else 'FAIL'}")
+        f"({want} wanted) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit("[tiny] the tiny config failed on the card or launched a kernel")
+        raise SystemExit("[tiny] the tiny config failed on the card or its launches differ")
 
 
 def phase_sd2_reference():
@@ -3618,8 +3747,7 @@ def phase_sd21(steps, card):
             f"{total:.3f} s/image, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
             f"({card})")
         log(f"[sd21] launches: {launches}")
-        want = {"fused_pww_reduce": 15 * steps, "fused_pww_cross_attention": 15 * steps,
-                "flash_self_attention": 10 * steps, "group_norm": 0, "layer_norm": 0}
+        want = path_launches(steps)
         problems = []
         if img.shape != (1, 768, 768, 3) or img.dtype != np.uint8 or img.std() == 0:
             problems.append(f"image {img.shape} {img.dtype} std {img.std():.2f}")
@@ -3780,8 +3908,7 @@ def phase_controlnet(steps, card):
             f"({card})")
         log(f"[controlnet] launches: {launches}")
         plain = paint_with_words(num_inference_steps=steps, **kw)
-        want = {"fused_pww_reduce": 21 * steps, "fused_pww_cross_attention": 21 * steps,
-                "flash_self_attention": 14 * steps, "group_norm": 0, "layer_norm": 0}
+        want = path_launches(steps, (21, 21, 14), net=CONTROLNET_NORMS)
         diff = np.abs(img.astype(int) - plain.astype(int))
         problems = []
         if img.shape != (1, 512, 512, 3) or img.dtype != np.uint8 or img.std() == 0:
@@ -4089,9 +4216,7 @@ def phase_sdxl(steps, card, enc_dir, tmp):
         f"{total:.3f} s/image, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"({card})")
     log(f"[sdxl] launches: {launches}")
-    k1, k2, k3 = SDXL_LAUNCHES_PER_VISIT["sdxl"]
-    want = {"fused_pww_reduce": k1 * steps, "fused_pww_cross_attention": k2 * steps,
-            "flash_self_attention": k3 * steps, "group_norm": 0, "layer_norm": 0}
+    want = path_launches(steps, SDXL_LAUNCHES_PER_VISIT["sdxl"], SDXL_NORMS)
     problems = []
     if img.shape != (1, 1024, 1024, 3) or img.dtype != np.uint8 or img.std() == 0:
         problems.append(f"image {img.shape} {img.dtype} std {img.std():.2f}")
@@ -4338,8 +4463,7 @@ def phase_sdxl_controlnet(pipe, gkw, card, tmp, steps=4):
                               **{k: v for k, v in kw.items() if k != "control_image"})
         per_visit = [a + b for a, b in zip(SDXL_LAUNCHES_PER_VISIT["sdxl"],
                                            SDXL_CONTROLNET_LAUNCHES_PER_VISIT)]
-        want = dict(zip((c.__name__ for c in counters),
-                        [n * steps for n in per_visit] + [0, 0]))
+        want = path_launches(steps, per_visit, SDXL_NORMS, net=SDXL_CONTROLNET_NORMS)
         diff = np.abs(img.astype(int) - plain.astype(int))
         log(f"[sdxl controlnet] generate 1024², {steps} LMS steps, CFG 7.5, the SDXL ControlNet "
             f"at 0.7: denoise {tm['denoise']:.3f} s ({tm['denoise'] / steps * 1e3:.1f} "
@@ -4714,11 +4838,6 @@ def timed_run(pipe, call, steps):
             (torch.cuda.max_memory_allocated() - held) / 2**30)
 
 
-def path_launches(steps, visit=VISIT):
-    return {"fused_pww_reduce": visit[0] * steps, "fused_pww_cross_attention": visit[1] * steps,
-            "flash_self_attention": visit[2] * steps, "group_norm": 0, "layer_norm": 0}
-
-
 def phase_adapters(pipe, kw, steps, card, tmp):
     """LoRA and the IP-Adapter on the main SD-1.5 pipeline at 512², N LMS
     steps, CFG 7.5, the cat/dog map: a kohya LoRA file (rank 64, alpha 32,
@@ -4927,7 +5046,7 @@ def phase_sdxl_adapters(pipe, gkw, card, enc_dir, tmp, steps=4):
 
     from pww_tpu_torch.weights.safetensors_io import save_file
 
-    want = path_launches(steps, SDXL_LAUNCHES_PER_VISIT["sdxl"])
+    want = path_launches(steps, SDXL_LAUNCHES_PER_VISIT["sdxl"], SDXL_NORMS)
     gkw = dict(gkw, output_type="np")
     plain = pipe.generate(**gkw, num_inference_steps=steps)
     towers = {"unet": pipe.unet, "clip": pipe.clip, "clip2": pipe.clip2}
@@ -4985,6 +5104,15 @@ def phase_sdxl_adapters(pipe, gkw, card, enc_dir, tmp, steps=4):
 TRAIN_SHAPES = ((4096, 40), (1024, 80))
 TRAIN_STEPS = 3
 TRAIN_K3_PER_STEP = 10
+# K4 / K5 launches of a train step at the default config: the norm sites
+# ahead of the first tensor that requires a gradient take their kernels,
+# every later one the f32 composition (the kernels have no backward). TI's
+# gradient enters at the first attn2's text keys and values, so down block
+# 0's first ResNet (2 K4), its Transformer2D norm (K4) and its first
+# block's norm1 and norm2 (2 K5) run ahead of it; LoRA's enters at that
+# block's attn1 (norm1 alone of the K5 sites). The set-up encodes each
+# image with the VAE under no_grad (SD15_NORMS[2] K4 each).
+TRAIN_NORMS_PER_STEP = {"ti": (3, 2), "lora": (3, 1)}
 TRAIN_LORA_LR = 5e-3  # 3 Adam steps move each factor by ~1.5e-2, above W's bf16 ulps
 
 
@@ -5108,6 +5236,42 @@ def refusals_under_grad():
     return silent
 
 
+def sites_off_the_kernels():
+    """The norm sites on the card where the rule keeps the f32 composition:
+    a bf16 input that requires a gradient under grad mode, and an f32 input
+    with f32 parameters (an f32 pipeline). Each must launch neither K4 nor
+    K5 and give ``group_norm_f32``'s and ``layer_norm_f32``'s result bit for
+    bit, under autograd with a ``grad_fn``. Returns the problems."""
+    import torch
+
+    from pww_tpu_torch.ops import group_norm as gn
+    from pww_tpu_torch.ops import layer_norm as ln
+
+    problems = []
+    for what, dtype, grad in (("a bf16 input under autograd", torch.bfloat16, True),
+                              ("an f32 input", torch.float32, False)):
+        g = torch.nn.GroupNorm(32, 320, eps=1e-5, device="cuda", dtype=dtype)
+        n = torch.nn.LayerNorm(320, eps=1e-5, device="cuda", dtype=dtype)
+        for m in (g, n):
+            m.requires_grad_(False)
+        gx = torch.randn((2, 320, 64, 64), device="cuda").to(dtype).requires_grad_(grad)
+        lx = torch.randn((2, 4096, 320), device="cuda").to(dtype).requires_grad_(grad)
+        t = torch.randn((2, 320), device="cuda").to(dtype)
+        gn.group_norm.launches = ln.layer_norm.launches = 0
+        y = gn.group_norm_site(g, gx, fused=False, silu=True, add=t)
+        z = ln.layer_norm_site(n, lx, fused=False)
+        launched = (gn.group_norm.launches, ln.layer_norm.launches)
+        same = (torch.equal(y, gn.group_norm_f32(g, gn._with_add(gx, t), silu=True))
+                and torch.equal(z, ln.layer_norm_f32(n, lx)))
+        tracked = not grad or (y.grad_fn is not None and z.grad_fn is not None)
+        log(f"[train] norm sites on {what}: K4/K5 launches {launched}, bit-equal to the f32 "
+            f"composition {same}, grad_fn kept {tracked}")
+        if launched != (0, 0) or not same or not tracked:
+            problems.append(f"norm sites on {what}: launches {launched}, same {same}, "
+                            f"grad_fn {tracked}")
+    return problems
+
+
 def adam_update(optimizer, p):
     """The step ``torch.optim.Adam`` gave ``p`` last, in f64, from its state
     after that step: lr/(1 - b1^t) · m / (√v / √(1 - b2^t) + eps)."""
@@ -5199,9 +5363,12 @@ def phase_train(pipe, kw, steps, card, tmp):
     problems, launches, profiled = [], {}, {}
     images = train_images()
     caption = "a photo of a pww toy"
-    want = {"fused_pww_reduce": 0, "fused_pww_cross_attention": 0,
-            "flash_self_attention": TRAIN_K3_PER_STEP * TRAIN_STEPS, "group_norm": 0,
-            "layer_norm": 0}
+    want = {}
+    for name, (k4, k5) in TRAIN_NORMS_PER_STEP.items():
+        want[name] = {"fused_pww_reduce": 0, "fused_pww_cross_attention": 0,
+                      "flash_self_attention": TRAIN_K3_PER_STEP * TRAIN_STEPS,
+                      "group_norm": SD15_NORMS[2] * len(images) + k4 * TRAIN_STEPS,
+                      "layer_norm": k5 * TRAIN_STEPS}
 
     # -- textual inversion (the tokenizer and the table are put back at the end)
     emb = pipe.clip.text_model.embeddings.token_embedding
@@ -5215,9 +5382,9 @@ def phase_train(pipe, kw, steps, card, tmp):
     log(f"[train] textual inversion, {TRAIN_STEPS} steps: {wall:.3f} s (set-up included), "
         f"peak {peak:.2f} GiB above the weights, losses {ti.losses}, table {tuple(table.shape)}, "
         f"old rows bit-equal {old_equal}, new row moved {moved:.3e} from its init; launches "
-        f"{launches['train_ti']} ({card})")
+        f"{launches['train_ti']}, {want['ti']} wanted ({card})")
     if (not np.isfinite(ti.losses).all() or not old_equal or not moved > 0
-            or launches["train_ti"] != want):
+            or launches["train_ti"] != want["ti"]):
         problems.append(f"ti: losses {ti.losses}, old rows equal {old_equal}, moved {moved}, "
                         f"launches {launches['train_ti']}")
 
@@ -5232,9 +5399,10 @@ def phase_train(pipe, kw, steps, card, tmp):
     log(f"[train] LoRA rank 8, {len(lora.factors)} sites, {TRAIN_STEPS} steps at lr "
         f"{TRAIN_LORA_LR}: {wall:.3f} s (set-up and the A check included), peak {peak:.2f} "
         f"GiB above the weights, losses {lora.losses}; B zero at {len(zero_b)} sites; UNet "
-        f"tensors changed {len(changed)}; launches {launches['train_lora']} ({card})")
+        f"tensors changed {len(changed)}; launches {launches['train_lora']}, {want['lora']} "
+        f"wanted ({card})")
     if (not np.isfinite(lora.losses).all() or zero_b or changed
-            or launches["train_lora"] != want or len(lora.factors) != 128):
+            or launches["train_lora"] != want["lora"] or len(lora.factors) != 128):
         problems.append(f"lora: losses {lora.losses}, {len(lora.factors)} sites, B zero "
                         f"{zero_b[:3]}, UNet changed {changed[:3]}, "
                         f"launches {launches['train_lora']}")
@@ -5243,6 +5411,7 @@ def phase_train(pipe, kw, steps, card, tmp):
     silent = refusals_under_grad()
     if silent:
         problems.append(f"no refusal under grad mode: {silent}")
+    problems += sites_off_the_kernels()
 
     # -- ms per step and a profiled step of each trainer (their own set-ups)
     trainers = {
@@ -5362,8 +5531,9 @@ def main():
     from pww_tpu_torch.pipeline.facade import paint_with_words, paint_with_words_inpaint
 
     profiled = phase_profile(lambda n: paint_with_words(num_inference_steps=n, **kw), "main")
-    if profiled["K1 pww_reduce"][1] != 1:
-        raise SystemExit("[profile main] K1 is not one device kernel per call")
+    for group in ("K1 pww_reduce", "K4 group_norm"):
+        if profiled[group][1] != 1:
+            raise SystemExit(f"[profile main] {group} is not one device kernel per call")
     phase_img2img(pipe, kw, args.steps)
     phase_utils(pipe, kw, smi)
     tmp = tempfile.mkdtemp(prefix="pww_adapters_")
@@ -5415,17 +5585,18 @@ def main():
     for name, (source, replaces, counter, group, head) in KERNELS.items():
         cs = cases[name]
         top = next(c for c in cs if c["case"] == head)
-        norm = name in ("group_norm", "layer_norm")  # their path is the inpaint path
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=(ilaunches if norm else launches)[counter],
+            launches=launches[counter],
             max_abs_err=max(c["max_abs_err"] for c in cs),
             rel_l2_err=max(c["rel_l2_err"] for c in cs),
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=top["library_ms"], shape=top["case"],
             loss_ms_per_run=loss_ms_per_run(cs),
-            main_path_device_ms_per_call=(iprofiled if norm else profiled).get(group, (None,))[0],
-            inpaint_path_launches=ilaunches[counter], sd21_path_launches=slaunches[counter],
+            main_path_device_ms_per_call=profiled.get(group, (None,))[0],
+            inpaint_path_launches=ilaunches[counter],
+            inpaint_path_device_ms_per_call=iprofiled.get(group, (None,))[0],
+            sd21_path_launches=slaunches[counter],
             sd21_path_device_ms_per_call=sprofiled.get(group, (None,))[0],
             controlnet_path_launches=claunches[counter],
             controlnet_path_device_ms_per_call=cprofiled.get(group, (None,))[0],

@@ -168,8 +168,13 @@ class UNetConfig:
     fused_cross_attention: bool = True
     flash_min_seq: int = 1024
     fused_cross_min_seq: int = 256
-    # The GroupNorm (K4) and LayerNorm (K5) kernels at every UNet norm site;
-    # off by default, as in pww_tpu/config.py:201-202.
+    # The GroupNorm (K4) and LayerNorm (K5) kernels at every UNet norm site
+    # on every device (the plain versions on the CPU); off by default, as in
+    # pww_tpu/config.py:201-202. Off, a site still runs its kernel where its
+    # input is bf16 on the card and autograd records no gradient through it
+    # (and, for K5, the width is a multiple of 8 of at most 2048); the CPU,
+    # f32 pipelines and training run the f32 composition
+    # (ops/group_norm.py:group_norm_site, ops/layer_norm.py:layer_norm_site).
     fused_group_norm: bool = False
     fused_layer_norm: bool = False
 
@@ -250,8 +255,12 @@ class VAEConfig:
     layers_per_block: int = 2
     norm_num_groups: int = 32
     scaling_factor: float = 0.18215
-    # The GroupNorm kernel (K4) at every encoder and decoder norm site; off
-    # by default, as in pww_tpu/config.py:305.
+    # The GroupNorm kernel (K4) at every encoder and decoder norm site on
+    # every device (the plain K4 on the CPU); off by default, as in
+    # pww_tpu/config.py:305. Off, a site still runs K4 where its input is
+    # bf16 on the card and autograd records no gradient through it; the CPU,
+    # f32 pipelines and training run the f32 composition
+    # (ops/group_norm.py:group_norm_site).
     fused_group_norm: bool = False
 
     @property

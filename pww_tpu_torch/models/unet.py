@@ -4,13 +4,18 @@ Port of :mod:`pww_tpu.models.unet` for SD-1.x, SD-2.x and SDXL base and
 refiner, as a torch ``nn.Module`` with diffusers' ``UNet2DConditionModel``
 parameter names, NCHW inside the conv stacks. SDXL adds a transformer depth
 per stage (``UNetConfig.depth_for``) and the ``text_time`` ``add_embedding``
-of the pooled text and the micro-conditioning ``time_ids``. GroupNorm and
-LayerNorm compute in f32 and cast to the compute dtype; GroupNorm epsilon
-is 1e-5 in the ResNets and 1e-6 in Transformer2D; GEGLU uses the exact f32
-GELU. With
-``UNetConfig.fused_group_norm`` every GroupNorm site runs kernel K4 (norm2
-takes the time-embedding projection as its pre-add), and with
-``fused_layer_norm`` every transformer LayerNorm runs K5.
+of the pooled text and the micro-conditioning ``time_ids``. GroupNorm
+epsilon is 1e-5 in the ResNets and 1e-6 in Transformer2D; GEGLU uses the
+exact f32 GELU. Every GroupNorm site runs kernel K4 (one pass, bf16 in and
+out, f32 statistics; a ResNet's norm2 takes the time-embedding projection
+as its pre-add, and the SiLU is fused) and every transformer LayerNorm
+runs K5 where the site's input is bf16 on the card and autograd records no
+gradient through it (``ops/cuda_build.py:norm_site_takes_kernel``; K5 also
+needs a width that is a multiple of 8 of at most 2048). Everything else,
+the CPU, f32 pipelines and training, computes the norms in f32 and casts
+to the compute dtype. ``UNetConfig.fused_group_norm`` and
+``fused_layer_norm`` send every site to K4 and K5 on every device (their
+plain versions on the CPU).
 
 Attention dispatch (``pww_tpu/models/unet.py:177-211``), per site:
   * self-attention with L >= ``flash_min_seq`` → K3 flash kernel;
@@ -342,7 +347,9 @@ class Transformer2DModel(nn.Module):
         for i, blk in enumerate(self.transformer_blocks):
             z = blk(z, context, pww, grid, tome, sag_probs if i == 0 else None, ip, sp)
         z = z.reshape(b, h, w, c).permute(0, 3, 1, 2)
-        return self.proj_out(z) + x
+        # x first: the sum takes x's NCHW layout rather than proj_out's
+        # channels-last one, so the norm sites after it need no copy for K4
+        return x + self.proj_out(z)
 
 
 class Downsample2D(nn.Module):

@@ -4,8 +4,12 @@ diagonal Gaussian posterior.
 Port of :mod:`pww_tpu.models.vae`, NCHW, with diffusers' ``AutoencoderKL``
 parameter names (``encoder.*``, ``quant_conv.*``, ``post_quant_conv.*``,
 ``decoder.*``; the mid attention uses the current ``to_q``/``to_k``/
-``to_v``/``to_out.0``/``group_norm`` naming). GroupNorms (eps 1e-6) compute
-in f32, or run kernel K4 with ``VAEConfig.fused_group_norm``.
+``to_v``/``to_out.0``/``group_norm`` naming). GroupNorms (eps 1e-6) run
+kernel K4 (SiLU fused) where their input is bf16 on the card and autograd
+records no gradient through it (``ops/cuda_build.py:
+norm_site_takes_kernel``), and compute in f32 elsewhere: the CPU, f32
+pipelines, training. ``VAEConfig.fused_group_norm`` sends every site to K4
+on every device (the plain K4 on the CPU).
 
 The decoder runs spatially sharded inside a ``generate(sharding="spatial")``
 call (:mod:`pww_tpu_torch.parallel.spatial`): each rank decodes its rows of

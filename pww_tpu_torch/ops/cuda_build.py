@@ -118,11 +118,30 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}: {f(err).decode()}")
 
 
+def records_grad(*tensors) -> bool:
+    """Whether autograd would record a gradient through an op on ``tensors``."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+# The device types whose tensors the norm sites send to K4 and K5
+NORM_KERNEL_DEVICES = ("cuda",)
+
+
+def norm_site_takes_kernel(x: torch.Tensor, *params) -> bool:
+    """The norm sites' rule (``ops/group_norm.py:group_norm_site``,
+    ``ops/layer_norm.py:layer_norm_site``): K4 or K5 runs a site whose input
+    is a non-empty bf16 tensor on the card through which autograd records
+    no gradient (neither ``x`` nor ``params`` requires one under grad mode);
+    the CPU, other dtypes and training take the f32 composition."""
+    return (x.device.type in NORM_KERNEL_DEVICES and x.dtype == torch.bfloat16
+            and x.numel() > 0 and not records_grad(x, *params))
+
+
 def refuse_grad(what: str, *tensors) -> None:
     """Raise where a kernel without a backward would be launched on inputs
     that require a gradient: its output would carry no ``grad_fn``, and the
     gradient through it would be dropped without a word."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+    if records_grad(*tensors):
         raise NotImplementedError(
             f"{what}: the CUDA kernel has no backward (ROADMAP.md §B), so it cannot run "
             "under autograd on inputs that require a gradient; call it under "

@@ -19,9 +19,13 @@ bf16 tensors on the card; anything else raises, inputs that require a
 gradient under grad mode among them (the kernel has no backward). Launches
 are counted in ``group_norm.launches``.
 
-:func:`group_norm_f32` is the unfused composition (``F.group_norm`` in f32,
-another variance formula) that the models run while the kernel's knob is
-off.
+:func:`group_norm_site` is a model's GroupNorm site. It runs K4 where
+:func:`~pww_tpu_torch.ops.cuda_build.norm_site_takes_kernel` holds (bf16 on
+the card, no gradient recorded through it), and everywhere when the
+config's ``fused_group_norm`` knob is on (the plain K4 on the CPU).
+Everything else, the CPU, f32 pipelines and training among it, runs
+:func:`group_norm_f32`, the unfused composition (``F.group_norm`` in f32,
+another variance formula).
 
 The split form, for a site whose rows are cut over the ranks of a spatially
 sharded call (:mod:`pww_tpu_torch.parallel.spatial`): :func:`group_norm_stats`
@@ -330,8 +334,9 @@ def _spatial_group_norm(sp, gn: nn.GroupNorm, x: torch.Tensor, fused: bool, silu
                         add: Optional[torch.Tensor]) -> torch.Tensor:
     """A GroupNorm site over this rank's rows: the rank's moments, combined
     over the dp group (:meth:`~pww_tpu_torch.parallel.spatial.Spatial.
-    combine_moments`), then the affine. With the knob on, split K4 (the
-    statistics kernel, the combine, the apply kernel); off, f32 PyTorch."""
+    combine_moments`), then the affine. Where :func:`group_norm_site` picks
+    K4 (``fused``), split K4 (the statistics kernel, the combine, the apply
+    kernel); else f32 PyTorch."""
     n, c = x.shape[:2]
     g = gn.num_groups
     count = c // g * x[0, 0].numel()
@@ -354,11 +359,17 @@ def _spatial_group_norm(sp, gn: nn.GroupNorm, x: torch.Tensor, fused: bool, silu
 
 def group_norm_site(gn: nn.GroupNorm, x: torch.Tensor, *, fused: bool,
                     silu: bool = False, add: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """A model's GroupNorm site: K4 (on a contiguous copy of x if it is not
-    contiguous) when ``fused``, else the pre-add in x's dtype followed by
-    :func:`group_norm_f32`. The result has x's dtype. Over a rank's rows of
-    a spatially sharded call, the statistics are the whole image's
-    (:func:`_spatial_group_norm`)."""
+    """A model's GroupNorm site, with the pre-add and SiLU fused where K4
+    runs it. K4 (on a contiguous copy of x if it is not contiguous) runs
+    where x is bf16 on the card and autograd records no gradient through
+    x, the affine or ``add`` (:func:`~pww_tpu_torch.ops.cuda_build.
+    norm_site_takes_kernel`), and on every device when ``fused`` (the
+    config's knob; the plain K4 on the CPU). Everything else runs the
+    pre-add in x's dtype followed by :func:`group_norm_f32`. The result has
+    x's dtype. Over a rank's rows of a spatially sharded call, the same
+    rule picks split K4 or the f32 moments, and the statistics are the
+    whole image's (:func:`_spatial_group_norm`)."""
+    fused = fused or cuda_build.norm_site_takes_kernel(x, gn.weight, gn.bias, add)
     sp = spatial.site(x)
     if sp is not None:
         return _spatial_group_norm(sp, gn, x, fused, silu, add)

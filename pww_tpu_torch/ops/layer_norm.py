@@ -11,8 +11,13 @@ tensors on the card; anything else raises, inputs that require a gradient
 under grad mode among them (the kernel has no backward). Launches are
 counted in ``layer_norm.launches``.
 
-:func:`layer_norm_f32` is the unfused composition (``F.layer_norm`` in f32)
-that the UNet runs while the kernel's knob is off.
+:func:`layer_norm_site` is a UNet transformer block's LayerNorm site. It
+runs K5 where :func:`~pww_tpu_torch.ops.cuda_build.norm_site_takes_kernel`
+holds (bf16 on the card, no gradient recorded through it) and the width is
+one the kernel takes, and everywhere when the config's ``fused_layer_norm``
+knob is on (the plain K5 on the CPU). Everything else runs
+:func:`layer_norm_f32`, the unfused composition (``F.layer_norm`` in f32),
+as the text and image encoders always do.
 """
 from __future__ import annotations
 
@@ -119,8 +124,16 @@ layer_norm.launches = 0
 
 
 def layer_norm_site(ln: nn.LayerNorm, x: torch.Tensor, *, fused: bool) -> torch.Tensor:
-    """A model's LayerNorm site: K5 (on a contiguous copy of x if it is not
-    contiguous) when ``fused``, else :func:`layer_norm_f32`."""
+    """A model's LayerNorm site. K5 (on a contiguous copy of x if it is not
+    contiguous) runs where x is bf16 on the card, autograd records no
+    gradient through x or the affine (:func:`~pww_tpu_torch.ops.cuda_build.
+    norm_site_takes_kernel`), and the last dim is a multiple of 8 of at
+    most ``MAX_WIDTH`` on a 16-byte boundary, and on every device when
+    ``fused`` (the config's knob; the plain K5 on the CPU). Everything else
+    runs :func:`layer_norm_f32`; a width the kernel refuses falls back."""
+    if not fused and cuda_build.norm_site_takes_kernel(x, ln.weight, ln.bias):
+        x = x.contiguous()
+        fused = x.shape[-1] % 8 == 0 and x.shape[-1] <= MAX_WIDTH and x.data_ptr() % 16 == 0
     if fused:
         return layer_norm(x.contiguous(), ln.weight, ln.bias, eps=ln.eps)
     return layer_norm_f32(ln, x)
