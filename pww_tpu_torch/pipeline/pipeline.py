@@ -1537,10 +1537,17 @@ class PwwPipeline:
         uncached (prompt, negative) pairs as one (2K, 77) batch, K padded to
         the next power of two with ("", "") pairs whose outputs are
         dropped, seeding the text cache so that the per-request encodes hit
-        it (``pww_tpu/pipeline/pipeline.py:2237``). The single-tower plain
-        path only: weighted, long, clip-skip and dual-tower requests take
-        their own encode. Fewer than two pairs: nothing to share."""
-        if self.clip2 is not None or self.config.xl_refiner:
+        it (``pww_tpu/pipeline/pipeline.py:2237``). SDXL-base's two towers
+        take the same rows (the second tokenizer's ids for the second
+        tower) in one call of each, and each pair is cached as its own
+        encode would cache it: states and pooled vector, both zeroed in the
+        uncond row for an empty negative prompt where the configuration
+        forces zeros. The JAX package's method leaves two-tower groups to
+        the per-request encodes; the cached values are the same, only the
+        number of tower calls differs. Weighted, long and clip-skip
+        requests, and the refiner's one projected tower, take their own
+        encode. Fewer than two pairs: nothing to share."""
+        if self.config.xl_refiner:
             return
         pairs = [(str(r.get("prompt", "")), str(r.get("negative_prompt", "")))
                  for r in requests
@@ -1552,14 +1559,25 @@ class PwwPipeline:
             if len(todo) < 2:
                 return
             k = 1 << (len(todo) - 1).bit_length()
-            rows = []
+            rows, rows2 = [], []
             for p, neg in todo + [("", "")] * (k - len(todo)):
                 rows += [padded_ids(self.tokenizer, neg), padded_ids(self.tokenizer, p)]
-            states = self.encode_text(torch.tensor(rows, dtype=torch.int64,
-                                                   device=self.device))
+                if self.tokenizer_2 is not None:
+                    rows2 += [padded_ids(self.tokenizer_2, neg),
+                              padded_ids(self.tokenizer_2, p)]
+            ids, ids2 = (torch.tensor(r, dtype=torch.int64, device=self.device) if r else None
+                         for r in (rows, rows2))
+            out = self.encode_text(ids, ids2)
+            states, pooled = out if isinstance(out, tuple) else (out, None)
+            zero = self.config.force_zeros_for_empty_prompt and pooled is not None
             for i, (p, neg) in enumerate(todo):
-                cache_text(self._text_cache, (p, neg, False, 0, False),
-                           (states[2 * i:2 * i + 2], None))
+                s = states[2 * i:2 * i + 2]
+                pl = None if pooled is None else pooled[2 * i:2 * i + 2]
+                if zero and neg == "":
+                    s, pl = s.clone(), pl.clone()
+                    s[0] = 0.0
+                    pl[0] = 0.0
+                cache_text(self._text_cache, (p, neg, False, 0, False), (s, pl))
 
     @torch.inference_mode()
     def generate_batch(
@@ -1602,6 +1620,10 @@ class PwwPipeline:
         IP-Adapter attached, ``ip_adapter_image`` conditions every row, at
         the adapter's scale.
 
+        With ``profile=True`` the call records the phases "text" (the
+        group's text encode, :meth:`_prewarm_text_cache`), "encode" (the
+        per-request pyramids, time ids and noise), "denoise" and "decode".
+
         Returns PIL images, a (N, H, W, 3) uint8 array (``"np"``), or the
         un-fetched uint8 tensor on the pipeline's device (``"device"``).
         """
@@ -1616,6 +1638,7 @@ class PwwPipeline:
         t0 = time.perf_counter()
         wf = as_weight_function(weight_function)
         self._prewarm_text_cache(requests)
+        t0 = self._phase("text", t0)
         encs = [self.encode_inputs(
             r.get("prompt", ""), _to_numpy_image(r.get("color_map_image")),
             r.get("color_context") or {}, r.get("negative_prompt", ""), wf,

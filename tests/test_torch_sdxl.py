@@ -19,6 +19,7 @@ Tolerances: f32 summation-order noise, 2e-5 of the largest latent after a
 few UNet calls (as the other pipeline tests), 1e-5 absolute for one UNet
 call, 2e-6 for the text towers.
 """
+import copy
 import dataclasses
 import functools
 import os
@@ -416,6 +417,43 @@ def test_tiny_xl_inpaint_nine_channel_matches_jax(xl9):
     diff = np.abs(bg.astype(int) - bw.astype(int))
     assert bg.shape == (2, 128, 128, 3) and diff.max() <= 1 and (diff > 0).mean() < 1e-2
     assert not np.array_equal(bg[0], bg[1])
+
+
+def test_tiny_xl_group_text_encode_matches_jax(xl, monkeypatch):
+    """``generate_batch`` on two requests with distinct prompts, one with an
+    empty negative prompt (its uncond row zeroed, force-zeros) and one with
+    its own: the port encodes both pairs in one call of the two towers
+    (``_prewarm_text_cache``: rows [negative, prompt] a pair, the second
+    tokenizer's ids for the second tower), the JAX package encodes each
+    request alone. The second tokenizer pads with 0, as SDXL's does, so its
+    rows differ from the first's. The images agree as the batch above does."""
+    jp, tp = xl
+    for pipe in (jp, tp):
+        tok2 = copy.copy(pipe.tokenizer)
+        tok2.pad_token_id = 0
+        monkeypatch.setattr(pipe, "tokenizer_2", tok2)
+    reqs = [dict(prompt="a cat and a dog on a lawn", negative_prompt="",
+                 color_map_image=color_map(128), seed=3,
+                 color_context={(255, 0, 0): "cat,1.5", (0, 0, 255): "dog,0.5,7"}),
+            dict(prompt="a dog chasing a cat", negative_prompt="blurry photo",
+                 color_map_image=color_map(128), seed=5,
+                 color_context={(255, 0, 0): "dog,1.0", (0, 0, 255): "cat,0.8"})]
+    tp.invalidate_encode_caches()
+    shapes = []
+    encode = tp.encode_text
+
+    def counted(ids, ids2=None, clip_skip=0):
+        shapes.append((tuple(ids.shape), None if ids2 is None else tuple(ids2.shape)))
+        return encode(ids, ids2, clip_skip)
+
+    monkeypatch.setattr(tp, "encode_text", counted)
+    bw = np.asarray(jp.generate_batch(reqs, num_inference_steps=2, output_type="np"))
+    bg = tp.generate_batch(reqs, num_inference_steps=2, output_type="np")
+    assert shapes == [((4, 77), (4, 77))]  # one group call; the requests hit its cache
+    diff = np.abs(bg.astype(int) - bw.astype(int))
+    assert bg.shape == (2, 128, 128, 3) and diff.max() <= 1 and (diff > 0).mean() < 1e-2
+    assert not np.array_equal(bg[0], bg[1])
+    tp.invalidate_encode_caches()  # entries of the padded-with-0 tokenizer
 
 
 # -- loading ---------------------------------------------------------------------------
