@@ -139,6 +139,18 @@ Phases, each printing its own lines; any failure ends the run non-zero:
    loaded (15/15/10 a visit, finite latents, the LoRA image unlike the
    plain one); ms per train step, peak GiB and a 1-step profile of each
    trainer (K3's device ms inside a step);
+8g. graphs (after adapters, on pipelines of its own): the denoise loop's
+   UNet visits replayed from CUDA graphs (``pipeline/graphs.py``) against
+   the eager loop, at SD-1.5 16 CFG rows 512² and SDXL-base 8 rows 1024²:
+   four groups of GRAPH_STEPS steps each, a LoRA merged for the second and
+   restored after it; the UNet's outputs visit by visit and the uint8
+   images identical, or within the cell's ``image_rel_l2`` limit; K1-K5 of
+   the table on both paths; each capture's ms and reserved GB, and each
+   path's peak memory; a profile of a replayed group (K1-K4 one device
+   kernel a wrapper call); the hires fix and LCM-4 at batch 1 against the
+   eager loop, with wall ms of a first (capturing) call, a second, and two
+   eager ones. Alone: ``python3 -c "import chip_smoke as c;
+   smi = c.phase_device(); c.phase_build(); c.phase_graphs(smi)"``;
 8c. single file: SD-1.5 at full width written as an A1111/LDM single
    ``.safetensors`` file (fp16, I64 ``position_ids``, ``ldm_state_dict``)
    with the tokenizer's files beside it, loaded through ``pww_load_tools``
@@ -1258,7 +1270,8 @@ def mesh_run(pipe, steps):
 
     unet_mod.fused_pww_reduce, TensorParallel.combine_reduce = spy, combine_spy
     try:
-        images = pipe.generate(output_type="np", **mesh_kwargs(steps))
+        with EagerLoop():  # the spies see every visit's Python calls
+            images = pipe.generate(output_type="np", **mesh_kwargs(steps))
     finally:
         unet_mod.fused_pww_reduce, TensorParallel.combine_reduce = k1, combine
     torch.cuda.synchronize()
@@ -1473,7 +1486,8 @@ def spatial_run(pipe, kw, spatial=True):
 
     unet_mod.fused_pww_reduce, Spatial.combine_reduce = spy, combine_spy
     try:
-        images = pipe.generate(output_type="np", **extra, **kw)
+        with EagerLoop():  # the spies see every visit's Python calls
+            images = pipe.generate(output_type="np", **extra, **kw)
     finally:
         unet_mod.fused_pww_reduce, Spatial.combine_reduce = k1, combine
     torch.cuda.synchronize()
@@ -2406,10 +2420,28 @@ def deepcache_launches(steps, interval):
     return tuple(f * full + s * (steps - full) for f, s in zip(VISIT, SHALLOW_VISIT))
 
 
-class KernelShapes:
+class EagerLoop:
+    """The denoise loop eagerly while active (``graphs.engages`` reads
+    false): for the checks that spy on the kernel wrappers' Python calls,
+    which a replayed CUDA graph does not make, or that read a tensor back
+    to the host from inside a visit, which a capture refuses. phase_graphs
+    holds the replays against this loop."""
+
+    def __enter__(self):
+        from pww_tpu_torch.pipeline import graphs
+
+        self.graphs, self.engages = graphs, graphs.engages
+        graphs.engages = lambda device, **kw: False
+        return self
+
+    def __exit__(self, *exc):
+        self.graphs.engages = self.engages
+
+
+class KernelShapes(EagerLoop):
     """Counts K1 / K2 / K3 calls by sequence length while active: wraps the
     UNet module's names for the three wrappers (the wrappers count their
-    own launches as before)."""
+    own launches as before), on the eager loop (:class:`EagerLoop`)."""
 
     NAMES = ("fused_pww_reduce", "fused_pww_cross_attention", "flash_self_attention")
 
@@ -2430,14 +2462,274 @@ class KernelShapes:
 
         for n, fn in self.originals.items():
             setattr(self.mod, n, wrap(n, fn))
-        return self
+        return super().__enter__()
 
     def __exit__(self, *exc):
         for n, fn in self.originals.items():
             setattr(self.mod, n, fn)
+        super().__exit__(*exc)
 
     def of(self, name):
         return {l: c for (n, l), c in sorted(self.seen.items()) if n == name}
+
+
+GRAPH_STEPS = 6  # a group of the graphs phase: an eager visit, a capture, four replays
+CHECK_LIMITS = {"sd15": 0.12, "sdxl": 0.1}  # portbench/cells/*.json image_rel_l2
+
+
+def graph_lora(pipe, scale=0.02, rank=4):
+    """A rank-``rank`` kohya LoRA on every ``attn2.to_k`` of the UNet, its
+    halves N(0, scale²) from a seed."""
+    import torch
+
+    g = torch.Generator(device=pipe.device).manual_seed(7)
+    state = {}
+    for name, w in pipe.unet.state_dict().items():
+        if name.endswith("attn2.to_k.weight"):
+            prefix = "lora_unet_" + name[:-len(".weight")].replace(".", "_")
+            state[f"{prefix}.lora_down.weight"] = scale * torch.randn(
+                (rank, w.shape[1]), generator=g, device=pipe.device)
+            state[f"{prefix}.lora_up.weight"] = scale * torch.randn(
+                (w.shape[0], rank), generator=g, device=pipe.device)
+    return state
+
+
+class VisitOutputs:
+    """The f32 output of every UNet visit while active, in order: from the
+    graph sessions where the loop replays (``graphed``), else from the
+    UNet's forward."""
+
+    def __init__(self, pipe, graphed):
+        self.pipe, self.graphed, self.outs = pipe, graphed, []
+
+    def __enter__(self):
+        from pww_tpu_torch.pipeline import graphs
+
+        if self.graphed:
+            self.visit = visit = graphs.Session.visit
+
+            def recorded(session, inputs):
+                out = visit(session, inputs)
+                self.outs.append(out.clone())
+                return out
+
+            graphs.Session.visit = recorded
+        else:
+            self.hook = self.pipe.unet.register_forward_hook(
+                lambda module, args, out: self.outs.append(out.float()))
+        return self
+
+    def __exit__(self, *exc):
+        from pww_tpu_torch.pipeline import graphs
+
+        if self.graphed:
+            graphs.Session.visit = self.visit
+        else:
+            self.hook.remove()
+
+
+def graph_groups(pipe, groups, lora, steps, graphed):
+    """groups[0] on the pipeline's weights, groups[1] with ``lora`` merged,
+    groups[2] and groups[3] after the restore, through the CUDA graphs
+    (``graphed``) or the eager loop. Per group: its uint8 images, its UNet
+    visits' f32 outputs, its K1-K5 launches and the pipeline's visit counts
+    (eager, captured, replayed); and each capture's (s, GB of memory the
+    card's allocator reserved for it)."""
+    import torch
+
+    from pww_tpu_torch.pipeline import graphs
+
+    counters = launch_counters()
+    rule, new = graphs.engages, graphs.VisitGraphs._new
+    captures = []
+
+    def timed_new(self, *args):
+        torch.cuda.synchronize()
+        reserved, t0 = torch.cuda.memory_reserved(), time.perf_counter()
+        entry = new(self, *args)
+        torch.cuda.synchronize()
+        captures.append((time.perf_counter() - t0,
+                         (torch.cuda.memory_reserved() - reserved) / 1e9))
+        return entry
+
+    graphs.VisitGraphs._new = timed_new
+    if not graphed:
+        graphs.engages = lambda device, **kw: False
+    out = []
+    try:
+        for i, reqs in enumerate(groups):
+            if i == 1:
+                pipe.load_lora(lora)
+            elif i == 2:
+                pipe.unload_loras()
+            for c in counters:
+                c.launches = 0
+            before = dict(pipe.unet_graphs.counts)
+            with VisitOutputs(pipe, graphed) as rec:
+                images = pipe.generate_batch(reqs, num_inference_steps=steps, output_type="np")
+            torch.cuda.synchronize()
+            out.append((images, rec.outs, {c.__name__: c.launches for c in counters},
+                        {k: v - before[k] for k, v in pipe.unet_graphs.counts.items()}))
+    finally:
+        graphs.engages, graphs.VisitGraphs._new = rule, new
+    return out, captures
+
+
+def check_graph_groups(pipe, tag, family, groups, steps, visit, norms, problems):
+    """Four groups on the CUDA graphs, then the same on the eager loop (a
+    LoRA merged for the second, restored after it): the UNet's outputs
+    visit by visit and the uint8 images, identical or within the cell's
+    check limit; K1-K5 launches of the table, on both paths; the captures'
+    s and reserved GB; peak memory on each path."""
+    import numpy as np
+    import torch
+
+    lora = graph_lora(pipe)
+    runs = {}
+    for graphed in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runs[graphed] = graph_groups(pipe, groups, lora, steps, graphed)
+        peak = (torch.cuda.max_memory_allocated() / 1e9, torch.cuda.max_memory_reserved() / 1e9)
+        log(f"[graphs] {tag}, {'graphs' if graphed else 'eager'}: 4 groups of "
+            f"{len(groups[0])} in {time.perf_counter() - t0:.2f} s, peak {peak[0]:.2f} GB "
+            f"allocated, {peak[1]:.2f} GB reserved")
+    (got, captures), (want, _) = runs[True], runs[False]
+    log(f"[graphs] {tag}: {len(captures)} captures, " + ", ".join(
+        f"{s * 1e3:.0f} ms (+{gb:.2f} GB reserved)" for s, gb in captures))
+    table = path_launches(steps, visit, norms)
+    for i, ((gi, go, gl, gc), (ei, eo, el, _)) in enumerate(zip(got, want)):
+        diffs = [float((a - b).abs().max()) for a, b in zip(go, eo)]
+        same = len(go) == len(eo) == steps and not any(diffs)
+        pixels = int(np.abs(gi.astype(np.int32) - ei.astype(np.int32)).max())
+        rel = rel_l2(gi / 127.5 - 1.0, ei / 127.5 - 1.0)
+        images = "identical" if pixels == 0 else f"differ by up to {pixels} levels"
+        log(f"[graphs] {tag} group {i}: visits {gc}; UNet outputs "
+            f"{'identical' if same else f'differ, largest {max(diffs or [0.0]):.3e}'} over "
+            f"{len(go)} visits; images {images}, image_rel_l2 {rel:.3e}; launches {gl}, "
+            "per visit "
+            + ", ".join(f"{k} {(gl[k] - (norms[3] if k == 'group_norm' else 0)) / steps:g}"
+                        for k in gl))
+        if gl != table or el != table:
+            problems.append(f"{tag} group {i}: launches {gl} (graphs), {el} (eager) != {table}")
+        if len(go) != steps or rel > CHECK_LIMITS[family] or not np.isfinite(rel):
+            problems.append(f"{tag} group {i}: {len(go)} visits, image_rel_l2 {rel}")
+        if gc["replayed"] + gc["captured"] + gc["eager"] != steps or (
+                i == 3 and gc["replayed"] != steps):
+            problems.append(f"{tag} group {i}: visit counts {gc}")
+    if len(captures) != 3:
+        problems.append(f"{tag}: {len(captures)} captures, not one a weight generation")
+
+
+def graph_call_vs_eager(call, tag, problems, limit):
+    """``call()`` on the graphs twice (the first captures), then on the
+    eager loop twice: wall ms of each, and the images against the eager
+    loop's."""
+    import numpy as np
+    import torch
+
+    from pww_tpu_torch.pipeline import graphs
+
+    rule, walls, images = graphs.engages, [], []
+    try:
+        for graphed in (True, True, False, False):
+            graphs.engages = rule if graphed else (lambda device, **kw: False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            images.append(call())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    finally:
+        graphs.engages = rule
+    pixels = int(np.abs(images[0].astype(np.int32) - images[2].astype(np.int32)).max())
+    rel = rel_l2(images[1] / 127.5 - 1.0, images[2] / 127.5 - 1.0)
+    log(f"[graphs] {tag}: wall ms graphs (first call, with the capture) {walls[0] * 1e3:.1f}, "
+        f"graphs {walls[1] * 1e3:.1f}; eager {walls[2] * 1e3:.1f}, {walls[3] * 1e3:.1f}; "
+        f"images {'identical' if pixels == 0 else f'differ by up to {pixels} levels'}, "
+        f"image_rel_l2 {rel:.3e}")
+    if rel > limit or not np.isfinite(rel) or not np.array_equal(images[0], images[1]):
+        problems.append(f"{tag}: image_rel_l2 {rel}, or two graph calls disagree")
+
+
+def xl_requests(n):
+    """``serve_requests``' maps at 1024²."""
+    import numpy as np
+
+    return [dict(r, color_map_image=np.repeat(np.repeat(r["color_map_image"], 2, 0), 2, 1))
+            for r in serve_requests(GRAPH_STEPS, n=n)]
+
+
+def phase_graphs(card):
+    """The UNet visits replayed from CUDA graphs (pipeline/graphs.py)
+    against the eager loop at the served signatures: SD-1.5 at 16 CFG rows
+    512² and SDXL-base at 8 rows 1024², four groups each with a LoRA merged
+    for the second; LCM-4 and the hires fix at batch 1 on SD-1.5; the
+    replays' K1-K4 device kernels in a torch.profiler trace, one a wrapper
+    call."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from pww_tpu_torch.config import SDModelConfig
+    from pww_tpu_torch.pipeline.pipeline import PwwPipeline
+    from pww_tpu_torch.tokenizer.clip_bpe import synthetic_tokenizer
+    from pww_tpu_torch.weights.bridge import synthetic_params
+
+    t_start, problems = time.perf_counter(), []
+    sd15 = sd15_pipeline(profile=False)
+    reqs = serve_requests(GRAPH_STEPS, n=32)
+    groups = [reqs[8 * i:8 * i + 8] for i in range(4)]
+    check_graph_groups(sd15, "sd15 16 rows 512²", "sd15", groups, GRAPH_STEPS, VISIT,
+                       SD15_NORMS, problems)
+    # the eager run's LoRA merge and restore dropped the graphs: capture again
+    sd15.generate_batch(groups[3], num_inference_steps=2, output_type="np")
+    before = dict(sd15.unet_graphs.counts)
+    profiled = phase_profile(lambda n: sd15.generate_batch(
+        groups[3], num_inference_steps=n, output_type="np"), "graphs replay")
+    replays = sd15.unet_graphs.counts["replayed"] - before["replayed"]
+    for group in ("K1 pww_reduce", "K2 pww_cross_attention", "K3 flash_self_attention",
+                  "K4 group_norm"):
+        if profiled.get(group, (0, 0))[1] != 1:
+            problems.append(f"profile: {group} {profiled.get(group)} device kernels per "
+                            "wrapper call under replay")
+    if replays != 5:  # phase_profile's 5-step call, every visit a replay
+        problems.append(f"profile: {replays} of 5 visits replayed")
+    one = {k: v for k, v in groups[0][0].items() if k not in ("num_inference_steps",
+                                                              "guidance_scale")}
+    graph_call_vs_eager(lambda: sd15.generate_hires(
+        **one, num_inference_steps=4, hires_strength=0.7, output_type="np"),
+        "hires fix 512² → 1024², 4 steps", problems, CHECK_LIMITS["sd15"])
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cond = (torch.randn((sd15.config.unet.block_out_channels[0], LCM_COND_DIM), generator=g,
+                        device="cuda") * 0.02).to(sd15.dtype)
+    lcm = PwwPipeline(dataclasses.replace(sd15.config, unet=dataclasses.replace(
+        sd15.config.unet, time_cond_proj_dim=LCM_COND_DIM)), params={
+        "unet": {**sd15.unet.state_dict(), "time_embedding.cond_proj.weight": cond},
+        "clip": sd15.clip.state_dict(), "vae": sd15.vae.state_dict()},
+        tokenizer=sd15.tokenizer, scheduler="lcm", device="cuda", dtype=sd15.dtype)
+    graph_call_vs_eager(lambda: lcm.generate(**one, num_inference_steps=4, guidance_scale=8.0,
+                                             output_type="np"),
+                        "LCM-4 batch 1 512²", problems, CHECK_LIMITS["sd15"])
+    del sd15, lcm
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = SDModelConfig.sdxl()
+    t0 = time.perf_counter()
+    xl = PwwPipeline(cfg, params=synthetic_params(cfg, seed=0, device="cuda",
+                                                  dtype=torch.bfloat16),
+                     tokenizer=synthetic_tokenizer(49408), device="cuda", dtype=torch.bfloat16)
+    log(f"[graphs] SDXL-base on the card in {time.perf_counter() - t0:.1f} s")
+    reqs = xl_requests(16)
+    check_graph_groups(xl, "sdxl 8 rows 1024²", "sdxl", [reqs[4 * i:4 * i + 4] for i in range(4)],
+                       GRAPH_STEPS, SDXL_LAUNCHES_PER_VISIT["sdxl"], SDXL_NORMS, problems)
+    del xl
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[graphs] {time.perf_counter() - t_start:.1f} s on {card}")
+    if problems:
+        raise SystemExit("[graphs] " + "; ".join(problems))
 
 
 def rel_l2(got, want):
@@ -5549,6 +5841,7 @@ def main():
     import torch
 
     torch.cuda.empty_cache()
+    phase_graphs(smi)
     flaunches, fprofiled = phase_single_file(args.steps, smi)
     ipipe, ikw = inpaint_pipeline()
     record_norm_sites(ikw)

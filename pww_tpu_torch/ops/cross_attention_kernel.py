@@ -143,6 +143,13 @@ def _ticket_counter(device_index: int, stream: int) -> torch.Tensor:
     return torch.zeros(1, dtype=torch.int32, device=torch.device("cuda", device_index))
 
 
+def prepare_capture_stream(stream: "torch.cuda.Stream") -> None:
+    """Make K1's ticket counter for ``stream`` before a CUDA graph is
+    captured on it, so that the counter is zeroed outside the graph and
+    lives outside its memory pool."""
+    _ticket_counter(stream.device.index, stream.cuda_stream)
+
+
 def pww_cross_attention_reduce(q: torch.Tensor, k: torch.Tensor,
                                weight_fn: AnyWeightFunction) -> torch.Tensor:
     """Plain K1: per-sample ``reduce(QKᵀ)`` over a materialized f32 score

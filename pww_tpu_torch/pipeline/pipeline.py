@@ -13,7 +13,8 @@ Port of :class:`pww_tpu.pipeline.pipeline.PwwPipeline` for these modes:
     function). A 9-channel UNet takes the mask and the masked image's
     latents as extra input channels; a 4-channel one inpaints by the legacy
     masked blend. Latents and scheduler state stay f32; the UNet runs in
-    the compute dtype;
+    the compute dtype. On the card the batched call's visits replay a CUDA
+    graph of the UNet (:mod:`.graphs`);
   * decode: VAE decode to uint8 on the device, one copy to the host, and
     for ``inpaint_full_res`` the paste back into the full image.
 
@@ -127,6 +128,7 @@ from ..types import IpState, PwwState
 from ..utils import jax_random
 from ..utils.profiling import PhaseTimer
 from ..weights.bridge import StateDicts, build_models, synthetic_params, synthetic_state
+from . import graphs as visit_graphs
 from .inpaint import (blur_mask, expand_crop_region, fill_masked_region, paste_region,
                       prepare_mask_and_masked_image)
 
@@ -412,6 +414,8 @@ class PwwPipeline:
         self.tokenizer_2 = (tokenizer_2 or tokenizer) if self.config.is_xl else None
         if params is None:
             params = synthetic_params(self.config, seed, self.device, dtype)
+        # CUDA graphs of the denoise loop's UNet visits (graphs.py)
+        self.unet_graphs = visit_graphs.VisitGraphs(self.device)
         models = build_models(self.config)  # on the meta device
         for part, module in models.items():
             self._place(module, params[part])
@@ -478,9 +482,11 @@ class PwwPipeline:
 
     def _place(self, module: torch.nn.Module, state) -> torch.nn.Module:
         """A module built on the meta device, given ``state`` on this
-        pipeline's device and dtype, for inference."""
+        pipeline's device and dtype, for inference. New weight storage:
+        the captured UNet visits are dropped."""
         sd = {k: v.to(device=self.device, dtype=self.dtype) for k, v in state.items()}
         module.load_state_dict(sd, strict=True, assign=True)
+        self.unet_graphs.invalidate()
         return module.eval().requires_grad_(False)
 
     # -- ControlNet and T2I-Adapter ----------------------------------------------
@@ -547,13 +553,14 @@ class PwwPipeline:
             towers["clip2"] = self.clip2
         return towers
 
-    @staticmethod
-    def _assign(module: torch.nn.Module, tensors: Dict[str, torch.Tensor]) -> None:
-        """Replace the named parameters of ``module`` by ``tensors``."""
+    def _assign(self, module: torch.nn.Module, tensors: Dict[str, torch.Tensor]) -> None:
+        """Replace the named parameters of ``module`` by ``tensors``; the
+        captured UNet visits are dropped."""
         for key, t in tensors.items():
             owner, _, leaf = key.rpartition(".")
             setattr(module.get_submodule(owner), leaf,
                     torch.nn.Parameter(t, requires_grad=False))
+        self.unet_graphs.invalidate()
 
     def load_lora(self, source, scale: float = 1.0) -> int:
         """Merge a LoRA into the UNet and text towers' weights
@@ -897,6 +904,11 @@ class PwwPipeline:
         Cond and uncond go through one batched UNet call per visit; a custom
         weight function takes two, the uncond one without any bias (the
         reference's semantics, ``pww_tpu/pipeline/pipeline.py:114-151``).
+        Where :func:`.graphs.engages` holds (the card, no autograd, the
+        batched path without ControlNet, T2I, DeepCache, SAG, ToMe, FreeU,
+        prompt editing or a mesh), each visit signature's first UNet call
+        runs eagerly, its second is captured as a CUDA graph and every later
+        one replays it (:attr:`unet_graphs`).
         ``extra`` (N, E, h, w) joins the UNet input channels (9-channel
         inpaint). ``blend`` = (mask, init, noise) is the legacy masked blend:
         before each UNet call the unmasked latents are reset to the init's
@@ -1000,11 +1012,19 @@ class PwwPipeline:
         extras = dict(tome_ratio=float(tome_ratio), freeu=freeu)
         state = schedule.init_state(lat.shape, self.device)
         t_stop = schedule.num_steps if t_end is None else t_end
+        graphs = visit_graphs.engages(
+            self.device, split=split, control=control, adapter=adapter,
+            cache_interval=cache_interval, sag_scale=sag_scale, conds=conds,
+            tome_ratio=tome_ratio, freeu=freeu,
+            whole=type(shard) is BatchRows and shard.mesh is None)
+        session = None  # the call's visits through the UNet's CUDA graphs
         if not split:  # both CFG halves in one call: hints and features twice
             control = [(net, torch.cat([h, h]), sc) for net, h, sc in control or ()]
             adapter = None if adapter is None else [torch.cat([a, a]) for a in adapter]
         feature = None  # DeepCache's deep feature, from the last full visit
         for i in range(t_start, t_stop):
+            if not graphs:
+                self.unet_graphs.count_eager()
             if conds is not None:
                 text_states, pww, added_cond = conds[i]
                 text_states, pww, added_cond = (shard.cfg(text_states), shard.pww(pww),
@@ -1049,6 +1069,11 @@ class PwwPipeline:
                 elif cache_interval > 1:
                     eps2 = self.unet(*args, cache_mode="use", cached_feature=feature, ip=ip,
                                      **extras)
+                elif graphs:
+                    visit = {"lat": lat2, "t": t, "sigma": sigma}
+                    if session is None:
+                        session = self._visit_session(text_states, pww, added_cond, ip, visit)
+                    eps2 = session.visit(visit)
                 else:
                     eps2 = self.unet(*args, sag_probs=probs, ip=ip, **extras)
                 out_u, out_c = eps2[:n].float(), eps2[n:].float()
@@ -1070,6 +1095,33 @@ class PwwPipeline:
             mask, init, _ = blend
             lat = init * (1.0 - mask) + lat * mask
         return lat
+
+    def _visit_session(self, text_states, pww: PwwState, added_cond, ip, visit):
+        """The CUDA-graph session of a call's UNet visits on the batched CFG
+        path (:mod:`.graphs`): the call's constant inputs (text states, the
+        PwW pyramid, the added conditions, the IP tokens) and the UNet visit
+        on them and on ``visit``'s latents, timestep and sigma. The
+        full-resolution PwW map joins them only where some level's size is
+        not a pyramid key, since no site reads it otherwise."""
+        h, w = visit["lat"].shape[-2:]
+        levels = len(self.config.unet.block_out_channels)
+        keys, added_keys = list(pww.weights), list(added_cond or ())
+        call = {"text": text_states, **{f"w{k}": pww.weights[k] for k in keys},
+                **{f"added.{k}": added_cond[k] for k in added_keys}}
+        if pww.weight_orig is not None and any(
+                (h // 2 ** i) * (w // 2 ** i) not in pww.weights for i in range(levels)):
+            call["orig"] = pww.weight_orig
+        if ip is not None:
+            call["ip"] = ip.tokens
+        unet, weight_fn, ip_scale = self.unet, pww.weight_fn, None if ip is None else ip.scale
+
+        def run(x):
+            p = PwwState({k: x[f"w{k}"] for k in keys}, x.get("orig"), x["sigma"], weight_fn)
+            added = None if added_cond is None else {k: x[f"added.{k}"] for k in added_keys}
+            return unet(x["lat"], x["t"], x["text"], p, None, None, None, added,
+                        ip=None if ip is None else IpState(x["ip"], ip_scale))
+
+        return self.unet_graphs.session(unet, run, call, visit, weight_fn, ip_scale)
 
     def _sag_degraded_eps(self, lat, eps_u, probs_u, i, schedule, t, text_u, pww_t,
                           added_cond, extras, ip_u=None, shard=None):

@@ -211,7 +211,10 @@ class Batcher:
         self._stats_lock = threading.Lock()
         self._last_launch: Optional[_Launch] = None  # worker thread only
         self._fetch_stream = None  # the fetcher's CUDA stream, made on first use
-        self.stats = {"requests": 0, "batches": 0, "batched_requests": 0, "retries": 0}
+        # unet_visits: the denoise visits of the pipeline's calls; graph_visits:
+        # those replayed from a CUDA graph (pipeline/graphs.py)
+        self.stats = {"requests": 0, "batches": 0, "batched_requests": 0, "retries": 0,
+                      "unet_visits": 0, "graph_visits": 0}
         self._latencies = deque(maxlen=1024)  # seconds, per finished request
         # one fetch thread: resolves launched groups in launch order
         self._fetcher = ThreadPoolExecutor(max_workers=1, thread_name_prefix="pww-fetch")
@@ -315,6 +318,7 @@ class Batcher:
             group = self._drain_group(first)
             self.stats["batches"] += 1
             self.stats["batched_requests"] += len(group)
+            visits = self._visits()
             try:
                 if group[0].key and group[0].key[0] == "singleton":
                     self._run_singleton(group[0])
@@ -324,8 +328,17 @@ class Batcher:
                 for p in group:
                     if not p.future.done():
                         p.future.set_exception(e)
+            unet, graph = (now - before for now, before in zip(self._visits(), visits))
+            self.stats["unet_visits"] += unet
+            self.stats["graph_visits"] += graph
         if self._mesh is not None:  # the followers' stop, after the last call
             dist.broadcast_object_list([(None, None, None)], src=0, group=self._group)
+
+    def _visits(self) -> Tuple[int, int]:
+        """The pipeline's (UNet visits, graph visits) so far; (0, 0) for a
+        pipeline that does not count them."""
+        graphs = getattr(self.pipeline, "unet_graphs", None)
+        return (0, 0) if graphs is None else graphs.visits()
 
     def _run_singleton(self, p: _Pending) -> None:
         """A singleton through ``generate``; where ``generate`` refuses device
